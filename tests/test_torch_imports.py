@@ -1,0 +1,77 @@
+"""The PyTorch port stands alone: importing any of its modules loads no JAX
+and nothing of the JAX package, and its entry points run on the CUDA card
+unless told otherwise.
+
+One fresh interpreter (this test process has already imported both
+packages) imports every module of the port in turn and records, after each,
+which forbidden modules have been loaded; each module is then its own test
+case. The port's name begins with ``transformers_tpu``, so the JAX package is
+matched by its exact name or its ``transformers_tpu.`` prefix, never by a
+bare string prefix.
+"""
+
+import json
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import transformers_tpu_torch as port
+
+REPO = Path(__file__).resolve().parents[1]
+MODULES = sorted(["transformers_tpu_torch"] + [
+    m.name for m in pkgutil.walk_packages(port.__path__, "transformers_tpu_torch.")])
+
+_CHILD = r"""
+import importlib, json, sys
+
+def forbidden():
+    return sorted(m for m in sys.modules
+                  if m in ("jax", "jaxlib", "transformers_tpu")
+                  or m.startswith(("jax.", "jaxlib.", "transformers_tpu.")))
+
+report = {}
+for name in json.loads(sys.argv[1]):
+    importlib.import_module(name)
+    report[name] = forbidden()
+print(json.dumps(report))
+"""
+
+
+@pytest.fixture(scope="module")
+def import_report():
+    proc = subprocess.run([sys.executable, "-c", _CHILD, json.dumps(MODULES)], cwd=REPO,
+                          capture_output=True, text=True, timeout=120, check=True)
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_module_imports_no_jax_and_no_jax_package(import_report, module):
+    assert import_report[module] == []
+
+
+def test_every_kernel_module_is_checked():
+    for name in ("transformers_tpu_torch.ops.flash_attention",
+                 "transformers_tpu_torch.ops.fused_decode",
+                 "transformers_tpu_torch.ops.cuda_build",
+                 "transformers_tpu_torch.models.llama.modeling_llama"):
+        assert name in MODULES
+
+
+@pytest.mark.parametrize("entry", ["constructor", "from_pretrained", "auto_from_config"])
+def test_entry_points_default_to_cuda_and_raise_without_a_card(entry, tmp_path, monkeypatch):
+    config = port.LlamaConfig(vocab_size=32, hidden_size=64, intermediate_size=64,
+                              num_hidden_layers=1, num_attention_heads=1, head_dim=64)
+    if entry == "from_pretrained":
+        port.LlamaForCausalLM(config, device="cpu").init_weights(0).save_pretrained(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if entry == "constructor":
+            port.LlamaForCausalLM(config)
+        elif entry == "from_pretrained":
+            port.AutoModelForCausalLM.from_pretrained(tmp_path)
+        else:
+            port.AutoModelForCausalLM.from_config(config)

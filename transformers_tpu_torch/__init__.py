@@ -1,0 +1,13 @@
+"""transformers_tpu_torch: the PyTorch/CUDA port of ``transformers_tpu``.
+
+It imports ``torch`` and never ``jax`` or ``transformers_tpu``. Entry points
+run on the CUDA card unless ``device="cpu"`` is passed. Kernels are built
+from ``csrc/`` at first use (ops/cuda_build.py).
+"""
+
+from .configuration_utils import PretrainedConfig
+from .convert import params_from_jax
+from .generation import GenerationConfig
+from .modeling_utils import PreTrainedModel
+from .models.auto import AutoConfig, AutoModelForCausalLM
+from .models.llama import LlamaConfig, LlamaForCausalLM

@@ -1,0 +1,25 @@
+"""Typed model outputs (port of the two ``transformers_tpu/modeling_outputs.py``
+classes the decoder path returns)."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Optional
+
+import torch
+
+
+@dataclass
+class BaseModelOutputWithPast:
+    last_hidden_state: Optional[torch.Tensor] = None
+    past_key_values: Optional[Any] = None
+    hidden_states: Optional[tuple] = None
+    attentions: Optional[tuple] = None
+
+
+@dataclass
+class CausalLMOutputWithPast:
+    logits: Optional[torch.Tensor] = None
+    past_key_values: Optional[Any] = None
+    hidden_states: Optional[tuple] = None
+    attentions: Optional[tuple] = None

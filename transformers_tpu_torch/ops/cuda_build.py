@@ -1,0 +1,117 @@
+"""Build and load the port's CUDA kernels (``transformers_tpu_torch/csrc``).
+
+Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with ``nvcc``
+for ``sm_90a`` into its own shared library under ``transformers_tpu_torch/_build``
+(listed in ``.gitignore``) at first use, and loaded with ``ctypes``. The
+library's file name carries a hash of the sources and flags, so an edited
+source is rebuilt and a stale build is never loaded. Nothing is built or
+loaded when this module is imported: the CPU tests import every module on a
+machine without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+KERNELS = ("flash_fwd", "fused_decode")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# kept in step with csrc/common.cuh
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [str(Path(home) / "bin" / "nvcc")] if home else []
+    candidates += [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    for c in candidates:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` builds to (named by a hash of what goes in)."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build(names=KERNELS) -> None:
+    """Compile the named kernels that are not built yet, one ``nvcc`` each,
+    all started together. ``nvcc``'s register and shared-memory report is
+    kept beside each library as ``.log``. Raises with the compiler's output
+    when a build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        out.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed\n" + "\n".join(failed))
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """The built library for ``csrc/<name>.cu``, building it on first use."""
+    build((name,))
+    return ctypes.CDLL(str(library_path(name)))
+
+
+@functools.cache
+def kernel_fn(name: str, symbol: str, argtypes: tuple):
+    """The C function ``symbol`` of kernel library ``name``, with its argument
+    types set (``c_void_p`` for pointers and the stream) and an int result."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_cuda(tensors: dict, dtype: torch.dtype, device: torch.device) -> None:
+    """Raise unless every tensor lies on ``device``, is contiguous, and is 16-byte
+    aligned (the kernels use vector loads); ``dtype`` applies to the
+    floating-point tensors."""
+    for name, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if t.is_floating_point() and t.dtype != dtype:
+            raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def raise_on_error(code: int, kernel: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{kernel} launch failed: cudaError {code}")
