@@ -10,7 +10,9 @@ Phases, in order; any failure exits non-zero:
 (b) hold each kernel against its plain PyTorch version at the main path's
     shapes, in bf16, and time the kernel, the plain version and one PyTorch
     library call that computes the same function (a yardstick only: the port
-    never calls it), beside the least time the card could take;
+    never calls it), beside the least time the card could take; then hold
+    them on the cases of the reference's tests/ops files in float32, float16
+    and bf16, at head_dim 64, 128 and 256;
 (c) the main path at the Llama-3-8B geometry in bf16 with random weights
     from ``--seed``: a full-width, 2-layer checkpoint written with the port's
     safetensors writer and read back by ``from_pretrained``; then
@@ -46,11 +48,40 @@ BATCH, PROMPT, NEW = 8, 128, 32
 # left padding of each prompt row (slots of the 128 that are pad)
 PADS = (0, 3, 17, 0, 40, 1, 0, 64)
 
-# bf16 kernel vs plain: both compute in f32 from the same bf16 inputs and
-# round the output once; sums run in another order, so outputs of magnitude
-# up to ~4 differ by at most about one bf16 step (2^-8 relative).
-KERNEL_ATOL = 2e-2
+# Kernel vs plain: both compute in f32 from the same inputs and round the
+# output once to the storage type; sums run in another order, so outputs of
+# magnitude up to ~4 differ by about one step of that type (bf16 2^-8, f16
+# 2^-11 relative), and in f32 by a few ulps of the sums.
+TOLERANCE = {torch.bfloat16: 2e-2, torch.float16: 5e-3, torch.float32: 2e-5}
+KERNEL_ATOL = TOLERANCE[torch.bfloat16]
 LSE_ATOL = 1e-3  # f32 logsumexp from the same scores
+
+# The cases of tests/ops/test_flash_attention.py and tests/ops/test_fused_decode.py
+# (which the CPU tests hold the plain versions to), plus head_dim 256 and 64
+# cases, run in every storage type the kernels are built for.
+FLASH_OPS_CASES = {  # name: (b, sq, skv, h, kvh, d, left pads, window, cap)
+    "causal_128_128": (2, 128, 128, 4, 2, 64, None, None, None),
+    "causal_64_256": (2, 64, 256, 4, 2, 64, None, None, None),
+    "causal_100_300": (2, 100, 300, 4, 2, 64, None, None, None),
+    "padded_kv": (2, 64, 192, 4, 4, 64, (40, 10), None, None),
+    "sliding_window": (1, 256, 256, 2, 2, 64, None, 64, None),
+    "logit_cap": (1, 128, 128, 2, 2, 64, None, None, 30.0),
+    "gqa_d128": (2, 128, 128, 4, 2, 128, None, None, None),
+    "d256_padded_window": (2, 96, 160, 4, 1, 256, (17, 0), 40, None),
+}
+DECODE_OPS_CASES = {  # name: (b, h, kvh, d, s, pos, starts, hole fraction)
+    "gqa_1": (3, 4, 4, 128, 64, 41, None, 0),
+    "gqa_4": (3, 8, 2, 128, 64, 41, None, 0),
+    "gqa_8": (3, 16, 2, 128, 64, 41, None, 0),
+    "first_token": (2, 8, 4, 128, 64, 0, None, 0),
+    "left_padding_starts": (3, 8, 2, 128, 64, 50, [0, 7, 23], 0),
+    "mask_holes": (2, 4, 4, 128, 64, 30, None, 0.1),
+    "bf16_case": (4, 8, 2, 128, 128, 100, None, 0),
+    "chunked_long_context": (4, 8, 8, 128, 1536, 1200, [0, 100, 511, 512], 0),
+    "bench_geometry": (8, 32, 8, 128, 224, 192, None, 0),
+    "d64_gqa_6": (2, 12, 2, 64, 96, 70, [5, 0], 0),
+    "d256_gqa_8": (2, 8, 1, 256, 80, 79, [3, 0], 0.05),
+}
 
 
 def card_line() -> str:
@@ -110,16 +141,33 @@ def phase_build() -> dict:
 
 
 # --------------------------------------------------------------------- (b)
-def _flash_inputs(gen, *, b=8, s=128, h=32, kvh=8, d=128, pads=None):
+def _flash_inputs(gen, *, b=8, sq=128, skv=128, h=32, kvh=8, d=128, pads=None,
+                  dtype=torch.bfloat16):
+    """Queries occupy the last ``sq`` slots of a ``skv``-slot timeline."""
     dev = "cuda"
-    q = torch.randn((b, s, h, d), generator=gen, device=dev).to(torch.bfloat16)
-    k = torch.randn((b, s, kvh, d), generator=gen, device=dev).to(torch.bfloat16)
-    v = torch.randn((b, s, kvh, d), generator=gen, device=dev).to(torch.bfloat16)
-    qpos = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s).contiguous()
-    valid = torch.ones((b, s), dtype=torch.int32, device=dev)
+    q = torch.randn((b, sq, h, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, skv, kvh, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, skv, kvh, d), generator=gen, device=dev).to(dtype)
+    qpos = (skv - sq + torch.arange(sq, dtype=torch.int32, device=dev)).expand(b, sq)
+    valid = torch.ones((b, skv), dtype=torch.int32, device=dev)
     for row, p in enumerate(pads or ()):
         valid[row, :p] = 0
-    return q, k, v, qpos, valid
+    return q, k, v, qpos.contiguous(), valid
+
+
+def _flash_errors(q, k, v, qpos, valid, **kw) -> tuple[float, float]:
+    """Max abs error of the kernel's output and logsumexp against the plain
+    version's; raises if the two disagree on which rows see no slot."""
+    from transformers_tpu_torch.ops.flash_attention import (flash_attention,
+                                                            flash_attention_plain)
+
+    out, lse = flash_attention(q, k, v, q_positions=qpos, kv_valid=valid, return_lse=True, **kw)
+    ref, ref_lse = flash_attention_plain(q, k, v, qpos, valid, **kw)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(ref_lse)
+    if not torch.equal(fin, torch.isfinite(lse)):
+        raise AssertionError("flash: fully masked rows differ")
+    return max_err(out, ref), max_err(lse[fin], ref_lse[fin])
 
 
 def check_flash(gen) -> dict:
@@ -138,15 +186,7 @@ def check_flash(gen) -> dict:
         q, k, v, qpos, valid = _flash_inputs(gen, pads=c.get("pads"))
         kw = dict(scale=q.shape[-1] ** -0.5, is_causal=True,
                   sliding_window=c.get("window"), logit_cap=c.get("cap"))
-        out, lse = flash_attention(q, k, v, q_positions=qpos, kv_valid=valid,
-                                   return_lse=True, **kw)
-        ref, ref_lse = flash_attention_plain(q, k, v, qpos, valid, **kw)
-        torch.cuda.synchronize()
-        err = max_err(out, ref)
-        fin = torch.isfinite(ref_lse)
-        if not torch.equal(fin, torch.isfinite(lse)):
-            raise AssertionError(f"flash {name}: fully masked rows differ")
-        lse_err = max_err(lse[fin], ref_lse[fin])
+        err, lse_err = _flash_errors(q, k, v, qpos, valid, **kw)
         ok = err <= KERNEL_ATOL and lse_err <= LSE_ATOL
         print(f"[flash] {name}: max_abs_err out {err:.3e} (tol {KERNEL_ATOL}) "
               f"lse {lse_err:.3e} (tol {LSE_ATOL})")
@@ -164,8 +204,8 @@ def check_flash(gen) -> dict:
         library_ms = device_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=m4, scale=kw["scale"], enable_gqa=True))
         visible = int(mask.sum())
-        nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * 2 + lse.numel() * 4 \
-            + (qpos.numel() + valid.numel()) * 4
+        nbytes = (q.numel() * 2 + k.numel() + v.numel()) * 2 + b * h * s * 4 \
+            + (qpos.numel() + valid.numel()) * 4  # q, k, v and out; lse; mask data
         bms, by = bound_ms(nbytes, 4.0 * d * h * visible)
         result = dict(name="flash_fwd", route="cuda",
                       source="transformers_tpu_torch/csrc/flash_fwd.cu",
@@ -177,9 +217,10 @@ def check_flash(gen) -> dict:
     return result
 
 
-def _decode_inputs(gen, *, b=8, h=32, kvh=8, d=128, s=160, starts=None, holes=0):
+def _decode_inputs(gen, *, b=8, h=32, kvh=8, d=128, s=160, starts=None, holes=0,
+                   dtype=torch.bfloat16):
     dev = "cuda"
-    bf = torch.bfloat16
+    bf = dtype
     q = torch.randn((b, 1, h, d), generator=gen, device=dev).to(bf)
     k_new = torch.randn((b, 1, kvh, d), generator=gen, device=dev).to(bf)
     v_new = torch.randn((b, 1, kvh, d), generator=gen, device=dev).to(bf)
@@ -254,6 +295,44 @@ def check_decode(gen) -> dict:
               f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bms:.4f} ms ({by})")
     return result
 
+
+
+def check_reference_cases(gen) -> None:
+    """Each kernel against its plain version on the reference's tests/ops
+    cases, in float32, float16 and bf16: every build of both kernels (three
+    storage types by head_dim 64, 128, 256) runs at least once."""
+    from transformers_tpu_torch.ops.fused_decode import (fused_decode_attention,
+                                                         fused_decode_plain)
+
+    worst = {}
+    for dtype, tol in TOLERANCE.items():
+        for name, (b, sq, skv, h, kvh, d, pads, window, cap) in FLASH_OPS_CASES.items():
+            q, k, v, qpos, valid = _flash_inputs(gen, b=b, sq=sq, skv=skv, h=h, kvh=kvh, d=d,
+                                                 pads=pads, dtype=dtype)
+            err, lse_err = _flash_errors(q, k, v, qpos, valid, scale=d ** -0.5,
+                                         sliding_window=window, logit_cap=cap)
+            if err > tol or lse_err > LSE_ATOL:
+                raise AssertionError(f"flash kernel disagrees with its plain version: {name} "
+                                     f"{dtype}: out {err:.3e} lse {lse_err:.3e}")
+            worst[("flash_fwd", dtype)] = max(worst.get(("flash_fwd", dtype), 0.0), err)
+        for name, (b, h, kvh, d, s, pos, starts, holes) in DECODE_OPS_CASES.items():
+            q, kn, vn, cos, sin, kc, vc, start, valid = _decode_inputs(
+                gen, b=b, h=h, kvh=kvh, d=d, s=s, starts=starts, holes=holes, dtype=dtype)
+            kc2, vc2 = kc.clone(), vc.clone()
+            out = fused_decode_attention(q, kn, vn, cos, sin, kc, vc, pos, start, valid,
+                                         scale=d ** -0.5)
+            ref = fused_decode_plain(q, kn, vn, cos, sin, kc2, vc2, pos, start, valid,
+                                     scale=d ** -0.5)
+            torch.cuda.synchronize()
+            err = max(max_err(out, ref), max_err(kc, kc2), max_err(vc, vc2))
+            if err > tol:
+                raise AssertionError(f"fused decode kernel disagrees with its plain version: "
+                                     f"{name} {dtype}: {err:.3e}")
+            worst[("fused_decode", dtype)] = max(worst.get(("fused_decode", dtype), 0.0), err)
+    n_cases = {"flash_fwd": len(FLASH_OPS_CASES), "fused_decode": len(DECODE_OPS_CASES)}
+    for (kernel, dtype), err in worst.items():
+        print(f"[ops cases] {kernel} {str(dtype).replace('torch.', '')}: max_abs_err "
+              f"{err:.3e} over {n_cases[kernel]} cases (tol {TOLERANCE[dtype]})")
 
 
 # --------------------------------------------------------------------- (c)
@@ -447,6 +526,7 @@ def main() -> int:
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     kernels = [check_flash(gen), check_decode(gen)]
+    check_reference_cases(gen)
     check_load_path(args.seed, card)
     counts = check_generate(args.seed, card)
     for k in kernels:
