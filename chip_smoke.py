@@ -32,7 +32,6 @@ import shutil
 import subprocess
 import sys
 import time
-from pathlib import Path
 
 import torch
 

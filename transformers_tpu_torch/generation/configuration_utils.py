@@ -11,7 +11,6 @@ import copy
 import json
 import logging
 import os
-from typing import Any, Optional
 
 logger = logging.getLogger(__name__)
 
