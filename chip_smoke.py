@@ -7,18 +7,25 @@ Phases, in order; any failure exits non-zero:
 
 (a) build every CUDA kernel from ``transformers_tpu_torch/csrc`` (one nvcc per
     source, all at once) and print the card's name and power limit;
-(b) hold each kernel against its plain PyTorch version at the main path's
+(b) hold each kernel against its plain PyTorch version at the main paths'
     shapes, in bf16, and time the kernel, the plain version and one PyTorch
     library call that computes the same function (a yardstick only: the port
     never calls it), beside the least time the card could take; then hold
     them on the cases of the reference's tests/ops files in float32, float16
     and bf16, at head_dim 64, 128 and 256;
-(c) the main path at the Llama-3-8B geometry in bf16 with random weights
-    from ``--seed``: a full-width, 2-layer checkpoint written with the port's
-    safetensors writer and read back by ``from_pretrained``; then
+(c) the static-cache path at the Llama-3-8B geometry in bf16 with random
+    weights from ``--seed``: a full-width, 2-layer checkpoint written with the
+    port's safetensors writer and read back by ``from_pretrained``; then
     ``generate`` (batch 8, prompt 128, 32 new tokens, greedy) on the 32-layer
-    model, with both kernels' launch counts checked per layer; then the
-    generated tokens teacher-forced through the plain path.
+    model, with the kernels' launch counts checked per layer; then the
+    generated tokens teacher-forced through the plain path;
+(d) the continuous-batching path on the same 32-layer model: the engine
+    (block size 32, 8 resident requests, 128-token prefill budget, 320 pages)
+    serves 16 requests with prompts of 64-512 tokens from ``--seed``, four of
+    them sharing a 256-token prefix, 64 new tokens each, greedy, once with a
+    host sync every step and once every 16 steps; launch counts checked
+    against the engine's own count of prefill chunks and decode steps; a few
+    finished requests teacher-forced through the plain path.
 
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit, and
 ends with ``{"ok": true, "device": {...}}``. Needs one CUDA card.
@@ -28,11 +35,13 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import shutil
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -46,6 +55,10 @@ GEOMETRY = dict(vocab_size=128256, hidden_size=4096, intermediate_size=14336,
 BATCH, PROMPT, NEW = 8, 128, 32
 # left padding of each prompt row (slots of the 128 that are pad)
 PADS = (0, 3, 17, 0, 40, 1, 0, 64)
+# continuous batching (phase d): engine settings, and the traffic
+CB_ENGINE = dict(block_size=32, max_batch=8, token_budget=128, num_blocks=320, max_context=640)
+CB_REQUESTS, CB_NEW, CB_PREFIX = 16, 64, 256
+CB_SHARED = (0, 8, 11, 14)  # requests that open with the shared prefix
 
 # Kernel vs plain: both compute in f32 from the same inputs and round the
 # output once to the storage type; sums run in another order, so outputs of
@@ -80,6 +93,24 @@ DECODE_OPS_CASES = {  # name: (b, h, kvh, d, s, pos, starts, hole fraction)
     "bench_geometry": (8, 32, 8, 128, 224, 192, None, 0),
     "d64_gqa_6": (2, 12, 2, 64, 96, 70, [5, 0], 0),
     "d256_gqa_8": (2, 8, 1, 256, 80, 79, [3, 0], 0.05),
+}
+PAGED_OPS_CASES = {  # name: (n, h, kvh, d, block size, ctx_lens, window)
+    "gqa_1": (3, 8, 8, 128, 16, (40, 16, 61), None),
+    "gqa_4": (3, 8, 2, 128, 16, (40, 16, 61), None),
+    "gqa_8": (3, 16, 2, 128, 16, (40, 16, 61), None),
+    "single_token_context": (2, 4, 4, 128, 16, (1, 33), None),
+    "many_page_groups": (2, 8, 2, 128, 16, (296, 219), None),
+    "ragged": (5, 8, 4, 128, 32, (32, 1, 317, 64, 200), None),
+    "head_dim_64": (5, 8, 4, 64, 32, (32, 1, 317, 64, 200), None),
+    "window_16": (3, 8, 2, 128, 16, (100, 48, 32), 16),
+    "window_40": (3, 8, 2, 128, 16, (100, 48, 32), 40),
+    "window_128": (3, 8, 2, 128, 16, (100, 48, 32), 128),
+    "bf16_long_context_sliding": (2, 16, 2, 128, 32, (521, 77), 200),
+    "ctx_0": (2, 8, 2, 128, 16, (0, 40), None),
+    "gqa_16": (2, 32, 2, 128, 32, (90, 33), None),
+    "d64_gqa_8": (3, 16, 2, 64, 16, (40, 1, 77), None),
+    "d256_gqa_2": (3, 4, 2, 256, 32, (100, 33, 1), 40),
+    "d256_gqa_8": (2, 8, 1, 256, 16, (64, 130), None),
 }
 
 
@@ -133,8 +164,11 @@ def phase_build() -> dict:
     secs = time.perf_counter() - t0
     for name in cuda_build.KERNELS:
         log = cuda_build.library_path(name).with_suffix(".log").read_text()
-        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-        print(f"[build] {name}: " + " | ".join(regs[:12]))
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
+        smem = [int(m) for m in re.findall(r"(\d+) bytes smem", log)] or [0]
+        spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill", log))
+        print(f"[build] {name}: {len(regs)} kernels, registers {min(regs)}-{max(regs)}, "
+              f"static smem up to {max(smem)} bytes, spill bytes {spills}")
     print(f"[build] kernels built in {secs:.1f} s")
     return {"build_s": secs}
 
@@ -294,12 +328,91 @@ def check_decode(gen) -> dict:
               f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bms:.4f} ms ({by})")
     return result
 
+def _paged_inputs(gen, *, n=8, h=32, kvh=8, d=128, bs=32, ctx_lens, dtype=torch.bfloat16):
+    """Random pools with shuffled page ids: row i holds ceil(ctx_i / bs) pages;
+    page 0 is the null page and dead table entries point at it."""
+    dev = "cuda"
+    maxb = max(1, max(-(-c // bs) for c in ctx_lens))
+    pages = sum(-(-c // bs) for c in ctx_lens) + 1
+    q = torch.randn((n, 1, h, d), generator=gen, device=dev).to(dtype)
+    k_pool = torch.randn((pages, kvh, bs, d), generator=gen, device=dev).to(dtype)
+    v_pool = torch.randn((pages, kvh, bs, d), generator=gen, device=dev).to(dtype)
+    perm = (torch.randperm(pages - 1, generator=gen, device=dev) + 1).tolist()
+    tables = torch.zeros((n, maxb), dtype=torch.int32)
+    for i, c in enumerate(ctx_lens):
+        need = -(-c // bs)
+        tables[i, :need] = torch.tensor(perm[:need], dtype=torch.int32)
+        perm = perm[need:]
+    ctx = torch.tensor(ctx_lens, dtype=torch.int32, device=dev)
+    return q, k_pool, v_pool, tables.to(dev), ctx
+
+
+def _paged_error(q, k_pool, v_pool, tables, ctx, window) -> float:
+    from transformers_tpu_torch.ops.paged_attention import (paged_decode_attention,
+                                                            paged_decode_plain)
+
+    kw = dict(scale=q.shape[-1] ** -0.5, sliding_window=window)
+    out = paged_decode_attention(q, k_pool, v_pool, tables, ctx, **kw)
+    ref = paged_decode_plain(q, k_pool, v_pool, tables, ctx, **kw)
+    torch.cuda.synchronize()
+    return max_err(out, ref)
+
+
+def check_paged(gen) -> dict:
+    """K6 at the CB path's shapes: 8 rows, 32 query heads over 8 kv heads,
+    head_dim 128, pages of 32 slots, bf16, ragged contexts of 64-576 slots."""
+    import torch.nn.functional as F
+
+    from transformers_tpu_torch.ops.paged_attention import (paged_decode_attention,
+                                                            paged_decode_plain)
+
+    ctx_lens = torch.randint(64, 577, (BATCH,), generator=gen, device="cuda").tolist()
+    result = None
+    for name, window in (("ragged", None), ("ragged_window_100", 100)):
+        q, k_pool, v_pool, tables, ctx = _paged_inputs(gen, ctx_lens=ctx_lens)
+        err = _paged_error(q, k_pool, v_pool, tables, ctx, window)
+        print(f"[paged] {name} ctx {ctx_lens}: max_abs_err {err:.3e} (tol {KERNEL_ATOL})")
+        if err > KERNEL_ATOL:
+            raise AssertionError(f"paged decode kernel disagrees with its plain version ({name})")
+        if window is not None:
+            continue
+        n, _, h, d = q.shape
+        kvh, bs = k_pool.shape[1], k_pool.shape[2]
+        scale = d ** -0.5
+        ms = device_ms(lambda: paged_decode_attention(q, k_pool, v_pool, tables, ctx,
+                                                      scale=scale))
+        plain_ms = device_ms(lambda: paged_decode_plain(q, k_pool, v_pool, tables, ctx,
+                                                        scale=scale))
+        # yardstick: SDPA over the same pages already gathered contiguous
+        s = tables.shape[1] * bs
+        kc = k_pool[tables.long()].permute(0, 2, 1, 3, 4).reshape(n, kvh, s, d).contiguous()
+        vc = v_pool[tables.long()].permute(0, 2, 1, 3, 4).reshape(n, kvh, s, d).contiguous()
+        live = torch.arange(s, device="cuda")[None, :] < ctx[:, None]
+        qt, m4 = q.transpose(1, 2), live[:, None, None, :]
+        library_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kc, vc, attn_mask=m4, scale=scale, enable_gqa=True))
+        n_live = sum(ctx_lens)
+        nbytes = (n_live * kvh * d * 2 * 2                  # K and V of live slots
+                  + 2 * q.numel() * 2                       # q and out
+                  + tables.numel() * 4 + ctx.numel() * 4)
+        bms, by = bound_ms(nbytes, 4.0 * d * h * n_live)
+        result = dict(name="paged_decode", route="cuda",
+                      source="transformers_tpu_torch/csrc/paged_decode.cu",
+                      replaces="transformers_tpu/ops/pallas/paged_attention.py:216",
+                      max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                      library_ms=library_ms,
+                      library="SDPA over the pages gathered contiguous beforehand")
+        print(f"[paged] N={n} H={h} KVH={kvh} D={d} BS={bs} live slots {n_live}: {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, sdpa (pages pre-gathered) {library_ms:.4f} ms, "
+              f"bound {bms:.4f} ms ({by})")
+    return result
 
 
 def check_reference_cases(gen) -> None:
     """Each kernel against its plain version on the reference's tests/ops
-    cases, in float32, float16 and bf16: every build of both kernels (three
-    storage types by head_dim 64, 128, 256) runs at least once."""
+    cases, in float32, float16 and bf16: every build of the kernels (three
+    storage types by head_dim 64, 128, 256, and for paged decode by query-head
+    group of up to 4 and up to 8) runs at least once."""
     from transformers_tpu_torch.ops.fused_decode import (fused_decode_attention,
                                                          fused_decode_plain)
 
@@ -328,27 +441,38 @@ def check_reference_cases(gen) -> None:
                 raise AssertionError(f"fused decode kernel disagrees with its plain version: "
                                      f"{name} {dtype}: {err:.3e}")
             worst[("fused_decode", dtype)] = max(worst.get(("fused_decode", dtype), 0.0), err)
-    n_cases = {"flash_fwd": len(FLASH_OPS_CASES), "fused_decode": len(DECODE_OPS_CASES)}
+        for name, (n, h, kvh, d, bs, ctx_lens, window) in PAGED_OPS_CASES.items():
+            q, k_pool, v_pool, tables, ctx = _paged_inputs(gen, n=n, h=h, kvh=kvh, d=d, bs=bs,
+                                                           ctx_lens=ctx_lens, dtype=dtype)
+            err = _paged_error(q, k_pool, v_pool, tables, ctx, window)
+            if err > tol:
+                raise AssertionError(f"paged decode kernel disagrees with its plain version: "
+                                     f"{name} {dtype}: {err:.3e}")
+            worst[("paged_decode", dtype)] = max(worst.get(("paged_decode", dtype), 0.0), err)
+    n_cases = {"flash_fwd": len(FLASH_OPS_CASES), "fused_decode": len(DECODE_OPS_CASES),
+               "paged_decode": len(PAGED_OPS_CASES)}
     for (kernel, dtype), err in worst.items():
         print(f"[ops cases] {kernel} {str(dtype).replace('torch.', '')}: max_abs_err "
               f"{err:.3e} over {n_cases[kernel]} cases (tol {TOLERANCE[dtype]})")
 
 
 # --------------------------------------------------------------------- (c)
-def _reset_counts():
+def _wrappers() -> dict:
     from transformers_tpu_torch.ops.flash_attention import flash_attention
     from transformers_tpu_torch.ops.fused_decode import fused_decode_attention
+    from transformers_tpu_torch.ops.paged_attention import paged_decode_attention
 
-    flash_attention.launches = 0
-    fused_decode_attention.launches = 0
+    return {"flash_fwd": flash_attention, "fused_decode": fused_decode_attention,
+            "paged_decode": paged_decode_attention}
+
+
+def _reset_counts():
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def _read_counts() -> dict:
-    from transformers_tpu_torch.ops.flash_attention import flash_attention
-    from transformers_tpu_torch.ops.fused_decode import fused_decode_attention
-
-    return {"flash_fwd": flash_attention.launches,
-            "fused_decode": fused_decode_attention.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def _timed(fn) -> float:
@@ -395,13 +519,19 @@ def check_load_path(seed: int, card: str) -> None:
           f"from_pretrained {load_ms:.0f} ms; weights and logits identical ({card})")
 
 
-def check_generate(seed: int, card: str) -> dict:
+def build_model(seed: int):
+    """The 32-layer Llama-3-8B-geometry model in bf16, random weights from
+    ``seed``; phases (c) and (d) share it."""
     from transformers_tpu_torch import LlamaConfig, LlamaForCausalLM
 
     cfg = LlamaConfig(**GEOMETRY, max_position_embeddings=PROMPT + NEW, bos_token_id=None,
                       eos_token_id=None, pad_token_id=0)
+    return LlamaForCausalLM(cfg, dtype=torch.bfloat16, device="cuda").init_weights(seed)
+
+
+def check_generate(model, seed: int, card: str) -> dict:
+    cfg = model.config
     layers = cfg.num_hidden_layers
-    model = LlamaForCausalLM(cfg, dtype=torch.bfloat16, device="cuda").init_weights(seed)
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     ids = torch.randint(1, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device="cuda")
     mask = (torch.arange(PROMPT, device="cuda")[None, :]
@@ -414,7 +544,7 @@ def check_generate(seed: int, card: str) -> dict:
     out = model.generate(ids, max_new_tokens=NEW, **kw)
     torch.cuda.synchronize()
     counts = _read_counts()
-    expected = {"flash_fwd": layers, "fused_decode": layers * (NEW - 1)}
+    expected = {"flash_fwd": layers, "fused_decode": layers * (NEW - 1), "paged_decode": 0}
     print(f"[generate] launches {counts}, expected {expected} "
           f"({layers} layers, 1 prefill, {NEW - 1} decode steps)")
     if counts != expected:
@@ -434,15 +564,15 @@ def check_generate(seed: int, card: str) -> dict:
           f"{BATCH * 1e3 / decode_tok:.1f} decode tokens/s, "
           f"{BATCH * NEW * 1e3 / total:.1f} tokens/s over the whole generate ({card})")
 
-    profile_generate(lambda: model.generate(ids, max_new_tokens=NEW, **kw), total, card)
+    profile_run("generate", lambda: model.generate(ids, max_new_tokens=NEW, **kw), total, card)
     teacher_force(model, out, mask)
     return counts
 
 
-def profile_generate(run, wall_ms: float, card: str) -> None:
-    """Device busy time of one generate call from torch.profiler (kernel
-    time summed over the call), against the unprofiled wall time; and the
-    kernels that take the most device time."""
+def profile_run(label: str, run, wall_ms: float, card: str) -> None:
+    """Device busy time of one run from torch.profiler (kernel time summed
+    over the run), against the unprofiled wall time; and the kernels that
+    take the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -455,7 +585,7 @@ def profile_generate(run, wall_ms: float, card: str) -> None:
     if busy_ms == 0:
         print("[profile] the profiler recorded no device time: busy share not measured")
         return
-    print(f"[profile] generate: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms wall "
+    print(f"[profile] {label}: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms wall "
           f"(unprofiled), idle share {1 - busy_ms / wall_ms:.3f} ({card})")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} "
@@ -470,8 +600,6 @@ def teacher_force(model, seq, prompt_mask) -> None:
     the plain bf16 path is: both are bf16 through 32 layers, and they round
     at different places (f32 rope in the decode kernel, f32 probabilities in
     both kernels)."""
-    from transformers_tpu_torch import LlamaForCausalLM
-
     b, total = seq.shape
     mask = torch.cat([prompt_mask, torch.ones((b, total - PROMPT), dtype=torch.int32,
                                               device="cuda")], dim=1)
@@ -482,33 +610,177 @@ def teacher_force(model, seq, prompt_mask) -> None:
               cache_position=0, logits_to_keep=1)
         kernel = model(seq[:, -1:], attention_mask=mask, position_ids=pos[:, -1:],
                        past_key_values=cache, cache_position=total - 1).logits[:, -1].float()
+    [(plain_all, ref)] = plain_and_f32_logits(model, [(seq, mask, pos)])
+    plain = plain_all[:, -1].float()
+    agree = float((plain_all[:, PROMPT - 1:-1].argmax(-1) == seq[:, PROMPT:]).float().mean())
+    hold_to_plain("teacher-force", kernel, plain, ref,
+                  f"greedy tokens = plain argmax at {agree:.3f} of generated positions")
+
+
+def plain_and_f32_logits(model, batches) -> list:
+    """For each (ids, mask, positions) batch: the logits of every position
+    through the plain path (eager attention, no cache, no kernel) of
+    ``model``, and the last position's logits of the same model in float32
+    (the reference)."""
+    from transformers_tpu_torch import LlamaForCausalLM
+
+    out = []
+    with torch.inference_mode():
         _reset_counts()
         model.config.attn_implementation = "eager"
-        plain_all = model(seq, attention_mask=mask, position_ids=pos).logits
+        for ids, mask, pos in batches:
+            out.append([model(ids, attention_mask=mask, position_ids=pos).logits])
         model.config.attn_implementation = None
         if any(_read_counts().values()):
             raise AssertionError("the plain path launched a kernel")
-        plain = plain_all[:, -1].float()
-        agree = float((plain_all[:, PROMPT - 1:-1].argmax(-1) == seq[:, PROMPT:]).float().mean())
-        del plain_all
         ref_model = LlamaForCausalLM(model.config, dtype=torch.float32, device="cuda")
         ref_model.load_state_dict(model.state_dict())
         ref_model.config.attn_implementation = "eager"
-        ref = ref_model(seq, attention_mask=mask, position_ids=pos,
-                        logits_to_keep=1).logits[:, -1]
+        for item, (ids, mask, pos) in zip(out, batches):
+            item.append(ref_model(ids, attention_mask=mask, position_ids=pos,
+                                  logits_to_keep=1).logits[:, -1])
         ref_model.config.attn_implementation = None
         del ref_model
         torch.cuda.empty_cache()
+    return out
+
+
+def hold_to_plain(label: str, kernel, plain, ref, note: str) -> None:
+    """The kernel path's last-position logits must be finite and no further
+    from float32 than twice the plain bf16 path is."""
     err_kernel = max_err(kernel, plain)
     err_plain_f32 = max_err(plain, ref)
     err_kernel_f32 = max_err(kernel, ref)
     finite = bool(torch.isfinite(kernel).all())
-    print(f"[teacher-force] last-position logits (|max| {float(plain.abs().max()):.3f}): "
+    print(f"[{label}] last-position logits (|max| {float(plain.abs().max()):.3f}): "
           f"|kernel - plain| {err_kernel:.4f}, |plain - f32| {err_plain_f32:.4f}, "
-          f"|kernel - f32| {err_kernel_f32:.4f}; greedy tokens = plain argmax at "
-          f"{agree:.3f} of generated positions")
+          f"|kernel - f32| {err_kernel_f32:.4f}; {note}")
     if not finite or err_kernel_f32 > 2 * err_plain_f32:
-        raise AssertionError("kernel path logits disagree with the plain path")
+        raise AssertionError(f"{label}: kernel path logits disagree with the plain path")
+
+
+# --------------------------------------------------------------------- (d)
+def cb_prompts(seed: int, vocab: int) -> list:
+    """CB_REQUESTS prompts of 64-512 tokens from ``seed``; those in CB_SHARED
+    open with one CB_PREFIX-token prefix and run at least 32 tokens past it."""
+    rng = np.random.default_rng(seed + 2)
+    prefix = rng.integers(1, vocab, size=CB_PREFIX)
+    prompts = []
+    for i in range(CB_REQUESTS):
+        if i in CB_SHARED:
+            tail = rng.integers(1, vocab, size=int(rng.integers(CB_PREFIX + 32, 513)) - CB_PREFIX)
+            ids = np.concatenate([prefix, tail])
+        else:
+            ids = rng.integers(1, vocab, size=int(rng.integers(64, 513)))
+        prompts.append([int(t) for t in ids])
+    return prompts
+
+
+def run_cb(model, prompts, steps_per_sync: int):
+    """Serve ``prompts`` (CB_NEW new tokens each, greedy) through a fresh
+    engine. Returns the engine, the generated ids per request, the wall ms,
+    and the host-clock ms and device decode steps of the engine steps that
+    ran decode and no prefill (each such step ends in a host read)."""
+    from transformers_tpu_torch.generation.continuous_batching import (
+        ContinuousBatchingEngine, RequestState)
+
+    engine = ContinuousBatchingEngine(model, steps_per_sync=steps_per_sync, **CB_ENGINE)
+    for i, p in enumerate(prompts):
+        engine.add_request(RequestState(request_id=f"r{i}", prompt_ids=p,
+                                        max_new_tokens=CB_NEW))
+    runner = engine.runner
+    results, decode_ms, decode_steps = {}, 0.0, 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while engine.has_work():
+        chunks = runner.prefill_chunks + runner.single_token_chunks
+        steps = runner.decode_steps
+        ts = time.perf_counter()
+        events = engine.step()
+        if runner.prefill_chunks + runner.single_token_chunks == chunks \
+                and runner.decode_steps > steps:
+            decode_ms += (time.perf_counter() - ts) * 1e3
+            decode_steps += runner.decode_steps - steps
+        for ev in events:
+            if ev.status in ("finished", "failed"):
+                results[ev.request_id] = ev
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    bad = [rid for rid, ev in results.items() if ev.status != "finished"]
+    if len(results) != len(prompts) or bad:
+        raise AssertionError(f"continuous batching: {len(results)} of {len(prompts)} requests "
+                             f"came back, not finished: {bad}")
+    generated = [results[f"r{i}"].generated_ids for i in range(len(prompts))]
+    return engine, generated, wall, decode_ms, decode_steps
+
+
+def check_cb(model, seed: int, card: str) -> dict:
+    """Phase (d): continuous batching at full width on the 32-layer model."""
+    layers = model.config.num_hidden_layers
+    vocab = model.config.vocab_size
+    prompts = cb_prompts(seed, vocab)
+    run_cb(model, prompts, 1)  # warm-up: GEMM shapes of every chunk and bucket
+    outputs, counts_by_sync = {}, {}
+    for steps in (1, 16):
+        _reset_counts()
+        engine, generated, wall, decode_ms, decode_steps = run_cb(model, prompts, steps)
+        counts = _read_counts()
+        r = engine.runner
+        expected = {"flash_fwd": layers * r.prefill_chunks, "fused_decode": 0,
+                    "paged_decode": layers * (r.decode_steps + r.single_token_chunks)}
+        print(f"[cb] steps_per_sync={steps}: launches {counts}, expected {expected} ({layers} "
+              f"layers, {r.prefill_chunks} prefill chunks, {r.single_token_chunks} one-token "
+              f"chunks, {r.decode_steps} decode steps)")
+        if counts != expected:
+            raise AssertionError("the CB path did not go through the kernels as required")
+        if any(len(g) != CB_NEW or min(g) < 0 or max(g) >= vocab for g in generated):
+            raise AssertionError(f"a request did not return {CB_NEW} ids inside the vocabulary")
+        cached = sum(len(p) for p in prompts) - r.prefill_tokens
+        print(f"[cb] steps_per_sync={steps}: {CB_REQUESTS} requests, prompts "
+              f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens ({cached} served from "
+              f"the prefix cache), {CB_NEW} new tokens each, bf16, {layers} layers: wall "
+              f"{wall:.2f} ms, {CB_REQUESTS * CB_NEW * 1e3 / wall:.1f} generated tokens/s, decode "
+              f"{decode_ms / max(decode_steps, 1):.3f} ms per device step over {decode_steps} "
+              f"steps of decode-only engine steps ({card})")
+        outputs[steps], counts_by_sync[steps] = generated, counts
+    same = sum(a == b for x, y in zip(outputs[1], outputs[16]) for a, b in zip(x, y))
+    print(f"[cb] steps_per_sync 1 vs 16: {same} of {CB_REQUESTS * CB_NEW} generated tokens "
+          f"equal (bf16 GEMMs of other batch shapes round differently; random weights give "
+          f"near-ties)")
+    profile_run("continuous batching, 16 steps per sync", lambda: run_cb(model, prompts, 16),
+                wall, card)
+    teacher_force_cb(model, engine, prompts, outputs[16])
+    return counts_by_sync[1]
+
+
+def teacher_force_cb(model, engine, prompts, generated) -> None:
+    """Two finished requests (one of the shared prefix, the shortest prompt)
+    through the CB kernel path: chunked prefill of all but the last token over
+    fresh pages, then one decode step; held to the plain path as in phase (c)."""
+    picks = [CB_SHARED[0], min(range(len(prompts)), key=lambda i: len(prompts[i]))]
+    runner, bs = engine.runner, CB_ENGINE["block_size"]
+    budget = CB_ENGINE["token_budget"]
+    kernel, batches = [], []
+    with torch.inference_mode():
+        for i in picks:
+            seq = prompts[i] + generated[i]
+            table = engine.bm.allocate(-(-len(seq) // bs))
+            for start in range(0, len(seq) - 1, budget):
+                runner.prefill_chunk(seq[start:min(start + budget, len(seq) - 1)], table, start)
+            kernel.append(runner.decode_step([seq[-1]], [table], [len(seq) - 1]).float())
+            engine.bm.free(table)
+            ids = torch.tensor([seq], device="cuda")
+            batches.append((ids, torch.ones_like(ids, dtype=torch.int32),
+                            torch.arange(len(seq), device="cuda")[None]))
+    plain_ref = plain_and_f32_logits(model, batches)
+    plain = torch.cat([p[:, -1].float() for p, _ in plain_ref])
+    ref = torch.cat([r for _, r in plain_ref])
+    agree = sum(int((p[0, len(prompts[i]) - 1:-1].argmax(-1)
+                     == torch.tensor(generated[i], device="cuda")).sum())
+                for (p, _), i in zip(plain_ref, picks)) / (len(picks) * CB_NEW)
+    hold_to_plain("cb teacher-force", torch.cat(kernel), plain, ref,
+                  f"requests {picks}; greedy tokens = plain argmax at {agree:.3f} of generated "
+                  f"positions")
 
 
 def main() -> int:
@@ -524,12 +796,17 @@ def main() -> int:
     print(f"[card] {card}")
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    kernels = [check_flash(gen), check_decode(gen)]
+    kernels = [check_flash(gen), check_decode(gen), check_paged(gen)]
     check_reference_cases(gen)
     check_load_path(args.seed, card)
-    counts = check_generate(args.seed, card)
+    model = build_model(args.seed)
+    paths = {"generate": check_generate(model, args.seed, card),
+             "continuous_batching": check_cb(model, args.seed, card)}
     for k in kernels:
-        k["launches"] = counts[k["name"]]
+        # each kernel's launches on the path it serves; both paths' counts beside
+        path = "continuous_batching" if k["name"] == "paged_decode" else "generate"
+        k["launches"] = paths[path][k["name"]]
+        k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
     print(json.dumps({"kernels": kernels}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -56,6 +56,8 @@ def test_module_imports_no_jax_and_no_jax_package(import_report, module):
 def test_every_kernel_module_is_checked():
     for name in ("transformers_tpu_torch.ops.flash_attention",
                  "transformers_tpu_torch.ops.fused_decode",
+                 "transformers_tpu_torch.ops.paged_attention",
+                 "transformers_tpu_torch.generation.continuous_batching.model_runner",
                  "transformers_tpu_torch.ops.cuda_build",
                  "transformers_tpu_torch.models.llama.modeling_llama"):
         assert name in MODULES

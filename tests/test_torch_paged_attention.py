@@ -1,0 +1,154 @@
+"""The port's paged decode op (K6) against the JAX package's, on the CPU.
+
+``paged_decode_attention``'s wrapper (on CPU tensors: ``paged_decode_plain``)
+against JAX ``paged_decode_attention(..., interpret=True)`` on the cases of
+tests/ops/test_paged_attention.py (GQA 1/4/8, a one-token context, contexts
+over several page groups, ragged rows, head_dim 64, windows 16/40/128, bf16
+pools), with their shapes, block sizes and seeds, plus a row with ctx 0
+(zeros) and a pad row that reads slot 0 of the null page.
+
+Interpret mode costs seconds of tracing per distinct call, so the JAX side
+runs one call per (head_dim, block size, dtype, window): each case's rows,
+pages and heads are laid side by side in one larger call, whose kv heads
+and query-head groups are padded with zeros. Every (row, query head) of the
+Pallas kernel reads only its own kv head's pages, and the kernel pads its
+query-head group to 8 itself, so each case's slice of the output is what
+the case alone gives. The port runs each case on its own.
+
+Tolerances: 2e-5 in float32 (sums in another order); 2e-2 in bf16, one
+rounding step at the outputs' magnitude (the Pallas kernel rounds the
+probabilities to bf16 before P.V, the port keeps them in f32).
+"""
+
+from collections import defaultdict
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from transformers_tpu.ops.pallas.paged_attention import (
+    paged_decode_attention as jax_paged_decode,
+)
+from transformers_tpu_torch.ops.paged_attention import paged_decode_attention
+
+F32_TOL = 2e-5
+BF16_TOL = 2e-2
+
+CASES = {
+    # name: (n, h, kvh, d, block_size, ctx_lens, window, dtype, seed)
+    "gqa_1": (3, 8, 8, 128, 16, (40, 16, 61), None, "float32", 88),
+    "gqa_4": (3, 8, 2, 128, 16, (40, 16, 61), None, "float32", 82),
+    "gqa_8": (3, 16, 2, 128, 16, (40, 16, 61), None, "float32", 162),
+    "single_token_context": (2, 4, 4, 128, 16, (1, 33), None, "float32", 3),
+    "many_page_groups": (2, 8, 2, 128, 16, (296, 219), None, "float32", 4),
+    "ragged": (5, 8, 4, 128, 32, (32, 1, 317, 64, 200), None, "float32", 5),
+    "head_dim_64": (5, 8, 4, 64, 32, (32, 1, 317, 64, 200), None, "float32", 5),
+    "window_16": (3, 8, 2, 128, 16, (100, 48, 32), 16, "float32", 16),
+    "window_40": (3, 8, 2, 128, 16, (100, 48, 32), 40, "float32", 40),
+    "window_128": (3, 8, 2, 128, 16, (100, 48, 32), 128, "float32", 128),
+    "bf16_pools": (3, 8, 2, 128, 16, (130, 7, 256), None, "bfloat16", 7),
+    # not in the reference file: a row with no context, and a pad row of a
+    # decode bucket (ctx 1 on the null page, which holds pad writes)
+    "ctx_0": (2, 8, 2, 128, 16, (0, 40), None, "float32", 11),
+    "pad_row": (2, 8, 2, 128, 16, (1, 40), None, "float32", 12),
+}
+
+
+def _build(name):
+    """The case's inputs as numpy f32, made as tests/ops/test_paged_attention.py
+    makes them: shuffled pages, page 0 the null page (zero, except in
+    ``pad_row`` where pad writes have filled it and row 0 reads it)."""
+    n, h, kvh, d, bs, ctx_lens, _, _, seed = CASES[name]
+    rng = np.random.default_rng(seed)
+    maxb = max(-(-c // bs) for c in ctx_lens)
+    p = sum(-(-c // bs) for c in ctx_lens) + 1
+    k_pool = rng.normal(size=(p, kvh, bs, d)).astype(np.float32)
+    v_pool = rng.normal(size=(p, kvh, bs, d)).astype(np.float32)
+    if name != "pad_row":
+        k_pool[0] = 0.0
+        v_pool[0] = 0.0
+    perm = rng.permutation(np.arange(1, p))
+    tables = np.zeros((n, maxb), np.int32)
+    nxt = 0
+    for i, c in enumerate(ctx_lens):
+        need = -(-c // bs)
+        tables[i, :need] = perm[nxt:nxt + need]
+        nxt += need
+    if name == "pad_row":
+        tables[0] = 0
+    q = rng.normal(size=(n, 1, h, d)).astype(np.float32)
+    return q, k_pool, v_pool, tables, np.asarray(ctx_lens, np.int32)
+
+
+def _jax_bundle(names):
+    """One JAX call over the cases ``names`` (same head_dim, block size, dtype
+    and window) laid side by side; returns each case's output, [n, 1, h, d]."""
+    _, _, _, d, bs, _, window, dtype, _ = CASES[names[0]]
+    built = {name: _build(name) for name in names}
+    kvh = max(CASES[m][2] for m in names)
+    g = max(CASES[m][1] // CASES[m][2] for m in names)
+    rows = sum(CASES[m][0] for m in names)
+    pages = 1 + sum(b[1].shape[0] - 1 for b in built.values())
+    maxb = max(b[3].shape[1] for b in built.values())
+    q = np.zeros((rows, kvh, g, d), np.float32)
+    k_pool = np.zeros((pages, kvh, bs, d), np.float32)
+    v_pool = np.zeros_like(k_pool)
+    tables = np.zeros((rows, maxb), np.int32)
+    ctx = np.zeros((rows,), np.int32)
+    spans = {}
+    row = page = 0
+    for name in names:
+        cq, ck, cv, ct, cc = built[name]
+        n, h, ckvh = CASES[name][:3]
+        cg = h // ckvh
+        q[row:row + n, :ckvh, :cg] = cq.reshape(n, ckvh, cg, d)
+        k_pool[page + 1:page + ck.shape[0], :ckvh] = ck[1:]
+        v_pool[page + 1:page + cv.shape[0], :ckvh] = cv[1:]
+        k_pool[0, :ckvh] += ck[0]  # null pages: all zero but pad_row's
+        v_pool[0, :ckvh] += cv[0]
+        tables[row:row + n, :ct.shape[1]] = np.where(ct > 0, ct + page, 0)
+        ctx[row:row + n] = cc
+        spans[name] = (row, n, h, ckvh, cg)
+        row += n
+        page += ck.shape[0] - 1
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    out = jax_paged_decode(
+        jnp.asarray(q.reshape(rows, 1, kvh * g, d), jdt), jnp.asarray(k_pool, jdt),
+        jnp.asarray(v_pool, jdt), jnp.asarray(tables), jnp.asarray(ctx), scale=d ** -0.5,
+        sliding_window=window, interpret=True)
+    out = np.asarray(out, np.float32).reshape(rows, kvh, g, d)
+    return {name: out[r:r + n, :ckvh, :cg].reshape(n, 1, h, d)
+            for name, (r, n, h, ckvh, cg) in spans.items()}
+
+
+@pytest.fixture(scope="module")
+def jax_outputs():
+    groups = defaultdict(list)
+    for name, (_, _, _, d, bs, _, window, dtype, _) in CASES.items():
+        groups[(d, bs, window, dtype)].append(name)
+    outs = {}
+    for names in groups.values():
+        outs.update(_jax_bundle(names))
+    return outs
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_paged_decode_plain_matches_jax_pallas(jax_outputs, case):
+    dtype = torch.bfloat16 if CASES[case][7] == "bfloat16" else torch.float32
+    q, k_pool, v_pool, tables, ctx = (torch.as_tensor(x) for x in _build(case))
+    q, k_pool, v_pool = q.to(dtype), k_pool.to(dtype), v_pool.to(dtype)
+    d, window = q.shape[-1], CASES[case][6]
+    before = paged_decode_attention.launches
+    out = paged_decode_attention(q, k_pool, v_pool, tables, ctx, scale=d ** -0.5,
+                                 sliding_window=window)
+    assert paged_decode_attention.launches == before  # CPU tensors never reach the kernel
+    assert out.dtype == dtype and out.shape == q.shape
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    np.testing.assert_allclose(out.float().numpy(), jax_outputs[case], atol=tol, rtol=tol)
+    if case == "ctx_0":
+        assert torch.all(out[0] == 0)
+    if case == "pad_row":  # one live slot: its value row, for every query head
+        h, kvh = q.shape[2], k_pool.shape[1]
+        want = v_pool[0, :, 0].repeat_interleave(h // kvh, dim=0)
+        np.testing.assert_allclose(out[0, 0].numpy(), want.numpy(), atol=F32_TOL, rtol=F32_TOL)

@@ -8,6 +8,9 @@ The JAX ``lax.while_loop`` is a Python loop here; argmax and sampling run on
 the device, and the loop reads ``finished`` back from it only when there are
 EOS ids to stop on.
 
+``generate_batch`` and ``init_continuous_batching`` serve requests through
+the continuous-batching engine over paged KV (``continuous_batching/``).
+
 Not ported yet: streamers, stopping criteria and stop strings, beam search,
 assisted decoding, and the logits processors other than temperature, top-k
 and top-p (asking for one raises).
@@ -43,6 +46,20 @@ class GenerationMixin:
     """Mixin for causal decoders. The host class provides ``forward(input_ids,
     attention_mask, position_ids, past_key_values, cache_position,
     logits_to_keep=...)``, ``init_cache``, ``config`` and ``device``."""
+
+    def generate_batch(self, inputs, **kwargs):
+        """Continuous-batching batch generation over paged KV (reference
+        continuous_api.py:1202 ContinuousMixin.generate_batch)."""
+        from .continuous_batching import ContinuousMixin
+
+        return ContinuousMixin.generate_batch(self, inputs, **kwargs)
+
+    def init_continuous_batching(self, **kwargs):
+        """A ``ContinuousBatchingManager`` (background engine thread) over this
+        model."""
+        from .continuous_batching import ContinuousMixin
+
+        return ContinuousMixin.init_continuous_batching(self, **kwargs)
 
     @staticmethod
     def _get_logits_processors(gen: GenerationConfig) -> LogitsProcessorList:

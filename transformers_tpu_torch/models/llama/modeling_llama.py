@@ -9,12 +9,19 @@ and norms. Subclass hooks are kept as in the JAX skeleton
 ``extra_attn_kwargs``, ``q_norm``/``k_norm``, ``compute_rope``/``rope_for_layer``,
 ``embed``).
 
-Attention routing: a static prefill (cache_position 0, S > 1) attends over
-the local k/v through the registry, whose default is the flash kernel
-(ops/flash_attention.py); a single-token step over the static cache goes
-through the fused decode kernel (ops/fused_decode.py) whenever the family
-uses plain rotate-half rope and the shapes fit, at every batch size; any
-other cached step takes ``cached_attention_bhsd``.
+Attention routing: a static prefill (``cache_position`` the int 0, S > 1)
+attends over the local k/v through the registry, whose default is the flash
+kernel (ops/flash_attention.py); a single-token step over the static cache
+goes through the fused decode kernel (ops/fused_decode.py) whenever the
+family uses plain rotate-half rope and the shapes fit, at every batch size;
+any other step over the static cache takes ``cached_attention_bhsd``.
+
+Over a paged cache (continuous batching, ``layout == "paged"``), where
+``cache_position`` is a per-row tensor ([1, 1] for a prefill chunk, [N, 1]
+in decode): a single-token step goes through the paged decode kernel
+(ops/paged_attention.py) when the shapes fit and there is no softcap or
+sink; anything else, chunked prefill included, attends over the gathered
+context through the registry (the flash kernel by default).
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from ...ops.activations import get_activation
 from ...ops.attention import cached_attention_bhsd, get_attention_fn
 from ...ops.fused_decode import fused_decode_attention, fused_decode_supported
 from ...ops.masks import segment_ids_from_position_ids
+from ...ops.paged_attention import paged_decode_attention, paged_decode_supported
 from ...ops.rope import apply_rotary_pos_emb, compute_cos_sin, rope_inv_freq
 from .configuration_llama import LlamaConfig
 
@@ -149,9 +157,20 @@ class LlamaAttention(nn.Module):
         return fused_decode_attention(q, k, v, cos, sin, k_cache, v_cache, pos, start, kv_valid,
                                       scale=float(self.scale))
 
+    def _paged_decode_ok(self, q, kwargs, cache) -> bool:
+        """True when a step over a paged cache takes the paged decode kernel:
+        one token per row, no softcap, sink or probabilities asked for, and
+        pools of q's dtype in a shape the kernel takes."""
+        if (getattr(cache, "layout", None) != "paged" or q.shape[1] != 1
+                or kwargs.get("logit_cap") is not None
+                or kwargs.get("sinks") is not None
+                or kwargs.get("probs_sink") is not None):
+            return False
+        k_pool = cache.paged_layer(self.layer_idx)[0]
+        return k_pool.dtype == q.dtype and paged_decode_supported(q, k_pool)
+
     def forward(self, hidden: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
-                attn_args: dict[str, Any], cache: Optional[StaticKVCache],
-                cache_position: int) -> torch.Tensor:
+                attn_args: dict[str, Any], cache, cache_position) -> torch.Tensor:
         b, s, _ = hidden.shape
         q, k, v = self.project_qkv(hidden)
         if self.q_norm is not None:
@@ -169,16 +188,31 @@ class LlamaAttention(nn.Module):
             if cos is not None and getattr(self, "apply_rope", True):
                 q, k = self.rope_fn(q, k, cos, sin)
             q, k = self.post_rope_qk(q, k)
-            # Static prefill: attend over the just-computed local k/v; the
-            # cache holds nothing else yet.
-            is_static_prefill = cache is not None and s > 1 and int(cache_position) == 0
+            # Static prefill (cache_position is the int 0): attend over the
+            # just-computed local k/v; the cache holds nothing else yet.
+            is_static_prefill = (cache is not None and s > 1
+                                 and isinstance(cache_position, int) and cache_position == 0)
             if cache is not None:
-                cache.update(self.layer_idx, k, v, int(cache_position))
+                cache.update(self.layer_idx, k, v, cache_position)
             if cache is None or is_static_prefill:
                 if is_static_prefill and kwargs.get("kv_valid") is not None:
                     kwargs["kv_valid"] = kwargs["kv_valid"][:, :s]
                 attn_fn = get_attention_fn(self.config.attn_implementation)
                 out = attn_fn(q, k, v, scale=self.scale, **kwargs)
+            elif self._paged_decode_ok(q, kwargs, cache):
+                # continuous-batching decode: pages read through the block
+                # tables, no gather (the new token's k/v are in the pool)
+                k_pool, v_pool, tables, ctx_lens = cache.paged_layer(self.layer_idx)
+                out = paged_decode_attention(q, k_pool, v_pool, tables, ctx_lens,
+                                             scale=float(self.scale),
+                                             sliding_window=self.sliding_window)
+            elif getattr(cache, "layout", None) == "paged":
+                # chunked prefill (and decode shapes the kernel does not
+                # take): the gathered context through the registry
+                k_full, v_full = cache.layer(self.layer_idx)
+                attn_fn = get_attention_fn(self.config.attn_implementation)
+                out = attn_fn(q, k_full.to(self.dtype), v_full.to(self.dtype),
+                              scale=self.scale, **kwargs)
             else:
                 k_full, v_full = cache.layer(self.layer_idx)
                 out = cached_attention_bhsd(q, k_full.to(self.dtype), v_full.to(self.dtype),
@@ -261,7 +295,7 @@ class LlamaModel(nn.Module):
     def forward(self, input_ids: Optional[torch.Tensor] = None,
                 attention_mask: Optional[torch.Tensor] = None,
                 position_ids: Optional[torch.Tensor] = None,
-                past_key_values: Optional[StaticKVCache] = None, cache_position: int = 0,
+                past_key_values=None, cache_position=0,
                 inputs_embeds: Optional[torch.Tensor] = None, output_hidden_states: bool = False,
                 output_attentions: bool = False) -> BaseModelOutputWithPast:
         hidden = self.embed(input_ids) if inputs_embeds is None else inputs_embeds
@@ -271,12 +305,13 @@ class LlamaModel(nn.Module):
         explicit_positions = position_ids is not None
         if position_ids is None:
             # positions from cache_position, not from the mask: callers with
-            # padded batches pass explicit position_ids, as generate() does
+            # padded batches pass explicit position_ids, as generate() does.
+            # cache_position is an int or a per-row [B, 1] tensor (paged).
             position_ids = (torch.arange(s, device=dev) + cache_position).expand(b, s)
         rope = self.compute_rope(position_ids)
 
         kv_len = past_key_values.max_len if past_key_values is not None else s
-        q_positions = (torch.arange(s, dtype=torch.int32, device=dev) + cache_position).expand(b, s)
+        q_positions = (torch.arange(s, device=dev) + cache_position).to(torch.int32).expand(b, s)
         kv_valid = (attention_mask.to(torch.int32) if attention_mask is not None
                     else torch.ones((b, kv_len), dtype=torch.int32, device=dev))
         attn_args = {"q_positions": q_positions, "kv_valid": kv_valid,
@@ -343,7 +378,7 @@ class LlamaForCausalLM(LlamaPreTrainedModel, GenerationMixin):
     def forward(self, input_ids: Optional[torch.Tensor] = None,
                 attention_mask: Optional[torch.Tensor] = None,
                 position_ids: Optional[torch.Tensor] = None,
-                past_key_values: Optional[StaticKVCache] = None, cache_position: int = 0,
+                past_key_values=None, cache_position=0,
                 inputs_embeds: Optional[torch.Tensor] = None, logits_to_keep: int = 0,
                 output_hidden_states: bool = False,
                 output_attentions: bool = False) -> CausalLMOutputWithPast:
