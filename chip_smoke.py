@@ -12,7 +12,10 @@ Phases, in order; any failure exits non-zero:
     library call that computes the same function (a yardstick only: the port
     never calls it), beside the least time the card could take; then hold
     them on the cases of the reference's tests/ops files in float32, float16
-    and bf16, at head_dim 64, 128 and 256;
+    and bf16, at head_dim 64, 128 and 256. The flash backward (K5 dQ, K4
+    dK/dV) is held at the training shapes (4 rows of 2048 tokens, right-padded,
+    32 heads over 8 kv heads, head_dim 128, bf16; causal, windowed, softcapped)
+    and timed against SDPA's backward;
 (c) the static-cache path at the Llama-3-8B geometry in bf16 with random
     weights from ``--seed``: a full-width, 2-layer checkpoint written with the
     port's safetensors writer and read back by ``from_pretrained``; then
@@ -25,7 +28,15 @@ Phases, in order; any failure exits non-zero:
     them sharing a 256-token prefix, 64 new tokens each, greedy, once with a
     host sync every step and once every 16 steps; launch counts checked
     against the engine's own count of prefill chunks and decode steps; a few
-    finished requests teacher-forced through the plain path.
+    finished requests teacher-forced through the plain path;
+(e) training at the same width, depth cut to 4 layers (f32 weights, bf16
+    compute, random from ``--seed``), after (c)/(d)'s model is freed: layer 0's
+    q/k/v gradients and the loss of one row through the kernel path held
+    against the plain bf16 path and a float32 run; then ``Trainer.train()``,
+    AdamW, 5 steps over 4 rows of 1536-2048 tokens, with launch counts (K1,
+    K4 and K5 once per layer per step), step time, tokens/s, MFU, peak
+    memory and a profiled step; then one step with gradient checkpointing
+    (K1 twice per layer).
 
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit, and
 ends with ``{"ok": true, "device": {...}}``. Needs one CUDA card.
@@ -34,7 +45,9 @@ ends with ``{"ok": true, "device": {...}}``. Needs one CUDA card.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
+import math
 import re
 import shutil
 import subprocess
@@ -59,12 +72,23 @@ PADS = (0, 3, 17, 0, 40, 1, 0, 64)
 CB_ENGINE = dict(block_size=32, max_batch=8, token_budget=128, num_blocks=320, max_context=640)
 CB_REQUESTS, CB_NEW, CB_PREFIX = 16, 64, 256
 CB_SHARED = (0, 8, 11, 14)  # requests that open with the shared prefix
+# training (phase e, and the backward kernels' shapes in phase b)
+TRAIN_LAYERS, TRAIN_ROWS, TRAIN_SEQ, TRAIN_STEPS, TRAIN_MIN_LEN = 4, 4, 2048, 5, 1536
 
 # Kernel vs plain: both compute in f32 from the same inputs and round the
 # output once to the storage type; sums run in another order, so outputs of
 # magnitude up to ~4 differ by about one step of that type (bf16 2^-8, f16
 # 2^-11 relative), and in f32 by a few ulps of the sums.
 TOLERANCE = {torch.bfloat16: 2e-2, torch.float16: 5e-3, torch.float32: 2e-5}
+# The backward is held element by element, each gradient value against its own
+# size: |kernel - plain| <= u * |plain| + u/2 * rms(plain). Both sides compute
+# in f32 and round once, so two nearly equal f32 values round at most one unit
+# in the last place apart: u = 2^-7 of the value in bf16 (8 significant bits),
+# 2^-10 in f16; in f32 they differ only by the order of the sums. The rms term
+# covers values that are small through cancellation. A single tolerance over
+# the whole tensor would not do: gradients are sums over Sq (dK, dV) or Skv
+# (dQ), and under causality the first slots' dK/dV are many times the rest.
+GRAD_ULP = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10, torch.float32: 2e-5}
 KERNEL_ATOL = TOLERANCE[torch.bfloat16]
 LSE_ATOL = 1e-3  # f32 logsumexp from the same scores
 
@@ -80,6 +104,14 @@ FLASH_OPS_CASES = {  # name: (b, sq, skv, h, kvh, d, left pads, window, cap)
     "logit_cap": (1, 128, 128, 2, 2, 64, None, None, 30.0),
     "gqa_d128": (2, 128, 128, 4, 2, 128, None, None, None),
     "d256_padded_window": (2, 96, 160, 4, 1, 256, (17, 0), 40, None),
+}
+# The cases of test_flash_bwd_kernel_parity (GQA, kv holes, window 37, softcap
+# 30) and test_flash_grad_matches_eager; the backward also runs FLASH_OPS_CASES.
+FLASH_BWD_CASES = {  # name: (b, sq, skv, h, kvh, d, left pads, window, cap)
+    "bwd_gqa_holes": (2, 128, 192, 4, 2, 64, (0, 23), None, None),
+    "bwd_gqa_holes_window_37": (2, 128, 192, 4, 2, 64, (0, 23), 37, None),
+    "bwd_gqa_holes_cap_30": (2, 128, 192, 4, 2, 64, (0, 23), None, 30.0),
+    "bwd_grad_matches_eager": (1, 64, 64, 2, 2, 64, None, None, None),
 }
 DECODE_OPS_CASES = {  # name: (b, h, kvh, d, s, pos, starts, hole fraction)
     "gqa_1": (3, 4, 4, 128, 64, 41, None, 0),
@@ -250,6 +282,153 @@ def check_flash(gen) -> dict:
     return result
 
 
+def event_ms(fn, iters: int = 5) -> float:
+    """Device time of one call of ``fn`` between CUDA events over ``iters``
+    calls, after one warm-up call: for calls of a millisecond or more, where
+    the host's launch cost is small beside the device's time."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def grad_ratio(a: torch.Tensor, ref: torch.Tensor, u: float) -> float:
+    """Largest |a - ref| / (u * |ref| + u/2 * rms(ref)) over the elements: at
+    most 1 where ``a`` holds ``ref`` to GRAD_ULP's bound."""
+    a, ref = a.float(), ref.float()
+    rms = ref.square().mean().sqrt()
+    return float(((a - ref).abs() / (u * ref.abs() + 0.5 * u * rms).clamp_min(1e-30)).max())
+
+
+def _bwd_errors(q, k, v, qpos, valid, do, **kw) -> tuple[dict, dict]:
+    """K5 and K4 against the plain backward on the kernel forward's output
+    and logsumexp: per gradient, the max abs error and the worst ratio of
+    ``grad_ratio`` (at most 1 to pass). The kernels' dV comes back under
+    ``"dv_tensors"`` with the plain one, for the planted-fault check."""
+    from transformers_tpu_torch.ops.flash_attention import (flash_attention,
+                                                            flash_attention_bwd_plain,
+                                                            flash_bwd_dkv, flash_bwd_dq)
+
+    out, lse = flash_attention(q, k, v, q_positions=qpos, kv_valid=valid, return_lse=True, **kw)
+    dq, delta = flash_bwd_dq(q, k, v, out, do, lse, qpos, valid, **kw)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, qpos, valid, **kw)
+    ref = flash_attention_bwd_plain(q, k, v, qpos, valid, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    u = GRAD_ULP[q.dtype]
+    names = ("dq", "dk", "dv")
+    errs = {n: max_err(a, r) for n, a, r in zip(names, (dq, dk, dv), ref)}
+    ratios = {n: grad_ratio(a, r, u) for n, a, r in zip(names, (dq, dk, dv), ref)}
+    ratios["dv_tensors"] = (dv, ref[2])
+    return errs, ratios
+
+
+def check_planted_faults(dv: torch.Tensor, dv_ref: torch.Tensor, u: float) -> None:
+    """The element-wise check must refuse a dV that is wrong past slot 512,
+    where causal dV is small: zeroed there, or 3% too large there. Prints
+    each fault's reading beside the one that a single tolerance of 2e-2 times
+    the plain dV's largest magnitude gives (a fault passes it below 1)."""
+    for fault, fn in (("zeroed past slot 512", lambda x: x.zero_()),
+                      ("x1.03 past slot 512", lambda x: x.mul_(1.03))):
+        bad = dv.clone()
+        fn(bad[:, 512:])
+        ratio = grad_ratio(bad, dv_ref, u)
+        whole = max_err(bad, dv_ref) / (2e-2 * float(dv_ref.float().abs().max()))
+        print(f"[flash_bwd] planted fault, dV {fault}: worst ratio {ratio:.3f} (must exceed 1); "
+              f"max_abs_err / (2e-2 |plain|max) {whole:.3f}")
+        if ratio <= 1.0:
+            raise AssertionError(f"the backward check does not see a dV {fault}")
+
+
+def _train_lengths(seed: int) -> list:
+    rng = np.random.default_rng(seed + 3)
+    return [int(rng.integers(TRAIN_MIN_LEN, TRAIN_SEQ + 1)) for _ in range(TRAIN_ROWS)]
+
+
+def check_flash_bwd(gen, seed: int) -> list:
+    """K5 (dQ) and K4 (dK/dV) at the training shapes: 4 rows of 2048 slots
+    right-padded to the lengths phase (e) trains on, 32 query heads over 8 kv
+    heads, head_dim 128, bf16; causal, then with a 256-slot window, then with
+    a softcap of 30. Timed in the causal case beside the plain versions and
+    SDPA's backward (forward excluded; a yardstick the port never calls)."""
+    import torch.nn.functional as F
+
+    from transformers_tpu_torch.ops.flash_attention import (flash_attention, flash_bwd_dkv,
+                                                            flash_bwd_dkv_plain, flash_bwd_dq,
+                                                            flash_bwd_dq_plain)
+
+    lengths = _train_lengths(seed)
+    u = GRAD_ULP[torch.bfloat16]
+    for name, window, cap in (("causal", None, None), ("window_256", 256, None),
+                              ("softcap_30", None, 30.0)):
+        q, k, v, qpos, valid = _flash_inputs(gen, b=TRAIN_ROWS, sq=TRAIN_SEQ, skv=TRAIN_SEQ)
+        for row, n in enumerate(lengths):
+            valid[row, n:] = 0
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+        kw = dict(scale=q.shape[-1] ** -0.5, is_causal=True, sliding_window=window,
+                  logit_cap=cap)
+        errs, ratios = _bwd_errors(q, k, v, qpos, valid, do, **kw)
+        dv, dv_ref = ratios.pop("dv_tensors")
+        print(f"[flash_bwd] {name} lengths {lengths}: " + ", ".join(
+            f"{n} max_abs_err {errs[n]:.3e}, worst |err| / (2^-7 |plain| + 2^-8 rms) "
+            f"{ratios[n]:.3f}" for n in errs) + " (tol 1)")
+        if any(r > 1.0 for r in ratios.values()):
+            raise AssertionError(f"flash backward kernels disagree with their plain version ({name})")
+        if name != "causal":
+            continue
+        check_planted_faults(dv, dv_ref, u)
+        del dv, dv_ref
+        b, s, h, d = q.shape
+        out, lse = flash_attention(q, k, v, q_positions=qpos, kv_valid=valid, return_lse=True,
+                                   **kw)
+        dq, delta = flash_bwd_dq(q, k, v, out, do, lse, qpos, valid, **kw)
+        dq_ms = event_ms(lambda: flash_bwd_dq(q, k, v, out, do, lse, qpos, valid, **kw))
+        dkv_ms = event_ms(lambda: flash_bwd_dkv(q, k, v, do, lse, delta, qpos, valid, **kw))
+        dq_plain_ms = event_ms(lambda: flash_bwd_dq_plain(q, k, v, out, do, lse, qpos, valid,
+                                                          **kw), iters=2)
+        dkv_plain_ms = event_ms(lambda: flash_bwd_dkv_plain(q, k, v, do, lse, delta, qpos,
+                                                            valid, **kw), iters=2)
+        slots = torch.arange(s, device="cuda")
+        mask = (valid != 0)[:, None, :] & (slots[None, None, :] <= qpos[:, :, None])
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        out_t = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask[:, None],
+                                               scale=kw["scale"], enable_gqa=True)
+        do_t = do.transpose(1, 2)
+        library_ms = event_ms(lambda: torch.autograd.grad(out_t, (qt, kt, vt), do_t,
+                                                          retain_graph=True), iters=3)
+        del out_t
+        visible = int(mask.sum())
+        q_bytes, kv_bytes = q.numel() * 2, (k.numel() + v.numel()) * 2  # bf16
+        fixed = 2 * b * h * s * 4 + (qpos.numel() + valid.numel()) * 4  # lse, delta; mask data
+        # K5 reads Q, O, dO, K, V, lse and writes dQ, delta; 3 products
+        dq_bound, dq_by = bound_ms(4 * q_bytes + kv_bytes + fixed, 6.0 * d * h * visible)
+        # K4 reads Q, dO, K, V, lse, delta and writes dK, dV; 4 products
+        dkv_bound, dkv_by = bound_ms(2 * q_bytes + 2 * kv_bytes + fixed, 8.0 * d * h * visible)
+        common = dict(route="cuda", source="transformers_tpu_torch/csrc/flash_bwd.cu",
+                      library_ms=library_ms,
+                      library="SDPA backward (autograd.grad of one SDPA call, boolean mask, "
+                              "enable_gqa)")
+        results = [
+            dict(name="flash_bwd_dkv",
+                 replaces="transformers_tpu/ops/pallas/flash_attention.py:445",
+                 max_abs_err=max(errs["dk"], errs["dv"]), ms=dkv_ms, plain_ms=dkv_plain_ms,
+                 bound_ms=dkv_bound, bound_by=dkv_by, **common),
+            dict(name="flash_bwd_dq",
+                 replaces="transformers_tpu/ops/pallas/flash_attention.py:471",
+                 max_abs_err=errs["dq"], ms=dq_ms, plain_ms=dq_plain_ms, bound_ms=dq_bound,
+                 bound_by=dq_by, **common)]
+        print(f"[flash_bwd] B={b} S={s} H={h} KVH={k.shape[2]} D={d}, {visible} visible "
+              f"(row, slot) pairs: K4 dK/dV {dkv_ms:.4f} ms (plain {dkv_plain_ms:.4f}, bound "
+              f"{dkv_bound:.4f} {dkv_by}), K5 dQ {dq_ms:.4f} ms (plain {dq_plain_ms:.4f}, bound "
+              f"{dq_bound:.4f} {dq_by}), SDPA backward {library_ms:.4f} ms")
+    return results
+
+
 def _decode_inputs(gen, *, b=8, h=32, kvh=8, d=128, s=160, starts=None, holes=0,
                    dtype=torch.bfloat16):
     dev = "cuda"
@@ -412,7 +591,9 @@ def check_reference_cases(gen) -> None:
     """Each kernel against its plain version on the reference's tests/ops
     cases, in float32, float16 and bf16: every build of the kernels (three
     storage types by head_dim 64, 128, 256, and for paged decode by query-head
-    group of up to 4 and up to 8) runs at least once."""
+    group of up to 4 and up to 8) runs at least once. The flash backward runs
+    the forward's cases and those of the reference's backward tests, on the
+    kernel forward's output and logsumexp."""
     from transformers_tpu_torch.ops.fused_decode import (fused_decode_attention,
                                                          fused_decode_plain)
 
@@ -427,6 +608,20 @@ def check_reference_cases(gen) -> None:
                 raise AssertionError(f"flash kernel disagrees with its plain version: {name} "
                                      f"{dtype}: out {err:.3e} lse {lse_err:.3e}")
             worst[("flash_fwd", dtype)] = max(worst.get(("flash_fwd", dtype), 0.0), err)
+        for name, (b, sq, skv, h, kvh, d, pads, window, cap) in {**FLASH_OPS_CASES,
+                                                                **FLASH_BWD_CASES}.items():
+            q, k, v, qpos, valid = _flash_inputs(gen, b=b, sq=sq, skv=skv, h=h, kvh=kvh, d=d,
+                                                 pads=pads, dtype=dtype)
+            do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+            errs, ratios = _bwd_errors(q, k, v, qpos, valid, do, scale=d ** -0.5,
+                                       sliding_window=window, logit_cap=cap)
+            del ratios["dv_tensors"]
+            if any(r > 1.0 for r in ratios.values()):
+                raise AssertionError(f"flash backward kernels disagree with their plain version: "
+                                     f"{name} {dtype}: max_abs_err {errs}, ratios {ratios}")
+            for kernel, grads in (("flash_bwd_dq", ("dq",)), ("flash_bwd_dkv", ("dk", "dv"))):
+                worst[(kernel, dtype)] = max(worst.get((kernel, dtype), 0.0),
+                                             *(ratios[n] for n in grads))
         for name, (b, h, kvh, d, s, pos, starts, holes) in DECODE_OPS_CASES.items():
             q, kn, vn, cos, sin, kc, vc, start, valid = _decode_inputs(
                 gen, b=b, h=h, kvh=kvh, d=d, s=s, starts=starts, holes=holes, dtype=dtype)
@@ -449,21 +644,34 @@ def check_reference_cases(gen) -> None:
                 raise AssertionError(f"paged decode kernel disagrees with its plain version: "
                                      f"{name} {dtype}: {err:.3e}")
             worst[("paged_decode", dtype)] = max(worst.get(("paged_decode", dtype), 0.0), err)
+    n_bwd = len(FLASH_OPS_CASES) + len(FLASH_BWD_CASES)
     n_cases = {"flash_fwd": len(FLASH_OPS_CASES), "fused_decode": len(DECODE_OPS_CASES),
-               "paged_decode": len(PAGED_OPS_CASES)}
+               "paged_decode": len(PAGED_OPS_CASES), "flash_bwd_dq": n_bwd,
+               "flash_bwd_dkv": n_bwd}
     for (kernel, dtype), err in worst.items():
-        print(f"[ops cases] {kernel} {str(dtype).replace('torch.', '')}: max_abs_err "
-              f"{err:.3e} over {n_cases[kernel]} cases (tol {TOLERANCE[dtype]})")
+        if kernel.startswith("flash_bwd"):
+            what, tol = f"worst |err| / (u |plain| + u/2 rms), u = {GRAD_ULP[dtype]:.3g},", 1
+        else:
+            what, tol = "max_abs_err", TOLERANCE[dtype]
+        print(f"[ops cases] {kernel} {str(dtype).replace('torch.', '')}: {what} "
+              f"{err:.3e} over {n_cases[kernel]} cases (tol {tol})")
 
 
 # --------------------------------------------------------------------- (c)
 def _wrappers() -> dict:
-    from transformers_tpu_torch.ops.flash_attention import flash_attention
+    from transformers_tpu_torch.ops.flash_attention import (flash_attention, flash_bwd_dkv,
+                                                            flash_bwd_dq)
     from transformers_tpu_torch.ops.fused_decode import fused_decode_attention
     from transformers_tpu_torch.ops.paged_attention import paged_decode_attention
 
     return {"flash_fwd": flash_attention, "fused_decode": fused_decode_attention,
-            "paged_decode": paged_decode_attention}
+            "paged_decode": paged_decode_attention, "flash_bwd_dkv": flash_bwd_dkv,
+            "flash_bwd_dq": flash_bwd_dq}
+
+
+def _expected(**counts) -> dict:
+    """Launch counts of every kernel: those given, 0 for the others."""
+    return {name: counts.get(name, 0) for name in _wrappers()}
 
 
 def _reset_counts():
@@ -544,7 +752,7 @@ def check_generate(model, seed: int, card: str) -> dict:
     out = model.generate(ids, max_new_tokens=NEW, **kw)
     torch.cuda.synchronize()
     counts = _read_counts()
-    expected = {"flash_fwd": layers, "fused_decode": layers * (NEW - 1), "paged_decode": 0}
+    expected = _expected(flash_fwd=layers, fused_decode=layers * (NEW - 1))
     print(f"[generate] launches {counts}, expected {expected} "
           f"({layers} layers, 1 prefill, {NEW - 1} decode steps)")
     if counts != expected:
@@ -569,27 +777,36 @@ def check_generate(model, seed: int, card: str) -> dict:
     return counts
 
 
-def profile_run(label: str, run, wall_ms: float, card: str) -> None:
+def profile_run(label: str, run, wall_ms: float, card: str) -> list:
     """Device busy time of one run from torch.profiler (kernel time summed
-    over the run), against the unprofiled wall time; and the kernels that
-    take the most device time."""
+    over the run), against the unprofiled wall time and the profiled run's
+    own; and the kernels that take the most device time. Returns the
+    per-kernel averages (empty when the profiler saw no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        profiled_ms = (time.perf_counter() - t0) * 1e3
+    # device events only; a user annotation (the optimizer's
+    # "Optimizer.step#AdamW.step" range) spans kernels already counted
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("Optimizer.")]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms == 0:
         print("[profile] the profiler recorded no device time: busy share not measured")
-        return
+        return []
     print(f"[profile] {label}: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms wall "
-          f"(unprofiled), idle share {1 - busy_ms / wall_ms:.3f} ({card})")
+          f"(unprofiled), idle share {1 - busy_ms / wall_ms:.3f}; of the profiled run's "
+          f"{profiled_ms:.2f} ms, {1 - busy_ms / profiled_ms:.3f} ({card})")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} "
               f"{e.key[:90]}")
+    return kernels
 
 
 def teacher_force(model, seq, prompt_mask) -> None:
@@ -726,8 +943,8 @@ def check_cb(model, seed: int, card: str) -> dict:
         engine, generated, wall, decode_ms, decode_steps = run_cb(model, prompts, steps)
         counts = _read_counts()
         r = engine.runner
-        expected = {"flash_fwd": layers * r.prefill_chunks, "fused_decode": 0,
-                    "paged_decode": layers * (r.decode_steps + r.single_token_chunks)}
+        expected = _expected(flash_fwd=layers * r.prefill_chunks,
+                             paged_decode=layers * (r.decode_steps + r.single_token_chunks))
         print(f"[cb] steps_per_sync={steps}: launches {counts}, expected {expected} ({layers} "
               f"layers, {r.prefill_chunks} prefill chunks, {r.single_token_chunks} one-token "
               f"chunks, {r.decode_steps} decode steps)")
@@ -783,6 +1000,216 @@ def teacher_force_cb(model, engine, prompts, generated) -> None:
                   f"positions")
 
 
+# --------------------------------------------------------------------- (e)
+def train_rows(seed: int, vocab: int) -> list:
+    """TRAIN_ROWS rows of TRAIN_SEQ tokens from ``seed``, right-padded to the
+    lengths of ``_train_lengths`` (attention_mask 0, labels -100 on the pad);
+    no position_ids, so attention takes the flash kernels."""
+    rng = np.random.default_rng(seed + 4)
+    rows = []
+    for n in _train_lengths(seed):
+        ids = np.zeros(TRAIN_SEQ, np.int64)
+        ids[:n] = rng.integers(1, vocab, n)
+        mask = (np.arange(TRAIN_SEQ) < n).astype(np.int32)
+        rows.append({"input_ids": ids, "attention_mask": mask,
+                     "labels": np.where(mask == 1, ids, -100)})
+    return rows
+
+
+def _loss_and_qkv_grads(model, batch) -> tuple:
+    """The loss of ``batch`` and the gradients of layer 0's q/k/v projection
+    weights, which reach layer 0 only through every layer's attention
+    backward."""
+    model.zero_grad(set_to_none=True)
+    loss = model(**batch).loss
+    loss.backward()
+    attn = model.model.layers[0].self_attn
+    grads = [getattr(attn, n).weight.grad.clone() for n in ("q_proj", "k_proj", "v_proj")]
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def check_train_grads(model, batch) -> None:
+    """Phase (e)'s hold-to-plain, on one row before the optimizer exists: the
+    kernel path's loss and layer-0 q/k/v gradients, the plain bf16 path's
+    (eager attention) and the same weights in float32 (eager). The kernel
+    path's relative gradient error against float32 must be at most twice the
+    plain path's, and its loss error at most twice the plain path's plus
+    1e-3: the bar phases (c) and (d) hold logits to, carried to gradients."""
+    from transformers_tpu_torch import LlamaForCausalLM
+
+    layers = model.config.num_hidden_layers
+    _reset_counts()
+    loss_k, g_k = _loss_and_qkv_grads(model, batch)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    expected = _expected(flash_fwd=layers, flash_bwd_dq=layers, flash_bwd_dkv=layers)
+    if counts != expected:
+        raise AssertionError(f"kernel path launches {counts}, expected {expected}")
+    _reset_counts()
+    model.config.attn_implementation = "eager"
+    loss_p, g_p = _loss_and_qkv_grads(model, batch)
+    ref_model = LlamaForCausalLM(model.config, dtype=torch.float32, device="cuda")
+    ref_model.load_state_dict(model.state_dict())
+    loss_f, g_f = _loss_and_qkv_grads(ref_model, batch)
+    model.config.attn_implementation = None
+    del ref_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    if any(_read_counts().values()):
+        raise AssertionError("the plain path launched a kernel")
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm((a - b).float()) / torch.linalg.vector_norm(b.float()))
+
+    rel_k = [rel(a, b) for a, b in zip(g_k, g_f)]
+    rel_p = [rel(a, b) for a, b in zip(g_p, g_f)]
+    finite = all(bool(torch.isfinite(g).all()) for g in g_k) and math.isfinite(loss_k)
+    print(f"[train grads] one row, {layers} layers: loss kernel {loss_k:.6f}, plain bf16 "
+          f"{loss_p:.6f}, f32 {loss_f:.6f}; layer-0 q/k/v weight gradients, relative error vs "
+          f"f32: kernel {', '.join(f'{x:.4e}' for x in rel_k)}, plain "
+          f"{', '.join(f'{x:.4e}' for x in rel_p)}; launches {counts}")
+    if (not finite or any(a > 2 * b for a, b in zip(rel_k, rel_p))
+            or abs(loss_k - loss_f) > 2 * abs(loss_p - loss_f) + 1e-3):
+        raise AssertionError("train: the kernel path's loss or gradients disagree with the plain "
+                             "path")
+
+
+def _step_clock():
+    """A TrainerCallback that records each optimizer step's host-clock ms
+    (ending in a synchronize) and its peak device memory."""
+    from transformers_tpu_torch import TrainerCallback
+
+    class StepClock(TrainerCallback):
+        def __init__(self):
+            self.ms, self.peak = [], []
+
+        def on_step_begin(self, args, state, control, **kwargs):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            self.t0 = time.perf_counter()
+
+        def on_step_end(self, args, state, control, **kwargs):
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - self.t0) * 1e3)
+            self.peak.append(torch.cuda.max_memory_allocated())
+
+    return StepClock()
+
+
+def _trainer(model, rows, clock, **kw):
+    from transformers_tpu_torch import Trainer, TrainingArguments
+    from transformers_tpu_torch.ops import cuda_build
+
+    args = TrainingArguments(
+        output_dir=str(cuda_build.BUILD_DIR / "smoke_trainer"),
+        per_device_train_batch_size=TRAIN_ROWS, learning_rate=1e-4,
+        lr_scheduler_type="constant", weight_decay=0.01, max_grad_norm=1.0, logging_steps=1,
+        save_strategy="no", seed=0, **kw)
+    return Trainer(model, args, train_dataset=rows, callbacks=[clock])
+
+
+def check_train(seed: int, card: str) -> dict:
+    """Phase (e): Trainer.train() at the Llama-3-8B width, depth cut to 4
+    layers (1.9e9 parameters: f32 weights, gradients and AdamW's two moments
+    take 16 bytes each, ~31 GB; all 32 layers would need ~128 GB)."""
+    from transformers_tpu_torch import LlamaConfig, LlamaForCausalLM
+    from transformers_tpu_torch.data import default_data_collator
+
+    print(f"[train] device memory allocated before the phase {torch.cuda.memory_allocated() / 1e9:.2f} "
+          f"GB, peak so far {torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({card})")
+    cfg = LlamaConfig(**dict(GEOMETRY, num_hidden_layers=TRAIN_LAYERS),
+                      max_position_embeddings=TRAIN_SEQ, bos_token_id=None, eos_token_id=None,
+                      pad_token_id=0)
+    model = LlamaForCausalLM(cfg, dtype=torch.bfloat16, param_dtype=torch.float32,
+                             device="cuda").init_weights(seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    non_embedding = sum(p.numel() for n, p in model.named_parameters()
+                        if "embed_tokens" not in n)
+    rows = train_rows(seed, cfg.vocab_size)
+    batch = default_data_collator(rows)
+    one_row = {k: v[:1].cuda() for k, v in batch.items()}
+    check_train_grads(model, one_row)
+
+    # 5 optimizer steps over the same 4 rows; step 1 warms up
+    clock = _step_clock()
+    trainer = _trainer(model, rows, clock, max_steps=TRAIN_STEPS)
+    _reset_counts()
+    trainer.train()
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    layers, steps = TRAIN_LAYERS, TRAIN_STEPS
+    expected = _expected(flash_fwd=layers * steps, flash_bwd_dq=layers * steps,
+                         flash_bwd_dkv=layers * steps)
+    losses = [e["loss"] for e in trainer.state.log_history if "loss" in e]
+    print(f"[train] launches {counts}, expected {expected} ({layers} layers, {steps} steps); "
+          f"losses {losses}")
+    if counts != expected:
+        raise AssertionError("the training path did not go through the kernels as required")
+    if len(losses) != steps or not all(map(math.isfinite, losses)) or losses[-1] >= losses[0]:
+        raise AssertionError(f"train: losses not finite or not falling: {losses}")
+
+    step_ms = float(np.median(clock.ms[1:]))
+    positions = TRAIN_ROWS * TRAIN_SEQ  # the card computes the pad too
+    tokens = sum(_train_lengths(seed))  # non-pad positions: what a user trains on
+    h, d = cfg.num_attention_heads, cfg.head_dim
+    attn_flops = layers * 3 * 4 * TRAIN_ROWS * TRAIN_SEQ ** 2 * h * d / 2
+    flops = 6 * non_embedding * positions + attn_flops
+    mfu = flops / (step_ms / 1e3 * BF16_FLOPS_PER_S)
+    print(f"[train] {n_params / 1e9:.3f}e9 parameters ({non_embedding / 1e9:.3f}e9 non-embedding), "
+          f"{TRAIN_ROWS} x {TRAIN_SEQ} tokens (lengths {_train_lengths(seed)}), AdamW, f32 weights, "
+          f"bf16 compute: step ms {', '.join(f'{x:.2f}' for x in clock.ms)}; median of steps "
+          f"2-{steps} {step_ms:.2f} ms, {tokens * 1e3 / step_ms:.1f} training tokens/s "
+          f"(non-pad), {positions * 1e3 / step_ms:.1f} positions/s, mfu "
+          f"{mfu:.4f} ({flops / 1e12:.2f} TFLOP per step at {BF16_FLOPS_PER_S / 1e12:.0f} "
+          f"TFLOP/s); peak memory {max(clock.peak) / 1e9:.2f} GB (step 1: "
+          f"{clock.peak[0] / 1e9:.2f} GB) ({card})")
+    kernels = profile_run("train step", lambda: trainer.training_step([batch]), step_ms, card)
+    groups = {"flash kernels (K1, K4, K5)": ("flash_",), "cuBLAS GEMMs": ("nvjet", "gemm"),
+              "multi-tensor (AdamW, clip, zero)": ("multi_tensor_apply",)}
+    sums = {g: 0.0 for g in (*groups, "other")}
+    for e in kernels:
+        group = next((g for g, keys in groups.items() if any(k in e.key for k in keys)), "other")
+        sums[group] += e.self_device_time_total / 1e3
+    if kernels:
+        print("[profile] train step by kind: " + ", ".join(f"{g} {ms:.2f} ms"
+                                                          for g, ms in sums.items()))
+
+    # one step with gradient checkpointing: K1 runs again in the recompute
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    clock_gc = _step_clock()
+    trainer = _trainer(model, rows, clock_gc, max_steps=1, gradient_checkpointing=True)
+    _reset_counts()
+    trainer.train()
+    torch.cuda.synchronize()
+    counts_gc = _read_counts()
+    expected_gc = _expected(flash_fwd=2 * layers, flash_bwd_dq=layers, flash_bwd_dkv=layers)
+    print(f"[train] gradient checkpointing, one step: launches {counts_gc}, expected "
+          f"{expected_gc}; {clock_gc.ms[0]:.2f} ms, peak memory {clock_gc.peak[0] / 1e9:.2f} GB "
+          f"against {clock.peak[0] / 1e9:.2f} GB for the first step without it ({card})")
+    if counts_gc != expected_gc:
+        raise AssertionError("gradient checkpointing did not go through the kernels as required")
+    # the step's peak is AdamW's; forward + backward alone shows the activations
+    del trainer
+    gc.collect()
+    peaks = {}
+    for enable in (False, True):
+        model.gradient_checkpointing_enable(enable)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        model(**{k: v.cuda() for k, v in batch.items()}).loss.backward()
+        torch.cuda.synchronize()
+        peaks[enable] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        model.zero_grad(set_to_none=True)
+    print(f"[train] forward + backward of the 4 x {TRAIN_SEQ} batch, peak above the weights: "
+          f"{peaks[False]:.2f} GB without gradient checkpointing, {peaks[True]:.2f} GB with it "
+          f"(gradients included) ({card})")
+    model.gradient_checkpointing_disable()
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -796,16 +1223,22 @@ def main() -> int:
     print(f"[card] {card}")
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    kernels = [check_flash(gen), check_decode(gen), check_paged(gen)]
+    kernels = [check_flash(gen), check_decode(gen), check_paged(gen),
+               *check_flash_bwd(gen, args.seed)]
     check_reference_cases(gen)
     check_load_path(args.seed, card)
     model = build_model(args.seed)
     paths = {"generate": check_generate(model, args.seed, card),
              "continuous_batching": check_cb(model, args.seed, card)}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["train"] = check_train(args.seed, card)
+    serves = {"paged_decode": "continuous_batching", "flash_bwd_dkv": "train",
+              "flash_bwd_dq": "train"}
     for k in kernels:
-        # each kernel's launches on the path it serves; both paths' counts beside
-        path = "continuous_batching" if k["name"] == "paged_decode" else "generate"
-        k["launches"] = paths[path][k["name"]]
+        # each kernel's launches on the path it serves; every path's counts beside
+        k["launches"] = paths[serves.get(k["name"], "generate")][k["name"]]
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
     print(json.dumps({"kernels": kernels}))
     print(f"[card] {card}")

@@ -59,8 +59,17 @@ def test_every_kernel_module_is_checked():
                  "transformers_tpu_torch.ops.paged_attention",
                  "transformers_tpu_torch.generation.continuous_batching.model_runner",
                  "transformers_tpu_torch.ops.cuda_build",
-                 "transformers_tpu_torch.models.llama.modeling_llama"):
+                 "transformers_tpu_torch.models.llama.modeling_llama",
+                 "transformers_tpu_torch.trainer"):
         assert name in MODULES
+    # the flash backward (K5 dQ, K4 dK/dV) lives in ops.flash_attention,
+    # with a launch count per kernel
+    from transformers_tpu_torch.ops import cuda_build, flash_attention as fa
+
+    assert "flash_bwd" in cuda_build.KERNELS
+    for wrapper in (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        assert isinstance(wrapper.launches, int)
+    assert issubclass(fa.FlashAttentionFunction, torch.autograd.Function)
 
 
 @pytest.mark.parametrize("entry", ["constructor", "from_pretrained", "auto_from_config"])

@@ -11,3 +11,6 @@ from .generation import GenerationConfig
 from .modeling_utils import PreTrainedModel
 from .models.auto import AutoConfig, AutoModelForCausalLM
 from .models.llama import LlamaConfig, LlamaForCausalLM
+from .trainer import Trainer
+from .trainer_callback import TrainerCallback
+from .training_args import TrainingArguments

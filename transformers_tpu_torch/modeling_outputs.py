@@ -19,6 +19,7 @@ class BaseModelOutputWithPast:
 
 @dataclass
 class CausalLMOutputWithPast:
+    loss: Optional[torch.Tensor] = None
     logits: Optional[torch.Tensor] = None
     past_key_values: Optional[Any] = None
     hidden_states: Optional[tuple] = None

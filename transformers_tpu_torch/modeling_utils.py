@@ -81,6 +81,16 @@ class PreTrainedModel(nn.Module):
         self._init_params([n for n, _ in self.named_parameters()], seed)
         return self
 
+    # --------------------------------------------------------------- training
+    def gradient_checkpointing_enable(self, enable: bool = True) -> None:
+        """Recompute each decoder layer's forward during the backward pass
+        (``torch.utils.checkpoint``, non-reentrant) instead of keeping its
+        activations."""
+        getattr(self, self.base_model_prefix).gradient_checkpointing = enable
+
+    def gradient_checkpointing_disable(self) -> None:
+        self.gradient_checkpointing_enable(False)
+
     # --------------------------------------------------------------------- IO
     @classmethod
     def from_pretrained(cls, pretrained_model_name_or_path, *,

@@ -30,10 +30,12 @@ from typing import Any, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ...cache_utils import StaticKVCache, cache_from_config, layer_sliding_window
 from ...core.module import Embedding, Linear, RMSNorm
 from ...generation.utils import GenerationMixin
+from ...loss import for_causal_lm_loss
 from ...modeling_outputs import BaseModelOutputWithPast, CausalLMOutputWithPast
 from ...modeling_utils import PreTrainedModel
 from ...ops.activations import get_activation
@@ -260,6 +262,9 @@ class LlamaModel(nn.Module):
         super().__init__()
         self.config = config
         self.dtype = dtype
+        # recompute each decoder layer's forward in the backward pass instead
+        # of keeping its activations (PreTrainedModel.gradient_checkpointing_enable)
+        self.gradient_checkpointing = False
         self.embed_tokens = Embedding(config.vocab_size, config.hidden_size, dtype=dtype,
                                       param_dtype=param_dtype, device=device,
                                       init_std=config.initializer_range)
@@ -333,7 +338,11 @@ class LlamaModel(nn.Module):
             if output_hidden_states:
                 all_hidden.append(hidden)
             cos, sin = self.rope_for_layer(rope, i)
-            hidden = layer(hidden, cos, sin, attn_args, past_key_values, cache_position)
+            if self.gradient_checkpointing and torch.is_grad_enabled():
+                hidden = checkpoint(layer, hidden, cos, sin, attn_args, past_key_values,
+                                    cache_position, use_reentrant=False)
+            else:
+                hidden = layer(hidden, cos, sin, attn_args, past_key_values, cache_position)
         hidden = getattr(self, self.norm_name)(hidden)
         if output_hidden_states:
             all_hidden.append(hidden)
@@ -379,17 +388,25 @@ class LlamaForCausalLM(LlamaPreTrainedModel, GenerationMixin):
                 attention_mask: Optional[torch.Tensor] = None,
                 position_ids: Optional[torch.Tensor] = None,
                 past_key_values=None, cache_position=0,
-                inputs_embeds: Optional[torch.Tensor] = None, logits_to_keep: int = 0,
-                output_hidden_states: bool = False,
-                output_attentions: bool = False) -> CausalLMOutputWithPast:
+                inputs_embeds: Optional[torch.Tensor] = None,
+                labels: Optional[torch.Tensor] = None, logits_to_keep: int = 0,
+                output_hidden_states: bool = False, output_attentions: bool = False, *,
+                shift_labels: Optional[torch.Tensor] = None) -> CausalLMOutputWithPast:
+        """With ``labels`` (shifted by one here) or ``shift_labels`` (already
+        shifted), also the mean cross-entropy over labels that are not -100."""
         outputs = self.model(input_ids, attention_mask, position_ids, past_key_values,
                              cache_position, inputs_embeds, output_hidden_states,
                              output_attentions)
         hidden = outputs.last_hidden_state
         if logits_to_keep:
             hidden = hidden[:, -logits_to_keep:, :]
+        logits = self.compute_logits(hidden)
+        loss = None
+        if labels is not None or shift_labels is not None:
+            loss = for_causal_lm_loss(logits, labels, self.config.vocab_size,
+                                      shift_labels=shift_labels)
         return CausalLMOutputWithPast(
-            logits=self.compute_logits(hidden), past_key_values=outputs.past_key_values,
+            loss=loss, logits=logits, past_key_values=outputs.past_key_values,
             hidden_states=outputs.hidden_states, attentions=outputs.attentions)
 
     def init_cache(self, batch_size: int, max_len: int, dtype=None) -> StaticKVCache:

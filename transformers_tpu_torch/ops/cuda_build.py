@@ -23,7 +23,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-KERNELS = ("flash_fwd", "fused_decode", "paged_decode")
+KERNELS = ("flash_fwd", "flash_bwd", "fused_decode", "paged_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -110,6 +110,15 @@ def check_cuda(tensors: dict, dtype: torch.dtype, device: torch.device) -> None:
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def refuse_grad(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise when autograd would need a gradient through a kernel that has no
+    backward (the Pallas kernel has no VJP either): an output cut off from
+    the graph would silently drop it."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{kernel} has no backward; call it under torch.no_grad() "
+                           f"or torch.inference_mode()")
 
 
 def raise_on_error(code: int, kernel: str) -> None:

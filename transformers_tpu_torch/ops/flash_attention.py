@@ -1,23 +1,29 @@
-"""Flash attention forward (prefill) for the H100: ``csrc/flash_fwd.cu``.
+"""Flash attention for the H100: forward ``csrc/flash_fwd.cu`` (K1) and
+backward ``csrc/flash_bwd.cu`` (K4 dK/dV, K5 dQ).
 
-Replaces the TPU kernel ``transformers_tpu/ops/pallas/flash_attention.py``
-(``_flash_fwd`` / ``_flash_kernel``, public entry ``flash_attention``).
-Layout BSHD, mask as data: ``q_positions [B, Sq]`` is the absolute slot of
-each query row and ``kv_valid [B, Skv]`` marks live kv slots. Query i sees
-slot j iff ``kv_valid[j]`` and, when causal, ``j <= q_positions[i]``, and,
-with a window, ``j > q_positions[i] - window``; a tanh softcap bounds the
-scores first. GQA reads kv head ``h // (H // KVH)``.
+Replaces the TPU kernels of ``transformers_tpu/ops/pallas/flash_attention.py``
+(``_flash_fwd`` / ``_flash_kernel``; ``_flash_bwd`` with
+``_flash_bwd_dkv_kernel`` and ``_flash_bwd_dq_kernel``; public entry
+``flash_attention``, differentiable through ``jax.custom_vjp``). Layout
+BSHD, mask as data: ``q_positions [B, Sq]`` is the absolute slot of each
+query row and ``kv_valid [B, Skv]`` marks live kv slots. Query i sees slot j
+iff ``kv_valid[j]`` and, when causal, ``j <= q_positions[i]``, and, with a
+window, ``j > q_positions[i] - window``; a tanh softcap bounds the scores
+first. GQA reads kv head ``h // (H // KVH)``.
 
 Semantics that differ from the Pallas kernel: a query row that sees no slot
-gives 0 and a logsumexp of -inf. Such rows are left-pad rows only; no valid
-row reads them.
+gives 0 and a logsumexp of -inf, and gets zero gradients. Such rows are
+left-pad rows only; no valid row reads them.
 
-What bounds it on the card, and what the design does about it: see the
-note at the top of ``csrc/flash_fwd.cu``.
+``flash_attention`` goes through ``FlashAttentionFunction``, whose backward
+runs K5 then K4 (K5 also writes ``delta = rowsum(dO * O)``, which K4 reads).
+What bounds each kernel on the card, and what its design does about it: see
+the notes at the top of the two ``.cu`` files.
 
-The wrapper takes a CUDA tensor to the kernel and a CPU tensor to the plain
-PyTorch version below, and nothing else: there is no fallback. It counts
-its kernel launches in ``flash_attention.launches``.
+Each wrapper takes a CUDA tensor to its kernel and a CPU tensor to the plain
+PyTorch version beside it, and nothing else: there is no fallback. Launches
+are counted in ``flash_attention.launches`` (K1), ``flash_bwd_dq.launches``
+(K5) and ``flash_bwd_dkv.launches`` (K4).
 """
 
 from __future__ import annotations
@@ -34,6 +40,9 @@ KERNEL_HEAD_DIMS = (64, 128, 256)
 #                scale, causal, window, logit_cap, dtype, stream)
 _ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 6 + (
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
+# ttpu_flash_bwd_dq / ttpu_flash_bwd_dkv(10 pointers, B, Sq, Skv, H, KVH, D, scale, causal,
+#                                        window, logit_cap, dtype, stream)
+_BWD_ARGTYPES = (ctypes.c_void_p,) * 10 + _ARGTYPES[7:]
 
 
 def flash_supported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
@@ -42,25 +51,34 @@ def flash_supported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     return h % k.shape[2] == 0 and v.shape[-1] == d and d in KERNEL_HEAD_DIMS
 
 
+def _visible(q_positions, kv_valid, skv: int, is_causal: bool,
+             sliding_window: Optional[int]) -> torch.Tensor:
+    """[B, Sq, Skv] bool: which kv slots each query row sees."""
+    slots = torch.arange(skv, device=kv_valid.device)[None, None, :]
+    qp = q_positions.to(torch.int64)[:, :, None]
+    visible = (kv_valid != 0)[:, None, :]
+    if is_causal:
+        visible = visible & (slots <= qp)
+    if sliding_window:
+        visible = visible & (slots > qp - sliding_window)
+    return visible
+
+
+def _capped(s, logit_cap):
+    return logit_cap * torch.tanh(s / logit_cap) if logit_cap else s
+
+
 def flash_attention_plain(q, k, v, q_positions, kv_valid, *, scale: float,
                           is_causal: bool = True, sliding_window: Optional[int] = None,
                           logit_cap: Optional[float] = None):
-    """Plain PyTorch version of the kernel: f32 scores and softmax, output cast to
+    """Plain PyTorch version of K1: f32 scores and softmax, output cast to
     q's dtype. Returns (out [B, Sq, H, D], lse [B, H, Sq] f32)."""
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     g = h // kvh
     qg = q.float().reshape(b, sq, kvh, g, d)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
-    if logit_cap is not None and logit_cap > 0:
-        s = logit_cap * torch.tanh(s / logit_cap)
-    slots = torch.arange(skv, device=q.device)[None, None, :]
-    qp = q_positions.to(torch.int64)[:, :, None]
-    visible = (kv_valid != 0)[:, None, :]
-    if is_causal:
-        visible = visible & (slots <= qp)
-    if sliding_window is not None:
-        visible = visible & (slots > qp - sliding_window)
+    s = _capped(torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale, logit_cap)
+    visible = _visible(q_positions, kv_valid, skv, is_causal, sliding_window)
     s = s.masked_fill(~visible[:, None, None], float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
@@ -72,12 +90,68 @@ def flash_attention_plain(q, k, v, q_positions, kv_valid, *, scale: float,
     return out, lse.reshape(b, h, sq)
 
 
-def _flash_cuda(q, k, v, q_positions, kv_valid, *, scale, is_causal, sliding_window,
-                logit_cap):
+def _p_ds_plain(q, k, v, do, lse, delta, q_positions, kv_valid, *, scale, is_causal,
+                sliding_window, logit_cap):
+    """The backward's recompute in f32, as the Pallas ``_recompute_p_ds``:
+    (q, dO as [B, Sq, KVH, G, D], p, ds as [B, KVH, G, Sq, Skv]). exp is taken
+    only where the mask holds, so p is exactly 0 elsewhere."""
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qg = q.float().reshape(b, sq, kvh, g, d)
+    dog = do.float().reshape(b, sq, kvh, g, d)
+    sc = _capped(torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale, logit_cap)
+    visible = _visible(q_positions, kv_valid, skv, is_causal, sliding_window)[:, None, None]
+    lse = lse.reshape(b, kvh, g, sq, 1)
+    p = torch.exp(torch.where(visible & torch.isfinite(lse), sc - lse, float("-inf")))
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, v.float())
+    ds = p * (dp - delta.reshape(b, kvh, g, sq, 1))
+    if logit_cap:
+        ds = ds * (1.0 - (sc / logit_cap) ** 2)
+    return qg, dog, p, ds * scale
+
+
+def flash_bwd_dq_plain(q, k, v, out, do, lse, q_positions, kv_valid, *, scale: float,
+                       is_causal: bool = True, sliding_window: Optional[int] = None,
+                       logit_cap: Optional[float] = None):
+    """Plain PyTorch version of K5. Returns (dq in q's dtype, delta [B, H, Sq] f32)."""
+    b, sq, h, d = q.shape
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+    *_, ds = _p_ds_plain(q, k, v, do, lse, delta, q_positions, kv_valid, scale=scale,
+                         is_causal=is_causal, sliding_window=sliding_window, logit_cap=logit_cap)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()).reshape(b, sq, h, d)
+    return dq.to(q.dtype), delta.contiguous()
+
+
+def flash_bwd_dkv_plain(q, k, v, do, lse, delta, q_positions, kv_valid, *, scale: float,
+                        is_causal: bool = True, sliding_window: Optional[int] = None,
+                        logit_cap: Optional[float] = None):
+    """Plain PyTorch version of K4: (dk, dv) in k's and v's dtype, summed over
+    each kv head's group of query heads."""
+    qg, dog, p, ds = _p_ds_plain(q, k, v, do, lse, delta, q_positions, kv_valid, scale=scale,
+                                 is_causal=is_causal, sliding_window=sliding_window,
+                                 logit_cap=logit_cap)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_plain(q, k, v, q_positions, kv_valid, out, lse, do, *, scale: float,
+                              is_causal: bool = True, sliding_window: Optional[int] = None,
+                              logit_cap: Optional[float] = None):
+    """Plain PyTorch backward (K5 then K4): (dq, dk, dv), each in its input's dtype."""
+    kw = dict(scale=scale, is_causal=is_causal, sliding_window=sliding_window,
+              logit_cap=logit_cap)
+    dq, delta = flash_bwd_dq_plain(q, k, v, out, do, lse, q_positions, kv_valid, **kw)
+    dk, dv = flash_bwd_dkv_plain(q, k, v, do, lse, delta, q_positions, kv_valid, **kw)
+    return dq, dk, dv
+
+
+def _check_shapes(q, k, v, q_positions, kv_valid) -> None:
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     if q.dtype not in cuda_build.DTYPE_CODES:
-        raise ValueError(f"flash kernel takes float32/bfloat16/float16, got {q.dtype}")
+        raise ValueError(f"flash kernels take float32/bfloat16/float16, got {q.dtype}")
     if d not in KERNEL_HEAD_DIMS or v.shape[-1] != d or h % kvh:
         raise ValueError(f"flash kernel shapes: q {tuple(q.shape)} k {tuple(k.shape)}")
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
@@ -86,43 +160,145 @@ def _flash_cuda(q, k, v, q_positions, kv_valid, *, scale, is_causal, sliding_win
         raise ValueError("q_positions must be [B, Sq] and kv_valid [B, Skv]")
     if q_positions.dtype != torch.int32 or kv_valid.dtype != torch.int32:
         raise ValueError("q_positions and kv_valid must be int32")
+
+
+def _launch_args(q, k, scale, is_causal, sliding_window, logit_cap) -> tuple:
+    b, sq, h, d = q.shape
+    return (b, sq, k.shape[1], h, k.shape[2], d, float(scale), int(bool(is_causal)),
+            int(sliding_window or 0), float(logit_cap or 0.0), cuda_build.DTYPE_CODES[q.dtype],
+            cuda_build.stream_ptr(q.device))
+
+
+def _flash_cuda(q, k, v, q_positions, kv_valid, *, scale, is_causal, sliding_window,
+                logit_cap):
+    _check_shapes(q, k, v, q_positions, kv_valid)
     cuda_build.check_cuda(dict(q=q, k=k, v=v, q_positions=q_positions, kv_valid=kv_valid),
                           q.dtype, q.device)
+    b, sq, h, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     fn = cuda_build.kernel_fn("flash_fwd", "ttpu_flash_fwd", _ARGTYPES)
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
               kv_valid.data_ptr(), out.data_ptr(), lse.data_ptr(),
-              b, sq, skv, h, kvh, d, float(scale), int(bool(is_causal)),
-              int(sliding_window or 0), float(logit_cap or 0.0),
-              cuda_build.DTYPE_CODES[q.dtype], cuda_build.stream_ptr(q.device))
+              *_launch_args(q, k, scale, is_causal, sliding_window, logit_cap))
     cuda_build.raise_on_error(code, "flash_fwd")
     flash_attention.launches += 1
     return out, lse
 
 
+def _check_bwd_cuda(q, k, v, q_positions, kv_valid, like_q: dict, stats: dict) -> None:
+    """``like_q``: tensors of q's shape and dtype; ``stats``: f32 [B, H, Sq]."""
+    _check_shapes(q, k, v, q_positions, kv_valid)
+    cuda_build.check_cuda(dict(q=q, k=k, v=v, q_positions=q_positions, kv_valid=kv_valid,
+                               **like_q), q.dtype, q.device)
+    cuda_build.check_cuda(stats, torch.float32, q.device)
+    b, sq, h, _ = q.shape
+    for name, t in like_q.items():
+        if t.shape != q.shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(q.shape)}")
+    for name, t in stats.items():
+        if t.shape != (b, h, sq):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {(b, h, sq)}")
+
+
+def flash_bwd_dq(q, k, v, out, do, lse, q_positions, kv_valid, *, scale: float,
+                 is_causal: bool = True, sliding_window: Optional[int] = None,
+                 logit_cap: Optional[float] = None):
+    """K5: dQ [B, Sq, H, D] in q's dtype and delta = rowsum(dO * O) [B, H, Sq]
+    f32. ``out`` is the forward's output, ``lse`` its logsumexp [B, H, Sq]."""
+    kw = dict(scale=scale, is_causal=is_causal, sliding_window=sliding_window,
+              logit_cap=logit_cap)
+    if q.device.type == "cpu":
+        return flash_bwd_dq_plain(q, k, v, out, do, lse, q_positions, kv_valid, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_bwd_dq runs on cuda or cpu, not {q.device}")
+    _check_bwd_cuda(q, k, v, q_positions, kv_valid, dict(out=out, do=do), dict(lse=lse))
+    dq = torch.empty_like(q)
+    delta = torch.empty_like(lse)
+    fn = cuda_build.kernel_fn("flash_bwd", "ttpu_flash_bwd_dq", _BWD_ARGTYPES)
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
+              lse.data_ptr(), q_positions.data_ptr(), kv_valid.data_ptr(), dq.data_ptr(),
+              delta.data_ptr(), *_launch_args(q, k, **kw))
+    cuda_build.raise_on_error(code, "flash_bwd_dq")
+    flash_bwd_dq.launches += 1
+    return dq, delta
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, q_positions, kv_valid, *, scale: float,
+                  is_causal: bool = True, sliding_window: Optional[int] = None,
+                  logit_cap: Optional[float] = None):
+    """K4: (dK, dV) [B, Skv, KVH, D] in k's dtype, summed over each kv head's
+    group; ``delta`` is K5's."""
+    kw = dict(scale=scale, is_causal=is_causal, sliding_window=sliding_window,
+              logit_cap=logit_cap)
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_plain(q, k, v, do, lse, delta, q_positions, kv_valid, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_bwd_dkv runs on cuda or cpu, not {q.device}")
+    _check_bwd_cuda(q, k, v, q_positions, kv_valid, dict(do=do),
+                    dict(lse=lse, delta=delta))
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    fn = cuda_build.kernel_fn("flash_bwd", "ttpu_flash_bwd_dkv", _BWD_ARGTYPES)
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+              delta.data_ptr(), q_positions.data_ptr(), kv_valid.data_ptr(), dk.data_ptr(),
+              dv.data_ptr(), *_launch_args(q, k, **kw))
+    cuda_build.raise_on_error(code, "flash_bwd_dkv")
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """K1 forward, K5 + K4 backward (the counterpart of the Pallas
+    ``custom_vjp``). Saves q, k, v, the output and the logsumexp; the
+    logsumexp output is not differentiable."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_positions, kv_valid, scale, is_causal, sliding_window,
+                logit_cap):
+        kw = dict(scale=scale, is_causal=is_causal, sliding_window=sliding_window,
+                  logit_cap=logit_cap)
+        if q.device.type == "cuda":
+            out, lse = _flash_cuda(q, k, v, q_positions, kv_valid, **kw)
+        elif q.device.type == "cpu":
+            out, lse = flash_attention_plain(q, k, v, q_positions, kv_valid, **kw)
+        else:
+            raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+        ctx.save_for_backward(q, k, v, q_positions, kv_valid, out, lse)
+        ctx.kw = kw
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, q_positions, kv_valid, out, lse = ctx.saved_tensors
+        do = dout.contiguous()  # autograd may hand in a strided gradient
+        dq, delta = flash_bwd_dq(q, k, v, out, do, lse, q_positions, kv_valid, **ctx.kw)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, q_positions, kv_valid, **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
 def flash_attention(q, k, v, *, q_positions=None, kv_valid=None, scale: Optional[float] = None,
                     is_causal: bool = True, sliding_window: Optional[int] = None,
                     logit_cap: Optional[float] = None, return_lse: bool = False):
-    """Public entry (BSHD), the counterpart of the Pallas ``flash_attention``.
-    Returns the output, or (output, lse [B, H, Sq] f32) with ``return_lse``."""
+    """Public entry (BSHD), the counterpart of the Pallas ``flash_attention``,
+    differentiable in q, k and v. Returns the output, or (output, lse [B, H,
+    Sq] f32) with ``return_lse``."""
     b, sq, h, d = q.shape
     skv = k.shape[1]
     if q_positions is None:
         q_positions = torch.arange(sq, dtype=torch.int32, device=q.device).expand(b, sq)
     if kv_valid is None:
         kv_valid = torch.ones((b, skv), dtype=torch.int32, device=q.device)
-    scale = float(scale) if scale is not None else d ** -0.5
-    kw = dict(scale=scale, is_causal=is_causal, sliding_window=sliding_window,
-              logit_cap=logit_cap)
     if q.device.type == "cuda":
-        out, lse = _flash_cuda(q, k, v, q_positions.to(torch.int32).contiguous(),
-                               kv_valid.to(torch.int32).contiguous(), **kw)
-    elif q.device.type == "cpu":
-        out, lse = flash_attention_plain(q, k, v, q_positions, kv_valid, **kw)
-    else:
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+        q_positions = q_positions.to(torch.int32).contiguous()
+        kv_valid = kv_valid.to(torch.int32).contiguous()
+    scale = float(scale) if scale is not None else d ** -0.5
+    out, lse = FlashAttentionFunction.apply(q, k, v, q_positions, kv_valid, scale, is_causal,
+                                            sliding_window, logit_cap)
     return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
+flash_bwd_dq.launches = 0
+flash_bwd_dkv.launches = 0

@@ -112,7 +112,9 @@ def fused_decode_attention(q, k_new, v_new, cos, sin, k_cache, v_cache, pos: int
     """One decode step. q [B, 1, H, D] and k_new/v_new [B, 1, KVH, D] pre-rope,
     cos/sin [B, 1, D], caches [B, KVH, S, D] (updated in place at slot ``pos``),
     ``start`` [B] first live slot per row, ``kv_valid`` [B, S]. Returns the
-    attention output [B, 1, H, D]."""
+    attention output [B, 1, H, D]. Not differentiable: raises when a
+    gradient would be needed."""
+    cuda_build.refuse_grad("fused_decode_attention", q, k_new, v_new, k_cache, v_cache)
     args = (q, k_new, v_new, cos.to(q.dtype).contiguous(), sin.to(q.dtype).contiguous(),
             k_cache, v_cache, int(pos), start.to(torch.int32).contiguous(),
             kv_valid.to(torch.int32).contiguous())

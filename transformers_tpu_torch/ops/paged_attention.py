@@ -107,7 +107,9 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, ctx_lens, *, scale: 
                            sliding_window: Optional[int] = None):
     """One decode step over paged K/V. q [N, 1, H, D]; pools [P, KVH, BS, D];
     ``block_tables`` [N, MAXB] page ids; ``ctx_lens`` [N] live slots per row,
-    this step's token included. Returns the attention output [N, 1, H, D]."""
+    this step's token included. Returns the attention output [N, 1, H, D].
+    Not differentiable: raises when a gradient would be needed."""
+    cuda_build.refuse_grad("paged_decode_attention", q, k_pool, v_pool)
     args = (q.contiguous(), k_pool, v_pool, block_tables.to(torch.int32).contiguous(),
             ctx_lens.to(torch.int32).contiguous())
     kw = dict(scale=float(scale), sliding_window=sliding_window)
