@@ -12,7 +12,11 @@ Phases, in order; any failure exits non-zero:
     library call that computes the same function (a yardstick only: the port
     never calls it), beside the least time the card could take; then hold
     them on the cases of the reference's tests/ops files in float32, float16
-    and bf16, at head_dim 64, 128 and 256. The flash backward (K5 dQ, K4
+    and bf16, at head_dim 64, 128 and 256. The static-cache decode kernel
+    (K7, which no path of the JAX package runs) is held at the Llama-3-8B
+    decode geometry over a ragged BSHD cache and on the reference's cases; its
+    launches are those checks, and every path's count of it must stay 0. The
+    flash backward (K5 dQ, K4
     dK/dV) is held at the training shapes (4 rows of 2048 tokens, right-padded,
     32 heads over 8 kv heads, head_dim 128, bf16; causal, windowed, softcapped)
     and timed against SDPA's backward;
@@ -45,6 +49,8 @@ ends with ``{"ok": true, "device": {...}}``. Needs one CUDA card.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import ctypes
 import gc
 import json
 import math
@@ -82,13 +88,19 @@ TRAIN_LAYERS, TRAIN_ROWS, TRAIN_SEQ, TRAIN_STEPS, TRAIN_MIN_LEN = 4, 4, 2048, 5,
 TOLERANCE = {torch.bfloat16: 2e-2, torch.float16: 5e-3, torch.float32: 2e-5}
 # The backward is held element by element, each gradient value against its own
 # size: |kernel - plain| <= u * |plain| + u/2 * rms(plain). Both sides compute
-# in f32 and round once, so two nearly equal f32 values round at most one unit
-# in the last place apart: u = 2^-7 of the value in bf16 (8 significant bits),
+# in f32 (the tensor-core kernels' P and dS operands carry ~16 bits as hi + lo
+# pairs, see below) and round once, so two nearly equal f32 values round at
+# most one unit in the last place apart: u = 2^-7 of the value in bf16 (8 significant bits),
 # 2^-10 in f16; in f32 they differ only by the order of the sums. The rms term
 # covers values that are small through cancellation. A single tolerance over
 # the whole tensor would not do: gradients are sums over Sq (dK, dV) or Skv
 # (dQ), and under causality the first slots' dK/dV are many times the rest.
 GRAD_ULP = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10, torch.float32: 2e-5}
+# The tensor-core K4/K5 take P and dS as bf16/f16 operands split into hi + lo
+# parts, so the rule above holds them with the same u. A variant build that
+# rounds P and dS once (as FlashAttention-2 does) is timed and held to the
+# rule too, to show what the split buys and costs; it is not on any path.
+SINGLE_ROUNDING = ("TTPU_BWD_SPLIT=0",)
 KERNEL_ATOL = TOLERANCE[torch.bfloat16]
 LSE_ATOL = 1e-3  # f32 logsumexp from the same scores
 
@@ -125,6 +137,18 @@ DECODE_OPS_CASES = {  # name: (b, h, kvh, d, s, pos, starts, hole fraction)
     "bench_geometry": (8, 32, 8, 128, 224, 192, None, 0),
     "d64_gqa_6": (2, 12, 2, 64, 96, 70, [5, 0], 0),
     "d256_gqa_8": (2, 8, 1, 256, 80, 79, [3, 0], 0.05),
+}
+# K7: the cases of tests/ops/test_decode_attention.py, plus GQA 1 and 8,
+# head_dim 64 and 256 and a row whose end lies before its start
+STATIC_DECODE_OPS_CASES = {  # name: (b, s, h, kvh, d, starts, ends, window)
+    "matches_eager": (2, 512, 8, 2, 128, (0, 64), (300, 400), None),
+    "sliding_window": (2, 512, 8, 2, 128, (0, 0), (500, 200), 128),
+    "small_context": (1, 256, 8, 2, 128, (0,), (5,), None),
+    "gqa_1": (2, 256, 4, 4, 128, (3, 0), (200, 77), None),
+    "gqa_8": (2, 256, 16, 2, 128, (0, 31), (256, 140), 64),
+    "head_dim_64": (2, 256, 8, 2, 64, (10, 0), (250, 33), None),
+    "head_dim_256": (2, 128, 4, 1, 256, (0, 17), (128, 90), 40),
+    "end_before_start": (2, 512, 8, 2, 128, (300, 7), (200, 411), None),
 }
 PAGED_OPS_CASES = {  # name: (n, h, kvh, d, block size, ctx_lens, window)
     "gqa_1": (3, 8, 8, 128, 16, (40, 16, 61), None),
@@ -192,7 +216,10 @@ def phase_build() -> dict:
     from transformers_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    cuda_build.build()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        variant = pool.submit(cuda_build.build, ("flash_bwd",), SINGLE_ROUNDING)
+        cuda_build.build()
+        variant.result()
     secs = time.perf_counter() - t0
     for name in cuda_build.KERNELS:
         log = cuda_build.library_path(name).with_suffix(".log").read_text()
@@ -201,7 +228,8 @@ def phase_build() -> dict:
         spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill", log))
         print(f"[build] {name}: {len(regs)} kernels, registers {min(regs)}-{max(regs)}, "
               f"static smem up to {max(smem)} bytes, spill bytes {spills}")
-    print(f"[build] kernels built in {secs:.1f} s")
+    print(f"[build] kernels built in {secs:.1f} s (with the flash_bwd variant "
+          f"{' '.join(SINGLE_ROUNDING)})")
     return {"build_s": secs}
 
 
@@ -422,11 +450,55 @@ def check_flash_bwd(gen, seed: int) -> list:
                  replaces="transformers_tpu/ops/pallas/flash_attention.py:471",
                  max_abs_err=errs["dq"], ms=dq_ms, plain_ms=dq_plain_ms, bound_ms=dq_bound,
                  bound_by=dq_by, **common)]
+        check_single_rounding(q, k, v, qpos, valid, do, dq_ms + dkv_ms, **kw)
         print(f"[flash_bwd] B={b} S={s} H={h} KVH={k.shape[2]} D={d}, {visible} visible "
               f"(row, slot) pairs: K4 dK/dV {dkv_ms:.4f} ms (plain {dkv_plain_ms:.4f}, bound "
               f"{dkv_bound:.4f} {dkv_by}), K5 dQ {dq_ms:.4f} ms (plain {dq_plain_ms:.4f}, bound "
               f"{dq_bound:.4f} {dq_by}), SDPA backward {library_ms:.4f} ms")
     return results
+
+
+def check_single_rounding(q, k, v, qpos, valid, do, pair_ms: float, **kw) -> None:
+    """K5 and K4 of the SINGLE_ROUNDING variant build of csrc/flash_bwd.cu
+    (P and dS rounded once to the storage type, no hi/lo split) at the
+    training shape: their worst ratios under the element-wise rule and their
+    time beside the committed kernels' ``pair_ms``. Printed, not held: the
+    variant is on no path."""
+    from transformers_tpu_torch.ops import cuda_build
+    from transformers_tpu_torch.ops import flash_attention as fa
+
+    lib = ctypes.CDLL(str(cuda_build.library_path("flash_bwd", SINGLE_ROUNDING)))
+    fn_dq, fn_dkv = lib.ttpu_flash_bwd_dq, lib.ttpu_flash_bwd_dkv
+    for fn in (fn_dq, fn_dkv):
+        fn.argtypes = list(fa._BWD_ARGTYPES)
+        fn.restype = ctypes.c_int
+    out, lse = fa.flash_attention(q, k, v, q_positions=qpos, kv_valid=valid, return_lse=True,
+                                  **kw)
+    ref = fa.flash_attention_bwd_plain(q, k, v, qpos, valid, out, lse, do, **kw)
+    launch = fa._launch_args(q, k, **kw)
+
+    def run():
+        dq, delta = torch.empty_like(q), torch.empty_like(lse)
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        codes = (fn_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
+                       lse.data_ptr(), qpos.data_ptr(), valid.data_ptr(), dq.data_ptr(),
+                       delta.data_ptr(), *launch),
+                 fn_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                        delta.data_ptr(), qpos.data_ptr(), valid.data_ptr(), dk.data_ptr(),
+                        dv.data_ptr(), *launch))
+        if any(codes):
+            raise RuntimeError(f"single-rounding flash_bwd launch failed: {codes}")
+        return dq, dk, dv
+
+    grads = run()
+    torch.cuda.synchronize()
+    u = GRAD_ULP[q.dtype]
+    ratios = ", ".join(f"{n} {grad_ratio(a, r, u):.3f}" for n, a, r in zip(("dq", "dk", "dv"),
+                                                                          grads, ref))
+    ms = event_ms(run)
+    print(f"[flash_bwd] variant with P and dS rounded once ({' '.join(SINGLE_ROUNDING)}): "
+          f"worst ratio {ratios} (the rule holds at 1); K5 + K4 {ms:.4f} ms against "
+          f"{pair_ms:.4f} ms with the hi + lo split")
 
 
 def _decode_inputs(gen, *, b=8, h=32, kvh=8, d=128, s=160, starts=None, holes=0,
@@ -506,6 +578,86 @@ def check_decode(gen) -> dict:
         print(f"[decode] B={b} S={s} H={h} KVH={kvh} D={d} pos={pos}: {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bms:.4f} ms ({by})")
     return result
+
+def _static_inputs(gen, *, b, s, h, kvh, d, starts, ends, dtype=torch.bfloat16):
+    dev = "cuda"
+    q = torch.randn((b, 1, h, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, s, kvh, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, s, kvh, d), generator=gen, device=dev).to(dtype)
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    en = torch.tensor(ends, dtype=torch.int32, device=dev)
+    return q, k, v, st, en
+
+
+def _static_error(q, k, v, st, en, window) -> float:
+    from transformers_tpu_torch.ops.decode_attention import (decode_attention,
+                                                             decode_attention_plain)
+
+    kw = dict(scale=q.shape[-1] ** -0.5, sliding_window=window)
+    out = decode_attention(q, k, v, st, en, **kw)
+    ref = decode_attention_plain(q, k, v, st, en, **kw)
+    torch.cuda.synchronize()
+    if out[en <= st].any():
+        raise AssertionError("static decode: a row with no live slot is not zero")
+    return max_err(out, ref)
+
+
+def check_static_decode(gen) -> dict:
+    """K7 at Llama-3-8B decode geometry: 8 rows, 32 query heads over 8 kv
+    heads, head_dim 128, bf16, a BSHD cache of 224 slots with ragged live
+    ranges [start, end) (starts 0-39, ends 150-224), without and with a
+    128-slot window. Timed beside SDPA with a boolean mask over the same
+    cache, transposed to BHSD beforehand (a yardstick the port never calls).
+    The JAX package runs this kernel from no model path: its launches are
+    those of this phase's checks."""
+    import torch.nn.functional as F
+
+    from transformers_tpu_torch.ops.decode_attention import (decode_attention,
+                                                             decode_attention_plain)
+
+    b, s, h, kvh, d = BATCH, 224, 32, 8, 128
+    starts = torch.randint(0, 40, (b,), generator=gen, device="cuda").tolist()
+    ends = torch.randint(150, s + 1, (b,), generator=gen, device="cuda").tolist()
+    result = None
+    for name, window in (("ragged", None), ("ragged_window_128", 128)):
+        q, k, v, st, en = _static_inputs(gen, b=b, s=s, h=h, kvh=kvh, d=d, starts=starts,
+                                         ends=ends)
+        err = _static_error(q, k, v, st, en, window)
+        print(f"[static decode] {name} [start, end) {list(zip(starts, ends))}: max_abs_err "
+              f"{err:.3e} (tol {KERNEL_ATOL})")
+        if err > KERNEL_ATOL:
+            raise AssertionError(f"static decode kernel disagrees with its plain version ({name})")
+        if window is not None:
+            continue
+        checked = decode_attention.launches
+        scale = d ** -0.5
+        ms = device_ms(lambda: decode_attention(q, k, v, st, en, scale=scale))
+        plain_ms = device_ms(lambda: decode_attention_plain(q, k, v, st, en, scale=scale))
+        decode_attention.launches = checked  # timing launches are not checks
+        slots = torch.arange(s, device="cuda")[None, :]
+        live = (slots >= st[:, None].long()) & (slots < en[:, None].long())
+        qt = q.transpose(1, 2)
+        kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+        m4 = live[:, None, None, :]
+        library_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=m4, scale=scale, enable_gqa=True))
+        n_live = int(live.sum())
+        nbytes = (n_live * kvh * d * 2 * 2  # K and V of live slots
+                  + 2 * q.numel() * 2       # q and out
+                  + 2 * b * 4)              # starts, ends
+        bms, by = bound_ms(nbytes, 4.0 * d * h * n_live)
+        result = dict(name="static_decode", route="cuda",
+                      source="transformers_tpu_torch/csrc/fused_decode.cu",
+                      replaces="transformers_tpu/ops/pallas/decode_attention.py:168",
+                      max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                      library_ms=library_ms,
+                      library="SDPA with a boolean mask over the cache, transposed to BHSD "
+                              "beforehand")
+        print(f"[static decode] B={b} S={s} H={h} KVH={kvh} D={d} live slots {n_live}: "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+              f"{bms:.4f} ms ({by})")
+    return result
+
 
 def _paged_inputs(gen, *, n=8, h=32, kvh=8, d=128, bs=32, ctx_lens, dtype=torch.bfloat16):
     """Random pools with shuffled page ids: row i holds ceil(ctx_i / bs) pages;
@@ -644,9 +796,17 @@ def check_reference_cases(gen) -> None:
                 raise AssertionError(f"paged decode kernel disagrees with its plain version: "
                                      f"{name} {dtype}: {err:.3e}")
             worst[("paged_decode", dtype)] = max(worst.get(("paged_decode", dtype), 0.0), err)
+        for name, (b, s, h, kvh, d, starts, ends, window) in STATIC_DECODE_OPS_CASES.items():
+            err = _static_error(*_static_inputs(gen, b=b, s=s, h=h, kvh=kvh, d=d, starts=starts,
+                                                ends=ends, dtype=dtype), window)
+            if err > tol:
+                raise AssertionError(f"static decode kernel disagrees with its plain version: "
+                                     f"{name} {dtype}: {err:.3e}")
+            worst[("static_decode", dtype)] = max(worst.get(("static_decode", dtype), 0.0), err)
     n_bwd = len(FLASH_OPS_CASES) + len(FLASH_BWD_CASES)
     n_cases = {"flash_fwd": len(FLASH_OPS_CASES), "fused_decode": len(DECODE_OPS_CASES),
                "paged_decode": len(PAGED_OPS_CASES), "flash_bwd_dq": n_bwd,
+               "static_decode": len(STATIC_DECODE_OPS_CASES),
                "flash_bwd_dkv": n_bwd}
     for (kernel, dtype), err in worst.items():
         if kernel.startswith("flash_bwd"):
@@ -661,12 +821,13 @@ def check_reference_cases(gen) -> None:
 def _wrappers() -> dict:
     from transformers_tpu_torch.ops.flash_attention import (flash_attention, flash_bwd_dkv,
                                                             flash_bwd_dq)
+    from transformers_tpu_torch.ops.decode_attention import decode_attention
     from transformers_tpu_torch.ops.fused_decode import fused_decode_attention
     from transformers_tpu_torch.ops.paged_attention import paged_decode_attention
 
     return {"flash_fwd": flash_attention, "fused_decode": fused_decode_attention,
             "paged_decode": paged_decode_attention, "flash_bwd_dkv": flash_bwd_dkv,
-            "flash_bwd_dq": flash_bwd_dq}
+            "flash_bwd_dq": flash_bwd_dq, "static_decode": decode_attention}
 
 
 def _expected(**counts) -> dict:
@@ -1223,9 +1384,11 @@ def main() -> int:
     print(f"[card] {card}")
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    kernels = [check_flash(gen), check_decode(gen), check_paged(gen),
+    _reset_counts()
+    kernels = [check_flash(gen), check_decode(gen), check_paged(gen), check_static_decode(gen),
                *check_flash_bwd(gen, args.seed)]
     check_reference_cases(gen)
+    phase_b = _read_counts()  # K7 serves no path: its launches are phase (b)'s checks
     check_load_path(args.seed, card)
     model = build_model(args.seed)
     paths = {"generate": check_generate(model, args.seed, card),
@@ -1238,7 +1401,13 @@ def main() -> int:
               "flash_bwd_dq": "train"}
     for k in kernels:
         # each kernel's launches on the path it serves; every path's counts beside
-        k["launches"] = paths[serves.get(k["name"], "generate")][k["name"]]
+        if k["name"] == "static_decode":
+            k["launches"] = phase_b["static_decode"]
+            k["note"] = ("the JAX package runs this kernel from no model path (only "
+                         "tests/ops/test_decode_attention.py calls it): launches are phase "
+                         "(b)'s checks, and every path's count is held at 0")
+        else:
+            k["launches"] = paths[serves.get(k["name"], "generate")][k["name"]]
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
     print(json.dumps({"kernels": kernels}))
     print(f"[card] {card}")

@@ -57,6 +57,7 @@ def test_every_kernel_module_is_checked():
     for name in ("transformers_tpu_torch.ops.flash_attention",
                  "transformers_tpu_torch.ops.fused_decode",
                  "transformers_tpu_torch.ops.paged_attention",
+                 "transformers_tpu_torch.ops.decode_attention",
                  "transformers_tpu_torch.generation.continuous_batching.model_runner",
                  "transformers_tpu_torch.ops.cuda_build",
                  "transformers_tpu_torch.models.llama.modeling_llama",
@@ -70,6 +71,10 @@ def test_every_kernel_module_is_checked():
     for wrapper in (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv):
         assert isinstance(wrapper.launches, int)
     assert issubclass(fa.FlashAttentionFunction, torch.autograd.Function)
+    # K7 (static-cache decode) is a mode of the fused decode library
+    from transformers_tpu_torch.ops import decode_attention as da
+
+    assert isinstance(da.decode_attention.launches, int)
 
 
 @pytest.mark.parametrize("entry", ["constructor", "from_pretrained", "auto_from_config"])

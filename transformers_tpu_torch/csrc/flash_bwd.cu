@@ -1,8 +1,8 @@
 // Flash attention backward: the gradients of the forward in flash_fwd.cu,
 // recomputed from the forward's per-row logsumexp (O(S) memory).
 //
-//   K5 (flash_bwd_dq_kernel):  dQ = dS K, and delta = rowsum(dO * O) on the way
-//   K4 (flash_bwd_dkv_kernel): dV = P^T dO, dK = dS^T Q, summed over the GQA group
+//   K5 (flash_bwd_dq_*):  dQ = dS K, and delta = rowsum(dO * O) on the way
+//   K4 (flash_bwd_dkv_*): dV = P^T dO, dK = dS^T Q, summed over the GQA group
 //
 // with, for query row i and kv slot j under the forward's mask (kv_valid[j],
 // j <= q_positions[i] when causal, j > q_positions[i] - window with a window):
@@ -19,29 +19,207 @@
 // [B, H, Skv, D] and sums the group outside the kernel, and extracts each
 // head's lse/delta with a one-hot product (Mosaic forbids a dynamic lane
 // index). Here one K4 block owns a kv tile of one kv head and loops over the
-// G query heads of its group itself, so the group sum needs no buffer and no
-// atomics and the result is deterministic; lse and delta are read directly.
+// query tiles that see it and the G query heads of its group itself, so the
+// group sum needs no buffer and no atomics and the result is deterministic;
+// lse and delta are read directly.
 //
 // Bound on the H100: at the training shapes (B=4, S=2048, H=32, KVH=8,
 // D=128, causal) K4 does 4 and K5 3 products of 2*Sq*Skv*D/2 operations per
 // head (~275 and ~206 GFLOP) against ~0.3 GB of inputs and outputs, so the
-// bound is operations (~0.28 and ~0.21 ms at 989 TFLOP/s). This first
-// version does the products with float FMAs on CUDA cores, as flash_fwd.cu
-// does, so it runs far from that bound; tensor cores (mma/wgmma) are later
-// work. What the design does: 256 threads as a 16 x 16 grid; tiles in the
-// storage type in shared memory with rows padded by two elements (distinct
-// banks for the column-parallel reads); each thread holds a block of the
-// score tile and of its f32 gradient accumulator in registers. Tiles are
-// 64 x 64, smaller where D = 256 would not fit shared memory: K4 takes 32-slot
-// kv tiles at D = 256 (its two accumulators stay at 64 registers a thread),
-// and both kernels take 32-row tiles for f32 at D = 256. Query tiles that
-// causality or the window mask for the whole kv tile (K4), and kv tiles
-// masked for the whole query tile (K5), are never loaded.
+// bound is operations (~0.28 and ~0.21 ms at 989 TFLOP/s): only the tensor
+// cores can approach it.
+//
+// bf16 and fp16 at head_dim 64 and 128 take the tensor-core kernels
+// (*_tc_kernel): warp-level mma.sync m16n8k16 (f32 accumulate) on operands
+// loaded by ldmatrix from shared-memory tiles whose rows are padded by 16
+// bytes (the 8 rows of an ldmatrix, plain or transposed, fall in distinct
+// banks); tiles arrive by cp.async into two stages, so the next tile's copy
+// overlaps this tile's products. Each of the 4 warps owns 16 rows: K5 16
+// query rows (S = Q K^T and dP = dO V^T in registers, then dQ += dS K with dS
+// taken from the accumulators as the A operand), K4 16 kv rows (it computes
+// S^T = K Q^T and dP^T = V dO^T, so P^T and dS^T are already in the A-operand
+// layout of dV += P^T dO and dK += dS^T Q; dK/dV stay in f32 registers).
+// The second products take P and dS as tensor-core operands of the storage
+// type; rounding them once would break the element-wise hold to the f32
+// plain version (chip_smoke.py), so each is split into hi = round(x) and lo
+// = round(x - hi), two products that carry x to ~16 bits (kSplit).
+// Blocks are numbered heaviest first under causality (K4: low kv tiles, K5:
+// high query tiles), so the short ones fill the last wave.
+//
+// float32 keeps the CUDA-core FMA kernels (TF32 would not hold float32's
+// tolerance), and so does head_dim 256: a warp's 16 rows of dK and dV there
+// would take 256 f32 registers a thread. Those kernels: 256 threads as a
+// 16 x 16 grid; tiles in shared memory with rows padded by two elements;
+// each thread holds a block of the score tile and of its f32 gradient
+// accumulator in registers; 64 x 64 tiles, K4 32-slot kv tiles at D = 256
+// and both 32-row tiles for f32 at D = 256. Query tiles that causality or
+// the window mask for the whole kv tile (K4), and kv tiles masked for the
+// whole query tile (K5), are never loaded, on either route.
+
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 
+// ------------------------------------------- tensor-core building blocks
+// The sm_80 warp-level instructions: mma.sync m16n8k16 with f32 accumulate,
+// ldmatrix and cp.async. Fragment layouts (PTX ISA): with g = lane / 4 and
+// t = lane % 4, an A fragment (16 x 16) holds rows g, g + 8 and column pairs
+// 2t, 2t + 8; a B fragment (16 x 8) k pairs 2t, 2t + 8 of column g; the f32
+// accumulator (16 x 8) rows g, g + 8, column pair 2t.
+
+// -DTTPU_BWD_SPLIT=0 builds the variant that rounds P and dS once (on no
+// path: chip_smoke.py times it and holds it to the rule, to show what the
+// split buys).
+#ifndef TTPU_BWD_SPLIT
+#define TTPU_BWD_SPLIT 1
+#endif
+constexpr bool kSplit = TTPU_BWD_SPLIT != 0;  // P and dS as hi + lo operand pairs
+constexpr int kPad = 8;                        // elements of padding per shared row
+
+template <typename T, int D>
+constexpr bool use_tensor_cores() {
+  return !std::is_same<T, float>::value && D <= 128;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+template <typename T>
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1);
+
+template <>
+__device__ __forceinline__ void mma16816<__nv_bfloat16>(float (&c)[4], const uint32_t (&a)[4],
+                                                        uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <>
+__device__ __forceinline__ void mma16816<__half>(float (&c)[4], const uint32_t (&a)[4],
+                                                 uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Columns [16 kk, 16 kk + 16) of a 16 x (8 NT) f32 accumulator tile as an A
+// fragment of T: hi = x rounded to T, lo = (x - hi) rounded to T.
+template <typename T, int NT>
+__device__ __forceinline__ void acc_to_a(const float (&acc)[NT][4], int kk, uint32_t (&hi)[4],
+                                         uint32_t (&lo)[4]) {
+  const float v[8] = {acc[2 * kk][0],     acc[2 * kk][1],     acc[2 * kk][2],
+                      acc[2 * kk][3],     acc[2 * kk + 1][0], acc[2 * kk + 1][1],
+                      acc[2 * kk + 1][2], acc[2 * kk + 1][3]};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    hi[i] = pack2<T>(v[2 * i], v[2 * i + 1]);
+    if (kSplit) {
+      lo[i] = pack2<T>(v[2 * i] - round_to<T>(v[2 * i]),
+                       v[2 * i + 1] - round_to<T>(v[2 * i + 1]));
+    }
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(pred ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [0, R) of a tile with row stride D + kPad in shared memory, copied
+// asynchronously from global rows src + r * row_stride; rows at or past
+// n_rows are zero-filled.
+template <typename T, int D, int R, int NTHREADS>
+__device__ __forceinline__ void cp_rows(T* dst, const T* __restrict__ src, size_t row_stride,
+                                        int n_rows) {
+  constexpr int EPC = 16 / (int)sizeof(T);  // elements per 16-byte chunk
+  constexpr int CPR = D / EPC;              // chunks per row
+  for (int idx = threadIdx.x; idx < R * CPR; idx += NTHREADS) {
+    const int r = idx / CPR;
+    const int c = (idx % CPR) * EPC;
+    const bool ok = r < n_rows;
+    cp_async16(dst + r * (D + kPad) + c, ok ? src + (size_t)r * row_stride + c : src, ok);
+  }
+}
+
+// 4-byte values [0, n) of a tile row, asynchronously; [n, R) zero-filled.
+template <int R, typename V>
+__device__ __forceinline__ void cp_vals(V* dst, const V* __restrict__ src, int n) {
+  if (threadIdx.x < R) {
+    const bool ok = (int)threadIdx.x < n;
+    cp_async4(dst + threadIdx.x, ok ? src + threadIdx.x : src, ok);
+  }
+}
+
+// Stores rows g and g + 8 of a warp's 16 x D f32 accumulator tile, rounded
+// to T, to rows row(0) and row(1) (nullptr: not stored).
+template <typename T, int D, typename Row>
+__device__ __forceinline__ void store_acc(const float (&acc)[D / 8][4], Row row) {
+  const int tg = threadIdx.x & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    T* dst = row(i);
+    if (dst == nullptr) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      Vec<T, 2> o;
+      o.x[0] = from_f<T>(acc[j][2 * i]);
+      o.x[1] = from_f<T>(acc[j][2 * i + 1]);
+      *reinterpret_cast<Vec<T, 2>*>(dst + j * 8 + 2 * tg) = o;
+    }
+  }
+}
+
+// ------------------------------------------------ CUDA-core FMA kernels
 constexpr int NT = 256;  // threads: a 16 x 16 grid
 
 template <typename T, int D>
@@ -455,6 +633,395 @@ flash_bwd_dkv_kernel(const T* __restrict__ q,      // [B, Sq, H, D]
   }
 }
 
+
+// ------------------------------------------------------ K5: dQ, tensor cores
+template <typename T, int D>
+struct DqTc {
+  static constexpr int NW = 4;         // warps, 16 query rows each
+  static constexpr int BQ = 16 * NW;   // query rows per block
+  static constexpr int BKV = 64;       // kv slots per tile
+  static constexpr int S = D + kPad;   // shared row stride
+  static constexpr size_t smem = (size_t)(2 * BQ + 4 * BKV) * S * sizeof(T) +  // Q, dO; K, V x 2
+                                 (size_t)2 * BQ * sizeof(float) +              // lse, delta
+                                 (size_t)(BQ + 2 * BKV + 2) * sizeof(int);     // qpos, valid x 2, range
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(DqTc<T, D>::NW * 32)
+flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const T* __restrict__ out,
+                       const T* __restrict__ dout, const float* __restrict__ lse,
+                       const int* __restrict__ q_positions, const int* __restrict__ kv_valid,
+                       T* __restrict__ dq, float* __restrict__ delta, int Sq, int Skv, int H,
+                       int KVH, float scale, int causal, int window, float logit_cap) {
+  using C = DqTc<T, D>;
+  constexpr int NW = C::NW, BQ = C::BQ, BKV = C::BKV, S = C::S;
+  constexpr int NTH = NW * 32, NT = BKV / 8, DT = D / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* dOs = Qs + BQ * S;
+  T* Ks = dOs + BQ * S;      // [2][BKV][S]
+  T* Vs = Ks + 2 * BKV * S;  // [2][BKV][S]
+  float* lse_s = reinterpret_cast<float*>(Vs + 2 * BKV * S);
+  float* delta_s = lse_s + BQ;
+  int* qpos_s = reinterpret_cast<int*>(delta_s + BQ);
+  int* valid_s = qpos_s + BQ;  // [2][BKV]
+  int* range_s = valid_s + 2 * BKV;
+
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int gr = lane >> 2, tg = lane & 3;
+  // heaviest first: under causality the last query tiles see the most slots
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int kvh = h / (H / KVH);
+  const int n_rows = min(BQ, Sq - q0);
+  const size_t row0 = ((size_t)b * Sq + q0) * H + h;  // row index of (b, q0, h)
+
+  cp_rows<T, D, BQ, NTH>(Qs, q + row0 * D, (size_t)H * D, n_rows);
+  cp_rows<T, D, BQ, NTH>(dOs, dout + row0 * D, (size_t)H * D, n_rows);
+  cp_async_commit();
+  if (tid < BQ) {
+    const bool live = tid < n_rows;
+    qpos_s[tid] = live ? q_positions[(size_t)b * Sq + q0 + tid] : 0;
+    lse_s[tid] = live ? lse[((size_t)b * H + h) * Sq + q0 + tid] : -CUDART_INF_F;
+  }
+  __syncthreads();
+  row_range(qpos_s, n_rows, range_s);
+  __syncthreads();
+  const int lo = range_s[0], hi = range_s[1];
+  // kv tiles outside [kv_begin, kv_end) are masked for every row of this tile
+  const int kv_begin = window > 0 ? max(0, (lo - window + 1) / BKV) * BKV : 0;
+  const int kv_end = causal ? min(Skv, hi + 1) : Skv;
+  const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + BKV - 1) / BKV : 0;
+
+  auto load_kv = [&](int t, int stage) {
+    const int kv0 = kv_begin + t * BKV;
+    const size_t kv_row0 = ((size_t)b * Skv + kv0) * KVH + kvh;
+    const int n_kv = min(BKV, Skv - kv0);
+    cp_rows<T, D, BKV, NTH>(Ks + stage * BKV * S, k + kv_row0 * D, (size_t)KVH * D, n_kv);
+    cp_rows<T, D, BKV, NTH>(Vs + stage * BKV * S, v + kv_row0 * D, (size_t)KVH * D, n_kv);
+    cp_vals<BKV>(valid_s + stage * BKV, kv_valid + (size_t)b * Skv + kv0, n_kv);
+    cp_async_commit();
+  };
+  if (n_tiles > 0) {
+    load_kv(0, 0);
+    cp_async_wait<1>();
+  } else {
+    cp_async_wait<0>();
+  }
+  __syncthreads();
+
+  // delta = rowsum(dO * O) in f32: NTH / BQ neighbouring threads per row
+  {
+    constexpr int TPR = NTH / BQ;
+    constexpr int EPC = 16 / (int)sizeof(T);
+    const int r = tid / TPR;
+    const int part = tid % TPR;
+    float sum = 0.f;
+    if (r < n_rows) {
+      const T* orow = out + (row0 + (size_t)r * H) * D;
+      for (int c = part * EPC; c < D; c += TPR * EPC) {
+        float o[EPC], g[EPC];
+        load_f<T, EPC>(orow + c, o);
+        load_f<T, EPC>(dOs + r * S + c, g);
+#pragma unroll
+        for (int e = 0; e < EPC; ++e) sum = fmaf(o[e], g[e], sum);
+      }
+    }
+#pragma unroll
+    for (int o = 1; o < TPR; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    if (part == 0) {
+      delta_s[r] = sum;
+      if (r < n_rows) delta[((size_t)b * H + h) * Sq + q0 + r] = sum;
+    }
+  }
+  __syncthreads();
+
+  // this thread's two query rows: gr and gr + 8 of the warp's 16
+  const int rw = w * 16 + gr;
+  const float lse_r[2] = {lse_s[rw], lse_s[rw + 8]};
+  const float delta_r[2] = {delta_s[rw], delta_s[rw + 8]};
+  const int qp_r[2] = {qpos_s[rw], qpos_s[rw + 8]};
+
+  float acc[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int stage = t & 1;
+    if (t + 1 < n_tiles) {
+      load_kv(t + 1, stage ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* Kt = Ks + stage * BKV * S;
+    const T* Vt = Vs + stage * BKV * S;
+    const int* vt = valid_s + stage * BKV;
+    const int kv0 = kv_begin + t * BKV;
+
+    // S = Q K^T and dP = dO V^T for the warp's 16 rows
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t aq[4], ao[4];
+      const int a_off = (w * 16 + (lane & 15)) * S + kk * 16 + (lane >> 4) * 8;
+      ldsm_x4(aq, Qs + a_off);
+      ldsm_x4(ao, dOs + a_off);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t bk[4], bv[4];
+        const int b_off = (np * 16 + (lane & 7) + (lane >> 4) * 8) * S + kk * 16 +
+                          ((lane >> 3) & 1) * 8;
+        ldsm_x4(bk, Kt + b_off);
+        ldsm_x4(bv, Vt + b_off);
+        mma16816<T>(s[2 * np], aq, bk[0], bk[1]);
+        mma16816<T>(s[2 * np + 1], aq, bk[2], bk[3]);
+        mma16816<T>(dp[2 * np], ao, bv[0], bv[1]);
+        mma16816<T>(dp[2 * np + 1], ao, bv[2], bv[3]);
+      }
+    }
+    // dS in place of S
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + 2 * tg + (e & 1);
+        const int i = e >> 1;
+        float p, ds;
+        p_ds(s[j][e], dp[j][e], lse_r[i], delta_r[i],
+             visible(kv0 + c, qp_r[i], vt[c], causal, window), scale, logit_cap, p, ds);
+        s[j][e] = ds;
+      }
+    }
+    // dQ += dS K
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+      uint32_t a_hi[4], a_lo[4];
+      acc_to_a<T, NT>(s, kk, a_hi, a_lo);
+#pragma unroll
+      for (int dp2 = 0; dp2 < D / 16; ++dp2) {
+        uint32_t bk[4];
+        ldsm_x4_t(bk, Kt + (kk * 16 + (lane & 15)) * S + dp2 * 16 + (lane >> 4) * 8);
+        mma16816<T>(acc[2 * dp2], a_hi, bk[0], bk[1]);
+        mma16816<T>(acc[2 * dp2 + 1], a_hi, bk[2], bk[3]);
+        if (kSplit) {
+          mma16816<T>(acc[2 * dp2], a_lo, bk[0], bk[1]);
+          mma16816<T>(acc[2 * dp2 + 1], a_lo, bk[2], bk[3]);
+        }
+      }
+    }
+    __syncthreads();  // this stage is refilled in the next iteration
+  }
+
+  store_acc<T, D>(acc, [&](int i) -> T* {
+    const int r = rw + 8 * i;
+    return r < n_rows ? dq + (row0 + (size_t)r * H) * D : nullptr;
+  });
+}
+
+// -------------------------------------------------- K4: dK, dV, tensor cores
+template <typename T, int D>
+struct DkvTc {
+  static constexpr int NW = 4;                 // warps, 16 kv rows each
+  static constexpr int BKV = 16 * NW;          // kv slots per block
+  static constexpr int BQ = D <= 64 ? 64 : 32; // query rows per tile
+  static constexpr int S = D + kPad;
+  static constexpr size_t smem = (size_t)(2 * BKV + 4 * BQ) * S * sizeof(T) +  // K, V; Q, dO x 2
+                                 (size_t)4 * BQ * sizeof(float) +  // lse, delta x 2
+                                 (size_t)(2 * BQ + BKV + 2) * sizeof(int);  // qpos x 2, valid, range
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(DkvTc<T, D>::NW * 32)
+flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        const int* __restrict__ q_positions, const int* __restrict__ kv_valid,
+                        T* __restrict__ dk, T* __restrict__ dv, int Sq, int Skv, int H, int KVH,
+                        float scale, int causal, int window, float logit_cap) {
+  using C = DkvTc<T, D>;
+  constexpr int NW = C::NW, BKV = C::BKV, BQ = C::BQ, S = C::S;
+  constexpr int NTH = NW * 32, NQ = BQ / 8, DT = D / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Ks = reinterpret_cast<T*>(smem);
+  T* Vs = Ks + BKV * S;
+  T* Qs = Vs + BKV * S;       // [2][BQ][S]
+  T* dOs = Qs + 2 * BQ * S;   // [2][BQ][S]
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * BQ * S);  // [2][BQ]
+  float* delta_s = lse_s + 2 * BQ;                           // [2][BQ]
+  int* qpos_s = reinterpret_cast<int*>(delta_s + 2 * BQ);    // [2][BQ]
+  int* valid_s = qpos_s + 2 * BQ;                            // [BKV]
+  int* range_s = valid_s + BKV;
+
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int gr = lane >> 2, tg = lane & 3;
+  // heaviest first: under causality the first kv tiles are seen by the most rows
+  const int kv0 = blockIdx.z * BKV;
+  const int kvh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int G = H / KVH;
+  const int n_kv = min(BKV, Skv - kv0);
+  const int kv_last = kv0 + n_kv - 1;
+  const size_t kv_row0 = ((size_t)b * Skv + kv0) * KVH + kvh;
+
+  cp_rows<T, D, BKV, NTH>(Ks, k + kv_row0 * D, (size_t)KVH * D, n_kv);
+  cp_rows<T, D, BKV, NTH>(Vs, v + kv_row0 * D, (size_t)KVH * D, n_kv);
+  cp_vals<BKV>(valid_s, kv_valid + (size_t)b * Skv + kv0, n_kv);
+  cp_async_commit();
+
+  // The first and last query tile that some row of it sees this kv tile
+  // (a warp per query tile); the tiles between them are all visited.
+  if (tid == 0) {
+    range_s[0] = 0x7fffffff;
+    range_s[1] = -1;
+  }
+  __syncthreads();
+  const int* qpos_row = q_positions + (size_t)b * Sq;
+  for (int qt = w * BQ; qt < Sq; qt += NW * BQ) {
+    int lo = 0x7fffffff, hi = -0x7fffffff;
+    for (int r = lane; r < min(BQ, Sq - qt); r += 32) {
+      const int p = qpos_row[qt + r];
+      lo = min(lo, p);
+      hi = max(hi, p);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+      hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+    }
+    const bool skip = (causal && hi < kv0) || (window > 0 && lo - window >= kv_last);
+    if (!skip && lane == 0) {
+      atomicMin(&range_s[0], qt);
+      atomicMax(&range_s[1], qt);
+    }
+  }
+  __syncthreads();
+  const int qt_first = range_s[0];
+  const int n_items = range_s[1] >= qt_first ? ((range_s[1] - qt_first) / BQ + 1) * G : 0;
+
+  // item i: query tile qt_first + (i / G) * BQ of head kvh * G + i % G
+  auto load_q = [&](int item, int stage) {
+    const int qt = qt_first + (item / G) * BQ;
+    const int h = kvh * G + item % G;
+    const int n_rows = min(BQ, Sq - qt);
+    const size_t row0 = ((size_t)b * Sq + qt) * H + h;
+    const size_t at = ((size_t)b * H + h) * Sq + qt;
+    cp_rows<T, D, BQ, NTH>(Qs + stage * BQ * S, q + row0 * D, (size_t)H * D, n_rows);
+    cp_rows<T, D, BQ, NTH>(dOs + stage * BQ * S, dout + row0 * D, (size_t)H * D, n_rows);
+    cp_vals<BQ>(lse_s + stage * BQ, lse + at, n_rows);
+    cp_vals<BQ>(delta_s + stage * BQ, delta + at, n_rows);
+    cp_vals<BQ>(qpos_s + stage * BQ, qpos_row + qt, n_rows);
+    cp_async_commit();
+  };
+  if (n_items > 0) load_q(0, 0);
+
+  float dk_acc[DT][4], dv_acc[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+  const int rw = w * 16 + gr;  // this thread's kv rows: rw and rw + 8
+
+  for (int it = 0; it < n_items; ++it) {
+    const int stage = it & 1;
+    if (it + 1 < n_items) {
+      load_q(it + 1, stage ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int n_rows = min(BQ, Sq - (qt_first + (it / G) * BQ));
+    const T* Qt = Qs + stage * BQ * S;
+    const T* dOt = dOs + stage * BQ * S;
+    const float* lt = lse_s + stage * BQ;
+    const float* dt = delta_s + stage * BQ;
+    const int* pt = qpos_s + stage * BQ;
+
+    // S^T = K Q^T and dP^T = V dO^T for the warp's 16 kv rows
+    float st[NQ][4], dpt[NQ][4];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t ak[4], av[4];
+      const int a_off = (w * 16 + (lane & 15)) * S + kk * 16 + (lane >> 4) * 8;
+      ldsm_x4(ak, Ks + a_off);
+      ldsm_x4(av, Vs + a_off);
+#pragma unroll
+      for (int np = 0; np < NQ / 2; ++np) {
+        uint32_t bq[4], bo[4];
+        const int b_off = (np * 16 + (lane & 7) + (lane >> 4) * 8) * S + kk * 16 +
+                          ((lane >> 3) & 1) * 8;
+        ldsm_x4(bq, Qt + b_off);
+        ldsm_x4(bo, dOt + b_off);
+        mma16816<T>(st[2 * np], ak, bq[0], bq[1]);
+        mma16816<T>(st[2 * np + 1], ak, bq[2], bq[3]);
+        mma16816<T>(dpt[2 * np], av, bo[0], bo[1]);
+        mma16816<T>(dpt[2 * np + 1], av, bo[2], bo[3]);
+      }
+    }
+    // P^T in place of S^T, dS^T in place of dP^T
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + 2 * tg + (e & 1);
+        const int rr = rw + 8 * (e >> 1);
+        const bool vis = c < n_rows && visible(kv0 + rr, pt[c], valid_s[rr], causal, window);
+        float p, ds;
+        p_ds(st[j][e], dpt[j][e], lt[c], dt[c], vis, scale, logit_cap, p, ds);
+        st[j][e] = p;
+        dpt[j][e] = ds;
+      }
+    }
+    // dV += P^T dO, dK += dS^T Q
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      uint32_t p_hi[4], p_lo[4], ds_hi[4], ds_lo[4];
+      acc_to_a<T, NQ>(st, kk, p_hi, p_lo);
+      acc_to_a<T, NQ>(dpt, kk, ds_hi, ds_lo);
+#pragma unroll
+      for (int dp2 = 0; dp2 < D / 16; ++dp2) {
+        uint32_t bo[4], bq[4];
+        const int off = (kk * 16 + (lane & 15)) * S + dp2 * 16 + (lane >> 4) * 8;
+        ldsm_x4_t(bo, dOt + off);
+        ldsm_x4_t(bq, Qt + off);
+        mma16816<T>(dv_acc[2 * dp2], p_hi, bo[0], bo[1]);
+        mma16816<T>(dv_acc[2 * dp2 + 1], p_hi, bo[2], bo[3]);
+        mma16816<T>(dk_acc[2 * dp2], ds_hi, bq[0], bq[1]);
+        mma16816<T>(dk_acc[2 * dp2 + 1], ds_hi, bq[2], bq[3]);
+        if (kSplit) {
+          mma16816<T>(dv_acc[2 * dp2], p_lo, bo[0], bo[1]);
+          mma16816<T>(dv_acc[2 * dp2 + 1], p_lo, bo[2], bo[3]);
+          mma16816<T>(dk_acc[2 * dp2], ds_lo, bq[0], bq[1]);
+          mma16816<T>(dk_acc[2 * dp2 + 1], ds_lo, bq[2], bq[3]);
+        }
+      }
+    }
+    __syncthreads();  // this stage is refilled in the next iteration
+  }
+  cp_async_wait<0>();  // K/V's copies, when no query tile was visited
+
+  auto kv_row = [&](T* base) {
+    return [=](int i) -> T* {
+      const int r = rw + 8 * i;
+      return r < n_kv ? base + (kv_row0 + (size_t)r * KVH) * D : nullptr;
+    };
+  };
+  store_acc<T, D>(dk_acc, kv_row(dk));
+  store_acc<T, D>(dv_acc, kv_row(dv));
+}
+
 // ---------------------------------------------------------------- launch
 struct Args {
   const void *q, *k, *v, *out_or_dout, *dout_or_lse, *lse_or_delta;
@@ -469,43 +1036,79 @@ struct Args {
 
 template <typename T, int D>
 cudaError_t launch_dq(const Args& a) {
-  constexpr size_t bytes = dq_smem_bytes<T, D>();
   static bool smem_set = false;  // once per instantiation (also keeps it out of graph capture)
-  if (!smem_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return err;
-    smem_set = true;
+  if constexpr (use_tensor_cores<T, D>()) {
+    using C = DqTc<T, D>;
+    if (!smem_set) {
+      cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel<T, D>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             (int)C::smem);
+      if (err != cudaSuccess) return err;
+      smem_set = true;
+    }
+    dim3 grid(a.H, a.B, (a.Sq + C::BQ - 1) / C::BQ);
+    flash_bwd_dq_tc_kernel<T, D><<<grid, C::NW * 32, C::smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<const T*>(a.out_or_dout), static_cast<const T*>(a.dout_or_lse),
+        static_cast<const float*>(a.lse_or_delta), a.q_positions, a.kv_valid,
+        static_cast<T*>(a.o1), static_cast<float*>(a.o2), a.Sq, a.Skv, a.H, a.KVH, a.scale,
+        a.causal, a.window, a.cap);
+  } else {
+    constexpr size_t bytes = dq_smem_bytes<T, D>();
+    if (!smem_set) {
+      cudaError_t err = cudaFuncSetAttribute(
+          flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      if (err != cudaSuccess) return err;
+      smem_set = true;
+    }
+    constexpr int BQ = DqTiles<T, D>::BQ;
+    dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B);
+    flash_bwd_dq_kernel<T, D><<<grid, NT, bytes, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<const T*>(a.out_or_dout), static_cast<const T*>(a.dout_or_lse),
+        static_cast<const float*>(a.lse_or_delta), a.q_positions, a.kv_valid,
+        static_cast<T*>(a.o1), static_cast<float*>(a.o2), a.Sq, a.Skv, a.H, a.KVH, a.scale,
+        a.causal, a.window, a.cap);
   }
-  constexpr int BQ = DqTiles<T, D>::BQ;
-  dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B);
-  flash_bwd_dq_kernel<T, D><<<grid, NT, bytes, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.out_or_dout), static_cast<const T*>(a.dout_or_lse),
-      static_cast<const float*>(a.lse_or_delta), a.q_positions, a.kv_valid,
-      static_cast<T*>(a.o1), static_cast<float*>(a.o2), a.Sq, a.Skv, a.H, a.KVH, a.scale,
-      a.causal, a.window, a.cap);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch_dkv(const Args& a) {
-  constexpr size_t bytes = dkv_smem_bytes<T, D>();
   static bool smem_set = false;
-  if (!smem_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return err;
-    smem_set = true;
+  if constexpr (use_tensor_cores<T, D>()) {
+    using C = DkvTc<T, D>;
+    if (!smem_set) {
+      cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_tc_kernel<T, D>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             (int)C::smem);
+      if (err != cudaSuccess) return err;
+      smem_set = true;
+    }
+    dim3 grid(a.KVH, a.B, (a.Skv + C::BKV - 1) / C::BKV);
+    flash_bwd_dkv_tc_kernel<T, D><<<grid, C::NW * 32, C::smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<const T*>(a.out_or_dout), static_cast<const float*>(a.dout_or_lse),
+        static_cast<const float*>(a.lse_or_delta), a.q_positions, a.kv_valid,
+        static_cast<T*>(a.o1), static_cast<T*>(a.o2), a.Sq, a.Skv, a.H, a.KVH, a.scale,
+        a.causal, a.window, a.cap);
+  } else {
+    constexpr size_t bytes = dkv_smem_bytes<T, D>();
+    if (!smem_set) {
+      cudaError_t err = cudaFuncSetAttribute(
+          flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      if (err != cudaSuccess) return err;
+      smem_set = true;
+    }
+    constexpr int BKV = DkvTiles<T, D>::BKV;
+    dim3 grid((a.Skv + BKV - 1) / BKV, a.KVH, a.B);
+    flash_bwd_dkv_kernel<T, D><<<grid, NT, bytes, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<const T*>(a.out_or_dout), static_cast<const float*>(a.dout_or_lse),
+        static_cast<const float*>(a.lse_or_delta), a.q_positions, a.kv_valid,
+        static_cast<T*>(a.o1), static_cast<T*>(a.o2), a.Sq, a.Skv, a.H, a.KVH, a.scale,
+        a.causal, a.window, a.cap);
   }
-  constexpr int BKV = DkvTiles<T, D>::BKV;
-  dim3 grid((a.Skv + BKV - 1) / BKV, a.KVH, a.B);
-  flash_bwd_dkv_kernel<T, D><<<grid, NT, bytes, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.out_or_dout), static_cast<const float*>(a.dout_or_lse),
-      static_cast<const float*>(a.lse_or_delta), a.q_positions, a.kv_valid,
-      static_cast<T*>(a.o1), static_cast<T*>(a.o2), a.Sq, a.Skv, a.H, a.KVH, a.scale, a.causal,
-      a.window, a.cap);
   return cudaGetLastError();
 }
 
