@@ -49,8 +49,6 @@ ends with ``{"ok": true, "device": {...}}``. Needs one CUDA card.
 from __future__ import annotations
 
 import argparse
-import concurrent.futures
-import ctypes
 import gc
 import json
 import math
@@ -88,19 +86,15 @@ TRAIN_LAYERS, TRAIN_ROWS, TRAIN_SEQ, TRAIN_STEPS, TRAIN_MIN_LEN = 4, 4, 2048, 5,
 TOLERANCE = {torch.bfloat16: 2e-2, torch.float16: 5e-3, torch.float32: 2e-5}
 # The backward is held element by element, each gradient value against its own
 # size: |kernel - plain| <= u * |plain| + u/2 * rms(plain). Both sides compute
-# in f32 (the tensor-core kernels' P and dS operands carry ~16 bits as hi + lo
-# pairs, see below) and round once, so two nearly equal f32 values round at
+# in f32 (the tensor-core kernels take P and dS as hi + lo operand pairs that
+# carry ~16 bits; rounded once, they read 8-12x this rule's bound at the
+# training shape) and round once, so two nearly equal f32 values round at
 # most one unit in the last place apart: u = 2^-7 of the value in bf16 (8 significant bits),
 # 2^-10 in f16; in f32 they differ only by the order of the sums. The rms term
 # covers values that are small through cancellation. A single tolerance over
 # the whole tensor would not do: gradients are sums over Sq (dK, dV) or Skv
 # (dQ), and under causality the first slots' dK/dV are many times the rest.
 GRAD_ULP = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10, torch.float32: 2e-5}
-# The tensor-core K4/K5 take P and dS as bf16/f16 operands split into hi + lo
-# parts, so the rule above holds them with the same u. A variant build that
-# rounds P and dS once (as FlashAttention-2 does) is timed and held to the
-# rule too, to show what the split buys and costs; it is not on any path.
-SINGLE_ROUNDING = ("TTPU_BWD_SPLIT=0",)
 KERNEL_ATOL = TOLERANCE[torch.bfloat16]
 LSE_ATOL = 1e-3  # f32 logsumexp from the same scores
 
@@ -216,10 +210,7 @@ def phase_build() -> dict:
     from transformers_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        variant = pool.submit(cuda_build.build, ("flash_bwd",), SINGLE_ROUNDING)
-        cuda_build.build()
-        variant.result()
+    cuda_build.build()
     secs = time.perf_counter() - t0
     for name in cuda_build.KERNELS:
         log = cuda_build.library_path(name).with_suffix(".log").read_text()
@@ -228,8 +219,7 @@ def phase_build() -> dict:
         spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill", log))
         print(f"[build] {name}: {len(regs)} kernels, registers {min(regs)}-{max(regs)}, "
               f"static smem up to {max(smem)} bytes, spill bytes {spills}")
-    print(f"[build] kernels built in {secs:.1f} s (with the flash_bwd variant "
-          f"{' '.join(SINGLE_ROUNDING)})")
+    print(f"[build] kernels built in {secs:.1f} s")
     return {"build_s": secs}
 
 
@@ -450,55 +440,11 @@ def check_flash_bwd(gen, seed: int) -> list:
                  replaces="transformers_tpu/ops/pallas/flash_attention.py:471",
                  max_abs_err=errs["dq"], ms=dq_ms, plain_ms=dq_plain_ms, bound_ms=dq_bound,
                  bound_by=dq_by, **common)]
-        check_single_rounding(q, k, v, qpos, valid, do, dq_ms + dkv_ms, **kw)
         print(f"[flash_bwd] B={b} S={s} H={h} KVH={k.shape[2]} D={d}, {visible} visible "
               f"(row, slot) pairs: K4 dK/dV {dkv_ms:.4f} ms (plain {dkv_plain_ms:.4f}, bound "
               f"{dkv_bound:.4f} {dkv_by}), K5 dQ {dq_ms:.4f} ms (plain {dq_plain_ms:.4f}, bound "
               f"{dq_bound:.4f} {dq_by}), SDPA backward {library_ms:.4f} ms")
     return results
-
-
-def check_single_rounding(q, k, v, qpos, valid, do, pair_ms: float, **kw) -> None:
-    """K5 and K4 of the SINGLE_ROUNDING variant build of csrc/flash_bwd.cu
-    (P and dS rounded once to the storage type, no hi/lo split) at the
-    training shape: their worst ratios under the element-wise rule and their
-    time beside the committed kernels' ``pair_ms``. Printed, not held: the
-    variant is on no path."""
-    from transformers_tpu_torch.ops import cuda_build
-    from transformers_tpu_torch.ops import flash_attention as fa
-
-    lib = ctypes.CDLL(str(cuda_build.library_path("flash_bwd", SINGLE_ROUNDING)))
-    fn_dq, fn_dkv = lib.ttpu_flash_bwd_dq, lib.ttpu_flash_bwd_dkv
-    for fn in (fn_dq, fn_dkv):
-        fn.argtypes = list(fa._BWD_ARGTYPES)
-        fn.restype = ctypes.c_int
-    out, lse = fa.flash_attention(q, k, v, q_positions=qpos, kv_valid=valid, return_lse=True,
-                                  **kw)
-    ref = fa.flash_attention_bwd_plain(q, k, v, qpos, valid, out, lse, do, **kw)
-    launch = fa._launch_args(q, k, **kw)
-
-    def run():
-        dq, delta = torch.empty_like(q), torch.empty_like(lse)
-        dk, dv = torch.empty_like(k), torch.empty_like(v)
-        codes = (fn_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
-                       lse.data_ptr(), qpos.data_ptr(), valid.data_ptr(), dq.data_ptr(),
-                       delta.data_ptr(), *launch),
-                 fn_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                        delta.data_ptr(), qpos.data_ptr(), valid.data_ptr(), dk.data_ptr(),
-                        dv.data_ptr(), *launch))
-        if any(codes):
-            raise RuntimeError(f"single-rounding flash_bwd launch failed: {codes}")
-        return dq, dk, dv
-
-    grads = run()
-    torch.cuda.synchronize()
-    u = GRAD_ULP[q.dtype]
-    ratios = ", ".join(f"{n} {grad_ratio(a, r, u):.3f}" for n, a, r in zip(("dq", "dk", "dv"),
-                                                                          grads, ref))
-    ms = event_ms(run)
-    print(f"[flash_bwd] variant with P and dS rounded once ({' '.join(SINGLE_ROUNDING)}): "
-          f"worst ratio {ratios} (the rule holds at 1); K5 + K4 {ms:.4f} ms against "
-          f"{pair_ms:.4f} ms with the hi + lo split")
 
 
 def _decode_inputs(gen, *, b=8, h=32, kvh=8, d=128, s=160, starts=None, holes=0,
@@ -578,6 +524,7 @@ def check_decode(gen) -> dict:
         print(f"[decode] B={b} S={s} H={h} KVH={kvh} D={d} pos={pos}: {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bms:.4f} ms ({by})")
     return result
+
 
 def _static_inputs(gen, *, b, s, h, kvh, d, starts, ends, dtype=torch.bfloat16):
     dev = "cuda"

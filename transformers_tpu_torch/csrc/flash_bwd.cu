@@ -42,7 +42,7 @@
 // The second products take P and dS as tensor-core operands of the storage
 // type; rounding them once would break the element-wise hold to the f32
 // plain version (chip_smoke.py), so each is split into hi = round(x) and lo
-// = round(x - hi), two products that carry x to ~16 bits (kSplit).
+// = round(x - hi), two products that carry x to ~16 bits.
 // Blocks are numbered heaviest first under causality (K4: low kv tiles, K5:
 // high query tiles), so the short ones fill the last wave.
 //
@@ -69,14 +69,7 @@ namespace {
 // 2t, 2t + 8; a B fragment (16 x 8) k pairs 2t, 2t + 8 of column g; the f32
 // accumulator (16 x 8) rows g, g + 8, column pair 2t.
 
-// -DTTPU_BWD_SPLIT=0 builds the variant that rounds P and dS once (on no
-// path: chip_smoke.py times it and holds it to the rule, to show what the
-// split buys).
-#ifndef TTPU_BWD_SPLIT
-#define TTPU_BWD_SPLIT 1
-#endif
-constexpr bool kSplit = TTPU_BWD_SPLIT != 0;  // P and dS as hi + lo operand pairs
-constexpr int kPad = 8;                        // elements of padding per shared row
+constexpr int kPad = 8;  // elements of padding per shared row
 
 template <typename T, int D>
 constexpr bool use_tensor_cores() {
@@ -147,10 +140,7 @@ __device__ __forceinline__ void acc_to_a(const float (&acc)[NT][4], int kk, uint
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     hi[i] = pack2<T>(v[2 * i], v[2 * i + 1]);
-    if (kSplit) {
-      lo[i] = pack2<T>(v[2 * i] - round_to<T>(v[2 * i]),
-                       v[2 * i + 1] - round_to<T>(v[2 * i + 1]));
-    }
+    lo[i] = pack2<T>(v[2 * i] - round_to<T>(v[2 * i]), v[2 * i + 1] - round_to<T>(v[2 * i + 1]));
   }
 }
 
@@ -811,10 +801,8 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
         ldsm_x4_t(bk, Kt + (kk * 16 + (lane & 15)) * S + dp2 * 16 + (lane >> 4) * 8);
         mma16816<T>(acc[2 * dp2], a_hi, bk[0], bk[1]);
         mma16816<T>(acc[2 * dp2 + 1], a_hi, bk[2], bk[3]);
-        if (kSplit) {
-          mma16816<T>(acc[2 * dp2], a_lo, bk[0], bk[1]);
-          mma16816<T>(acc[2 * dp2 + 1], a_lo, bk[2], bk[3]);
-        }
+        mma16816<T>(acc[2 * dp2], a_lo, bk[0], bk[1]);
+        mma16816<T>(acc[2 * dp2 + 1], a_lo, bk[2], bk[3]);
       }
     }
     __syncthreads();  // this stage is refilled in the next iteration
@@ -1000,12 +988,10 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
         mma16816<T>(dv_acc[2 * dp2 + 1], p_hi, bo[2], bo[3]);
         mma16816<T>(dk_acc[2 * dp2], ds_hi, bq[0], bq[1]);
         mma16816<T>(dk_acc[2 * dp2 + 1], ds_hi, bq[2], bq[3]);
-        if (kSplit) {
-          mma16816<T>(dv_acc[2 * dp2], p_lo, bo[0], bo[1]);
-          mma16816<T>(dv_acc[2 * dp2 + 1], p_lo, bo[2], bo[3]);
-          mma16816<T>(dk_acc[2 * dp2], ds_lo, bq[0], bq[1]);
-          mma16816<T>(dk_acc[2 * dp2 + 1], ds_lo, bq[2], bq[3]);
-        }
+        mma16816<T>(dv_acc[2 * dp2], p_lo, bo[0], bo[1]);
+        mma16816<T>(dv_acc[2 * dp2 + 1], p_lo, bo[2], bo[3]);
+        mma16816<T>(dk_acc[2 * dp2], ds_lo, bq[0], bq[1]);
+        mma16816<T>(dk_acc[2 * dp2 + 1], ds_lo, bq[2], bq[3]);
       }
     }
     __syncthreads();  // this stage is refilled in the next iteration

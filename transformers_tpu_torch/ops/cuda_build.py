@@ -41,33 +41,27 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _flags(defines: tuple) -> tuple:
-    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
-
-
-def library_path(name: str, defines: tuple = ()) -> Path:
-    """Where ``csrc/<name>.cu`` builds to (named by a hash of what goes in),
-    with the preprocessor ``defines`` (``"NAME=VALUE"``) of a variant build."""
-    h = hashlib.sha1(" ".join(_flags(defines)).encode())
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` builds to (named by a hash of what goes in)."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def build(names=KERNELS, defines: tuple = ()) -> None:
+def build(names=KERNELS) -> None:
     """Compile the named kernels that are not built yet, one ``nvcc`` each,
-    all started together (with ``defines``: a variant build, see
-    ``library_path``). ``nvcc``'s register and shared-memory report is kept
-    beside each library as ``.log``. Raises with the compiler's output when a
-    build fails."""
+    all started together. ``nvcc``'s register and shared-memory report is
+    kept beside each library as ``.log``. Raises with the compiler's output
+    when a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
     for name in names:
-        out = library_path(name, defines)
+        out = library_path(name)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_flags(defines), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []
