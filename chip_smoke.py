@@ -6,7 +6,9 @@
 Phases, in order; any failure exits non-zero:
 
 (a) build every CUDA kernel from ``transformers_tpu_torch/csrc`` (one nvcc per
-    source, all at once) and print the card's name and power limit;
+    source, all at once), print the card's name and power limit, and each
+    tensor-core flash-forward and split-KV paged-decode build's registers,
+    shared memory and spills from ``nvcc -Xptxas -v``;
 (b) hold each kernel against its plain PyTorch version at the main paths'
     shapes, in bf16, and time the kernel, the plain version and one PyTorch
     library call that computes the same function (a yardstick only: the port
@@ -19,7 +21,11 @@ Phases, in order; any failure exits non-zero:
     flash backward (K5 dQ, K4
     dK/dV) is held at the training shapes (4 rows of 2048 tokens, right-padded,
     32 heads over 8 kv heads, head_dim 128, bf16; causal, windowed, softcapped)
-    and timed against SDPA's backward;
+    and timed against SDPA's backward; the flash forward (K1) is held and
+    timed at those training shapes too, beside SDPA's forward. The paged
+    decode (K6, split-KV, with its merge kernel) is also held on contexts of
+    2000-4000 slots, run twice at the continuous-batching shape (the outputs
+    must be equal bit for bit), and timed at split sizes of 32-640 slots;
 (c) the static-cache path at the Llama-3-8B geometry in bf16 with random
     weights from ``--seed``: a full-width, 2-layer checkpoint written with the
     port's safetensors writer and read back by ``from_pretrained``; then
@@ -206,6 +212,55 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 # --------------------------------------------------------------------- (a)
+# the builds this script reports one by one (the others as a summary per library)
+REPORTED_BUILDS = ("flash_fwd_tc_kernel", "paged_split_kernel", "paged_combine_kernel")
+
+
+def _demangle(names: list) -> dict:
+    """Readable kernel names (``cu++filt`` or ``c++filt``, else as they are),
+    without their parameter lists."""
+    tool = shutil.which("cu++filt") or shutil.which("/usr/local/cuda/bin/cu++filt") \
+        or shutil.which("c++filt")
+    plain = names
+    if tool and names:
+        try:
+            plain = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True,
+                                   check=True, timeout=60).stdout.splitlines()
+        except (OSError, subprocess.SubprocessError):
+            plain = names
+    if len(plain) != len(names):
+        plain = names
+    short = [re.sub(r"\(anonymous namespace\)::|<unnamed>::|\(int\)|^void ", "", p).split("(")[0]
+             for p in plain]
+    return dict(zip(names, short))
+
+
+def ptxas_builds(log: str) -> list:
+    """(kernel, registers, static shared bytes, spill bytes) of each entry
+    function in an ``nvcc -Xptxas -v`` log."""
+    builds, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"name": m.group(1), "regs": 0, "smem": 0, "spill": 0}
+            builds.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["regs"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+    names = _demangle([b["name"] for b in builds])
+    for b in builds:
+        b["name"] = names[b["name"]]
+    return builds
+
+
 def phase_build() -> dict:
     from transformers_tpu_torch.ops import cuda_build
 
@@ -219,6 +274,10 @@ def phase_build() -> dict:
         spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill", log))
         print(f"[build] {name}: {len(regs)} kernels, registers {min(regs)}-{max(regs)}, "
               f"static smem up to {max(smem)} bytes, spill bytes {spills}")
+        for b in ptxas_builds(log):
+            if any(k in b["name"] for k in REPORTED_BUILDS):
+                print(f"[build]   {b['name']}: {b['regs']} registers, static smem {b['smem']} "
+                      f"bytes, spill bytes {b['spill']}")
     print(f"[build] kernels built in {secs:.1f} s")
     return {"build_s": secs}
 
@@ -368,15 +427,19 @@ def _train_lengths(seed: int) -> list:
     return [int(rng.integers(TRAIN_MIN_LEN, TRAIN_SEQ + 1)) for _ in range(TRAIN_ROWS)]
 
 
-def check_flash_bwd(gen, seed: int) -> list:
+def check_flash_bwd(gen, seed: int) -> tuple:
     """K5 (dQ) and K4 (dK/dV) at the training shapes: 4 rows of 2048 slots
     right-padded to the lengths phase (e) trains on, 32 query heads over 8 kv
     heads, head_dim 128, bf16; causal, then with a 256-slot window, then with
     a softcap of 30. Timed in the causal case beside the plain versions and
-    SDPA's backward (forward excluded; a yardstick the port never calls)."""
+    SDPA's backward (forward excluded; a yardstick the port never calls).
+    The forward (K1) is held to its plain version on the same three cases
+    and timed in the causal one beside its plain version and SDPA's forward.
+    Returns the kernels' entries and K1's training-shape numbers."""
     import torch.nn.functional as F
 
-    from transformers_tpu_torch.ops.flash_attention import (flash_attention, flash_bwd_dkv,
+    from transformers_tpu_torch.ops.flash_attention import (flash_attention,
+                                                            flash_attention_plain, flash_bwd_dkv,
                                                             flash_bwd_dkv_plain, flash_bwd_dq,
                                                             flash_bwd_dq_plain)
 
@@ -390,6 +453,12 @@ def check_flash_bwd(gen, seed: int) -> list:
         do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
         kw = dict(scale=q.shape[-1] ** -0.5, is_causal=True, sliding_window=window,
                   logit_cap=cap)
+        fwd_err, lse_err = _flash_errors(q, k, v, qpos, valid, **kw)
+        print(f"[flash] training shape, {name}: max_abs_err out {fwd_err:.3e} (tol "
+              f"{KERNEL_ATOL}) lse {lse_err:.3e} (tol {LSE_ATOL})")
+        if fwd_err > KERNEL_ATOL or lse_err > LSE_ATOL:
+            raise AssertionError(f"flash kernel disagrees with its plain version at the training "
+                                 f"shape ({name})")
         errs, ratios = _bwd_errors(q, k, v, qpos, valid, do, **kw)
         dv, dv_ref = ratios.pop("dv_tensors")
         print(f"[flash_bwd] {name} lengths {lengths}: " + ", ".join(
@@ -421,6 +490,26 @@ def check_flash_bwd(gen, seed: int) -> list:
                                                           retain_graph=True), iters=3)
         del out_t
         visible = int(mask.sum())
+        # K1 at the training shape: its operations bound, plain version, SDPA's forward
+        fwd_ms = event_ms(lambda: flash_attention(q, k, v, q_positions=qpos, kv_valid=valid,
+                                                  **kw), iters=10)
+        fwd_plain_ms = event_ms(lambda: flash_attention_plain(q, k, v, qpos, valid, **kw),
+                                iters=2)
+        qd, kd, vd = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        fwd_library_ms = event_ms(lambda: F.scaled_dot_product_attention(
+            qd, kd, vd, attn_mask=mask[:, None], scale=kw["scale"], enable_gqa=True), iters=10)
+        fwd_bound, fwd_by = bound_ms(
+            (2 * q.numel() + k.numel() + v.numel()) * 2 + b * h * s * 4
+            + (qpos.numel() + valid.numel()) * 4,  # q, k, v, out; lse; mask data
+            4.0 * d * h * visible)
+        k1_train = dict(ms_train=fwd_ms, plain_ms_train=fwd_plain_ms, bound_ms_train=fwd_bound,
+                        bound_by_train=fwd_by, library_ms_train=fwd_library_ms,
+                        max_abs_err_train=fwd_err,
+                        shape_train=f"B={b} S={s} H={h} KVH={k.shape[2]} D={d} bf16 causal, "
+                                    f"right-padded to {lengths}")
+        print(f"[flash] training shape B={b} S={s} H={h} KVH={k.shape[2]} D={d}, {visible} "
+              f"visible (row, slot) pairs: K1 {fwd_ms:.4f} ms, plain {fwd_plain_ms:.4f} ms, "
+              f"sdpa forward {fwd_library_ms:.4f} ms, bound {fwd_bound:.4f} ms ({fwd_by})")
         q_bytes, kv_bytes = q.numel() * 2, (k.numel() + v.numel()) * 2  # bf16
         fixed = 2 * b * h * s * 4 + (qpos.numel() + valid.numel()) * 4  # lse, delta; mask data
         # K5 reads Q, O, dO, K, V, lse and writes dQ, delta; 3 products
@@ -444,7 +533,7 @@ def check_flash_bwd(gen, seed: int) -> list:
               f"(row, slot) pairs: K4 dK/dV {dkv_ms:.4f} ms (plain {dkv_plain_ms:.4f}, bound "
               f"{dkv_bound:.4f} {dkv_by}), K5 dQ {dq_ms:.4f} ms (plain {dq_plain_ms:.4f}, bound "
               f"{dq_bound:.4f} {dq_by}), SDPA backward {library_ms:.4f} ms")
-    return results
+    return results, k1_train
 
 
 def _decode_inputs(gen, *, b=8, h=32, kvh=8, d=128, s=160, starts=None, holes=0,
@@ -636,29 +725,64 @@ def _paged_error(q, k_pool, v_pool, tables, ctx, window) -> float:
     return max_err(out, ref)
 
 
-def check_paged(gen) -> dict:
+PAGED_SPLIT_SWEEP = (32, 64, 128, 256, 640)  # split sizes timed at the CB shape
+
+
+def check_paged(gen, seed: int) -> list:
     """K6 at the CB path's shapes: 8 rows, 32 query heads over 8 kv heads,
-    head_dim 128, pages of 32 slots, bf16, ragged contexts of 64-576 slots."""
+    head_dim 128, pages of 32 slots, bf16, ragged contexts of 64-576 slots,
+    without and with a 100-slot window; then contexts of 2000-4000 slots,
+    which the kernel cuts into many splits. At the CB shape the kernel runs
+    twice (bitwise-equal outputs required), is held to the split version of
+    the plain code too, and is timed at SPLIT_SLOTS and at the sweep's split
+    sizes; its merge kernel is held to the plain merge on the plain
+    partials and timed. Returns the entries of both kernels."""
     import torch.nn.functional as F
 
-    from transformers_tpu_torch.ops.paged_attention import (paged_decode_attention,
-                                                            paged_decode_plain)
+    from transformers_tpu_torch.ops.paged_attention import (SPLIT_SLOTS, paged_decode_attention,
+                                                            paged_decode_combine,
+                                                            paged_decode_merge_plain,
+                                                            paged_decode_partials_plain,
+                                                            paged_decode_plain,
+                                                            paged_decode_split_plain, split_size)
 
     ctx_lens = torch.randint(64, 577, (BATCH,), generator=gen, device="cuda").tolist()
-    result = None
-    for name, window in (("ragged", None), ("ragged_window_100", 100)):
-        q, k_pool, v_pool, tables, ctx = _paged_inputs(gen, ctx_lens=ctx_lens)
+    # the long contexts draw from their own generator: the other checks' inputs stay as they were
+    long_gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    long_lens = torch.randint(2000, 4001, (BATCH,), generator=long_gen, device="cuda").tolist()
+    results = []
+    for name, lens, window in (("ragged", ctx_lens, None), ("ragged_window_100", ctx_lens, 100),
+                               ("long_context", long_lens, None)):
+        q, k_pool, v_pool, tables, ctx = _paged_inputs(
+            long_gen if name == "long_context" else gen, ctx_lens=lens)
         err = _paged_error(q, k_pool, v_pool, tables, ctx, window)
-        print(f"[paged] {name} ctx {ctx_lens}: max_abs_err {err:.3e} (tol {KERNEL_ATOL})")
+        print(f"[paged] {name} ctx {lens}: max_abs_err {err:.3e} (tol {KERNEL_ATOL})")
         if err > KERNEL_ATOL:
             raise AssertionError(f"paged decode kernel disagrees with its plain version ({name})")
-        if window is not None:
+        if name != "ragged":
             continue
         n, _, h, d = q.shape
         kvh, bs = k_pool.shape[1], k_pool.shape[2]
         scale = d ** -0.5
+        split = split_size(bs)
+        out = paged_decode_attention(q, k_pool, v_pool, tables, ctx, scale=scale)
+        again = paged_decode_attention(q, k_pool, v_pool, tables, ctx, scale=scale)
+        split_plain = paged_decode_split_plain(q, k_pool, v_pool, tables, ctx, scale=scale,
+                                               split_slots=split)
+        torch.cuda.synchronize()
+        split_err = max_err(out, split_plain)
+        print(f"[paged] {name}: two runs bitwise equal {torch.equal(out, again)}; against the "
+              f"split plain version ({split} slots a split) max_abs_err {split_err:.3e} (tol "
+              f"{KERNEL_ATOL})")
+        if not torch.equal(out, again):
+            raise AssertionError("paged decode kernel: two runs on the same inputs differ")
+        if split_err > KERNEL_ATOL:
+            raise AssertionError("paged decode kernel disagrees with the split plain version")
         ms = device_ms(lambda: paged_decode_attention(q, k_pool, v_pool, tables, ctx,
                                                       scale=scale))
+        sweep = {sp: device_ms(lambda: paged_decode_attention(q, k_pool, v_pool, tables, ctx,
+                                                              scale=scale, split_slots=sp))
+                 for sp in PAGED_SPLIT_SWEEP}
         plain_ms = device_ms(lambda: paged_decode_plain(q, k_pool, v_pool, tables, ctx,
                                                         scale=scale))
         # yardstick: SDPA over the same pages already gathered contiguous
@@ -669,21 +793,56 @@ def check_paged(gen) -> dict:
         qt, m4 = q.transpose(1, 2), live[:, None, None, :]
         library_ms = device_ms(lambda: F.scaled_dot_product_attention(
             qt, kc, vc, attn_mask=m4, scale=scale, enable_gqa=True))
-        n_live = sum(ctx_lens)
+        n_live = sum(lens)
         nbytes = (n_live * kvh * d * 2 * 2                  # K and V of live slots
                   + 2 * q.numel() * 2                       # q and out
                   + tables.numel() * 4 + ctx.numel() * 4)
         bms, by = bound_ms(nbytes, 4.0 * d * h * n_live)
-        result = dict(name="paged_decode", route="cuda",
-                      source="transformers_tpu_torch/csrc/paged_decode.cu",
-                      replaces="transformers_tpu/ops/pallas/paged_attention.py:216",
-                      max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                      library_ms=library_ms,
-                      library="SDPA over the pages gathered contiguous beforehand")
-        print(f"[paged] N={n} H={h} KVH={kvh} D={d} BS={bs} live slots {n_live}: {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, sdpa (pages pre-gathered) {library_ms:.4f} ms, "
-              f"bound {bms:.4f} ms ({by})")
-    return result
+        results.append(dict(name="paged_decode", route="cuda",
+                            source="transformers_tpu_torch/csrc/paged_decode.cu",
+                            replaces="transformers_tpu/ops/pallas/paged_attention.py:216",
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                            library_ms=library_ms, split_slots=split,
+                            ms_by_split_slots={str(sp): t for sp, t in sweep.items()},
+                            library="SDPA over the pages gathered contiguous beforehand"))
+        print(f"[paged] N={n} H={h} KVH={kvh} D={d} BS={bs} live slots {n_live}: {ms:.4f} ms "
+              f"(split {split} slots, with the merge kernel), plain {plain_ms:.4f} ms, sdpa (pages "
+              f"pre-gathered) {library_ms:.4f} ms, bound {bms:.4f} ms ({by}); by split size "
+              + ", ".join(f"{sp}: {t:.4f} ms" for sp, t in sweep.items()))
+
+        # the merge kernel alone, on the plain partials of the same inputs
+        ml, acc = paged_decode_partials_plain(q, k_pool, v_pool, tables, ctx, scale=scale,
+                                              split_slots=split)
+        max_slots = tables.shape[1] * bs
+        merged = paged_decode_combine(ctx, ml, acc, torch.zeros_like(q), max_slots=max_slots,
+                                      split_slots=split)
+        ref = paged_decode_merge_plain(ml, acc, ctx, max_slots=max_slots,
+                                       split_slots=split).to(q.dtype)
+        torch.cuda.synchronize()
+        n_split = torch.where(ctx > 0, (ctx.long() - 1) // split + 1, 0)
+        multi = n_split > 1
+        merge_err = max_err(merged[multi], ref[multi])
+        if merge_err > KERNEL_ATOL or merged[~multi].any():
+            raise AssertionError("paged decode merge kernel disagrees with the plain merge")
+        merge_ms = device_ms(lambda: paged_decode_combine(ctx, ml, acc, merged,
+                                                          max_slots=max_slots, split_slots=split))
+        merge_plain_ms = device_ms(lambda: paged_decode_merge_plain(
+            ml, acc, ctx, max_slots=max_slots, split_slots=split))
+        read = int((n_split * multi).sum()) * h * (2 + d) * 4  # the live splits' partials
+        mbms, mby = bound_ms(read + int(multi.sum()) * h * d * 2 + ctx.numel() * 4,
+                             3.0 * int((n_split * multi).sum()) * h * d)
+        results.append(dict(name="paged_decode_combine", route="cuda",
+                            source="transformers_tpu_torch/csrc/paged_decode.cu",
+                            replaces="transformers_tpu/ops/pallas/paged_attention.py:216",
+                            max_abs_err=merge_err, ms=merge_ms, plain_ms=merge_plain_ms,
+                            bound_ms=mbms, bound_by=mby, library_ms=None,
+                            note="the merge of K6's split partials (the Pallas kernel "
+                                 "carries one row's state across its sequential grid); no "
+                                 "PyTorch call computes it"))
+        print(f"[paged merge] {int(multi.sum())} of {n} rows over {split}-slot splits: "
+              f"max_abs_err {merge_err:.3e} (tol {KERNEL_ATOL}), {merge_ms:.4f} ms, plain "
+              f"{merge_plain_ms:.4f} ms, bound {mbms:.4f} ms ({mby})")
+    return results
 
 
 def check_reference_cases(gen) -> None:
@@ -770,11 +929,13 @@ def _wrappers() -> dict:
                                                             flash_bwd_dq)
     from transformers_tpu_torch.ops.decode_attention import decode_attention
     from transformers_tpu_torch.ops.fused_decode import fused_decode_attention
-    from transformers_tpu_torch.ops.paged_attention import paged_decode_attention
+    from transformers_tpu_torch.ops.paged_attention import (paged_decode_attention,
+                                                            paged_decode_combine)
 
     return {"flash_fwd": flash_attention, "fused_decode": fused_decode_attention,
-            "paged_decode": paged_decode_attention, "flash_bwd_dkv": flash_bwd_dkv,
-            "flash_bwd_dq": flash_bwd_dq, "static_decode": decode_attention}
+            "paged_decode": paged_decode_attention, "paged_decode_combine": paged_decode_combine,
+            "flash_bwd_dkv": flash_bwd_dkv, "flash_bwd_dq": flash_bwd_dq,
+            "static_decode": decode_attention}
 
 
 def _expected(**counts) -> dict:
@@ -914,6 +1075,12 @@ def profile_run(label: str, run, wall_ms: float, card: str) -> list:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} "
               f"{e.key[:90]}")
+    ours = [(m.group(1), e) for e in kernels
+            if (m := re.search(r"((?:flash_(?:fwd|bwd)|fused_decode|static_decode|paged_split|"
+                               r"paged_combine)\w*kernel)", e.key))]
+    if ours:
+        print(f"[profile]   the port's kernels: " + ", ".join(
+            f"{name} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for name, e in ours))
     return kernels
 
 
@@ -1051,8 +1218,9 @@ def check_cb(model, seed: int, card: str) -> dict:
         engine, generated, wall, decode_ms, decode_steps = run_cb(model, prompts, steps)
         counts = _read_counts()
         r = engine.runner
-        expected = _expected(flash_fwd=layers * r.prefill_chunks,
-                             paged_decode=layers * (r.decode_steps + r.single_token_chunks))
+        paged = layers * (r.decode_steps + r.single_token_chunks)
+        expected = _expected(flash_fwd=layers * r.prefill_chunks, paged_decode=paged,
+                             paged_decode_combine=paged)
         print(f"[cb] steps_per_sync={steps}: launches {counts}, expected {expected} ({layers} "
               f"layers, {r.prefill_chunks} prefill chunks, {r.single_token_chunks} one-token "
               f"chunks, {r.decode_steps} decode steps)")
@@ -1332,8 +1500,11 @@ def main() -> int:
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     _reset_counts()
-    kernels = [check_flash(gen), check_decode(gen), check_paged(gen), check_static_decode(gen),
-               *check_flash_bwd(gen, args.seed)]
+    kernels = [check_flash(gen), check_decode(gen), *check_paged(gen, args.seed),
+               check_static_decode(gen)]
+    bwd, k1_train = check_flash_bwd(gen, args.seed)
+    kernels[0].update(k1_train)
+    kernels += bwd
     check_reference_cases(gen)
     phase_b = _read_counts()  # K7 serves no path: its launches are phase (b)'s checks
     check_load_path(args.seed, card)
@@ -1344,8 +1515,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paths["train"] = check_train(args.seed, card)
-    serves = {"paged_decode": "continuous_batching", "flash_bwd_dkv": "train",
-              "flash_bwd_dq": "train"}
+    serves = {"paged_decode": "continuous_batching", "paged_decode_combine": "continuous_batching",
+              "flash_bwd_dkv": "train", "flash_bwd_dq": "train"}
     for k in kernels:
         # each kernel's launches on the path it serves; every path's counts beside
         if k["name"] == "static_decode":

@@ -75,6 +75,11 @@ def test_every_kernel_module_is_checked():
     from transformers_tpu_torch.ops import decode_attention as da
 
     assert isinstance(da.decode_attention.launches, int)
+    # K6 counts its split pass and its merge apart
+    from transformers_tpu_torch.ops import paged_attention as pa
+
+    assert isinstance(pa.paged_decode_attention.launches, int)
+    assert isinstance(pa.paged_decode_combine.launches, int)
 
 
 @pytest.mark.parametrize("entry", ["constructor", "from_pretrained", "auto_from_config"])

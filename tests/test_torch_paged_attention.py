@@ -15,7 +15,17 @@ Pallas kernel reads only its own kv head's pages, and the kernel pads its
 query-head group to 8 itself, so each case's slice of the output is what
 the case alone gives. The port runs each case on its own.
 
-Tolerances: 2e-5 in float32 (sums in another order); 2e-2 in bf16, one
+The kernel cuts each row's slots into splits and merges the splits' f32
+(m, l, acc) partials in split order; ``paged_decode_split_plain`` is that
+computation in plain PyTorch. It is held, at split sizes 16/32/64/128, to
+``paged_decode_plain`` and to the JAX kernel on the same cases: ctx 0, a
+one-slot context, rows over many splits, and windows whose start falls
+inside a split with whole splits before it (window 40 at ctx 100 starts at
+slot 60). The merge's order is checked on partials whose f32 sum depends on
+it.
+
+Tolerances: 2e-5 in float32 (sums in another order), 1e-5 for the split
+version (f32 sums over the same slots, split otherwise); 2e-2 in bf16, one
 rounding step at the outputs' magnitude (the Pallas kernel rounds the
 probabilities to bf16 before P.V, the port keeps them in f32).
 """
@@ -30,10 +40,19 @@ import torch
 from transformers_tpu.ops.pallas.paged_attention import (
     paged_decode_attention as jax_paged_decode,
 )
-from transformers_tpu_torch.ops.paged_attention import paged_decode_attention
+from transformers_tpu_torch.ops.paged_attention import (
+    paged_decode_attention,
+    paged_decode_combine,
+    paged_decode_merge_plain,
+    paged_decode_partials_plain,
+    paged_decode_plain,
+    paged_decode_split_plain,
+)
 
 F32_TOL = 2e-5
+SPLIT_F32_TOL = 1e-5
 BF16_TOL = 2e-2
+SPLITS = (16, 32, 64, 128)
 
 CASES = {
     # name: (n, h, kvh, d, block_size, ctx_lens, window, dtype, seed)
@@ -152,3 +171,60 @@ def test_paged_decode_plain_matches_jax_pallas(jax_outputs, case):
         h, kvh = q.shape[2], k_pool.shape[1]
         want = v_pool[0, :, 0].repeat_interleave(h // kvh, dim=0)
         np.testing.assert_allclose(out[0, 0].numpy(), want.numpy(), atol=F32_TOL, rtol=F32_TOL)
+
+
+def _torch_case(case):
+    dtype = torch.bfloat16 if CASES[case][7] == "bfloat16" else torch.float32
+    q, k_pool, v_pool, tables, ctx = (torch.as_tensor(x) for x in _build(case))
+    kw = dict(scale=q.shape[-1] ** -0.5, sliding_window=CASES[case][6])
+    return (q.to(dtype), k_pool.to(dtype), v_pool.to(dtype), tables, ctx), kw
+
+
+@pytest.mark.parametrize("split", SPLITS)
+@pytest.mark.parametrize("case", list(CASES))
+def test_paged_decode_split_plain_matches_plain_and_jax_pallas(jax_outputs, case, split):
+    args, kw = _torch_case(case)
+    out = paged_decode_split_plain(*args, **kw, split_slots=split)
+    ref = paged_decode_plain(*args, **kw)
+    assert out.dtype == args[0].dtype and out.shape == args[0].shape
+    tol = SPLIT_F32_TOL if out.dtype == torch.float32 else BF16_TOL
+    np.testing.assert_allclose(out.float().numpy(), ref.float().numpy(), atol=tol, rtol=tol)
+    np.testing.assert_allclose(out.float().numpy(), jax_outputs[case], atol=tol, rtol=tol)
+    if case == "ctx_0":
+        assert torch.all(out[0] == 0)
+
+
+@pytest.mark.parametrize("case", ["many_page_groups", "window_40", "bf16_pools"])
+def test_paged_decode_split_plain_is_bitwise_repeatable(case):
+    args, kw = _torch_case(case)
+    first = paged_decode_split_plain(*args, **kw, split_slots=16)
+    again = paged_decode_split_plain(*args, **kw, split_slots=16)
+    assert torch.equal(first, again)
+
+
+def test_paged_decode_merge_sums_in_split_order():
+    """Four live splits with m = 0 (weights exactly 1) and accumulators whose
+    f32 sum depends on the order: 1e8 + 1 - 1e8 + 1 is 1 left to right and 0
+    right to left. The merge gives (left to right) / 4."""
+    split = 16
+    ml = torch.tensor([[[[0.0, 1.0]] * 4]])  # [N=1, H=1, 4 splits, (m, l)]
+    acc = torch.tensor([[[[1e8], [1.0], [-1e8], [1.0]]]])  # [1, 1, 4, D=1]
+    ctx = torch.tensor([4 * split], dtype=torch.int32)
+    out = paged_decode_merge_plain(ml, acc, ctx, max_slots=4 * split, split_slots=split)
+    assert out.item() == 0.25
+    via_wrapper = paged_decode_combine(ctx, ml, acc, torch.zeros((1, 1, 1, 1)),
+                                       max_slots=4 * split, split_slots=split)
+    assert via_wrapper.item() == 0.25
+
+
+def test_paged_decode_combine_writes_only_rows_over_several_splits():
+    args, kw = _torch_case("ragged")  # ctx (32, 1, 317, 64, 200), pages of 32
+    split = 64
+    ml, acc = paged_decode_partials_plain(*args, **kw, split_slots=split)
+    max_slots = args[3].shape[1] * args[1].shape[2]
+    out = paged_decode_combine(args[4], ml, acc, torch.full_like(args[0], 7.0),
+                               max_slots=max_slots, split_slots=split)
+    single = torch.tensor([True, True, False, True, False])  # ctx 32, 1, 64 fit in one split
+    assert torch.all(out[single] == 7.0)
+    want = paged_decode_split_plain(*args, **kw, split_slots=split)
+    assert torch.equal(out[~single], want[~single])

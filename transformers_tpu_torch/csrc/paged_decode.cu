@@ -14,62 +14,177 @@
 // Bound on the H100: bytes. A step reads each live slot's key and value once
 // (2 * D * sizeof(T) per slot and kv head) and does 4 * G * D operations per
 // slot, about one operation per byte against the card's ~295. The design
-// therefore reads every K/V byte once: one block owns one (row, kv head) and
-// holds up to GB of that kv head's G query heads (GB = 4 for G <= 4, else 8;
-// G > 8 takes ceil(G / 8) blocks per kv head). Each warp walks its own
-// interleaved share of the live slots with coalesced vector loads (a lane
-// holds D / 32 neighbouring elements of a slot's row) and keeps a float online
-// softmax; the warps' states are merged in shared memory at the end, one
-// query head at a time. Scores, probabilities and the P.V sums stay in f32;
-// the output is rounded once to T.
+// therefore reads every K/V byte once and keeps enough of them in flight,
+// with few instructions per byte:
+//
+// - Split-KV (paged_split_kernel). Each row's slots are cut into splits of
+//   `split_slots` slots (a whole number of pages; the wrapper's SPLIT_SLOTS,
+//   64, was the fastest of 32-640 at the continuous-batching shape, 8 rows of
+//   64-576 slots, 32 query heads over 8 kv heads, D = 128, pages of 32). One
+//   block of 4 warps owns one split of one (row, kv head) and holds up to GB
+//   of that kv head's G query heads (GB = 4 for G <= 4, else 8; G > 8 takes
+//   ceil(G / 8) blocks per kv head), so each K/V byte is read once per
+//   query-head group. Splits that lie wholly outside [start, ctx) return at
+//   once.
+// - No dependent load before each slot. A block reads its split's block-table
+//   entries into shared memory once, in the same round trip as the row's
+//   context length, then copies the split in stages of 32 slots of K and V
+//   with cp.async into two stages (rows padded by 16 bytes), so the next
+//   stage's copies are in flight while this one is scored.
+// - Each warp scores 8 slots of a stage. In bf16/fp16 the scores of the
+//   block's heads are one mma.sync m16n8k16 tile per 16 of D (q as the A
+//   rows g < GB, K by ldmatrix as B; exact products, f32 sums); in f32 a lane
+//   holds D / 32 elements of a slot's row and each score is a warp sum. The
+//   softmax and P.V stay in f32 on the CUDA cores: a lane holds D / 32
+//   elements of each head's output and takes each slot's probability from
+//   the lane that scored it. The block's 4 warps are merged once, in shared
+//   memory over the spent stages.
+// - The merge (paged_combine_kernel). A row whose live slots fit in one
+//   split gets its output from that split's block. Otherwise each split
+//   writes its f32 (m, l, acc) partials to scratch the wrapper allocates, and
+//   a second small kernel merges a row's splits in split order, so the output
+//   is the same bit for bit from run to run.
+// The scores, probabilities and P.V sums are f32; the output is rounded once
+// to T.
 
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;  // warps per block
+constexpr int kWarps = 4;  // warps per block
+constexpr int kThreads = kWarps * 32;
+constexpr int kStage = 8 * kWarps;  // slots per copy stage, 8 a warp
+constexpr int kMaxSplitPages = 64;  // block-table entries one split may span
+
+// Dynamic shared memory of a split block: K and V stages, two each, with
+// rows padded by kPad elements (ldmatrix reads K without bank conflicts).
+template <typename T, int D>
+constexpr size_t split_smem() {
+  return (size_t)4 * kStage * (D + kPad) * sizeof(T);
+}
+
+// Live slots [start, ctx) of a row (ctx clamped to the table's slots) and
+// the number of splits they touch.
+struct RowSpan {
+  int start, ctx, n_live;
+};
+
+__device__ __forceinline__ RowSpan row_span(int ctx_len, int max_slots, int window,
+                                            int split_slots) {
+  RowSpan r;
+  r.ctx = min(max(ctx_len, 0), max_slots);
+  r.start = window > 0 ? max(r.ctx - window, 0) : 0;
+  r.n_live = r.ctx > r.start ? (r.ctx - 1) / split_slots - r.start / split_slots + 1 : 0;
+  return r;
+}
+
+// Slots [c0, min(c0 + kStage, hi)) of one kv head into a K and a V stage
+// (rows padded by kPad), asynchronously; tbl holds the block-table entries
+// from page page_base on. One commit group.
+template <typename T, int D>
+__device__ __forceinline__ void copy_stage(T* ks, T* vs, const T* __restrict__ k_head,
+                                           const T* __restrict__ v_head, const int* tbl, int c0,
+                                           int hi, int page_base, int BS, int KVH) {
+  constexpr int EPC = 16 / (int)sizeof(T);  // elements per 16-byte copy
+  constexpr int CPR = D / EPC;              // copies per slot row
+  const size_t page_stride = (size_t)KVH * BS * D;
+  const int rows = min(kStage, hi - c0);
+  for (int i = threadIdx.x; i < rows * CPR; i += kThreads) {
+    const int r = i / CPR;
+    const int col = (i % CPR) * EPC;
+    const int j = c0 + r;
+    const size_t off = (size_t)tbl[j / BS - page_base] * page_stride + (size_t)(j % BS) * D + col;
+    cp_async16(ks + r * (D + kPad) + col, k_head + off, true);
+    cp_async16(vs + r * (D + kPad) + col, v_head + off, true);
+  }
+  cp_async_commit();
+}
 
 template <typename T, int D, int GB>
-__global__ void __launch_bounds__(kWarps * 32)
-paged_decode_kernel(const T* __restrict__ q,              // [N, 1, H, D]
-                    const T* __restrict__ k_pool,         // [P, KVH, BS, D]
-                    const T* __restrict__ v_pool,         // [P, KVH, BS, D]
-                    const int* __restrict__ block_tables, // [N, MAXB]
-                    const int* __restrict__ ctx_lens,     // [N]
-                    T* __restrict__ out,                  // [N, 1, H, D]
-                    int H, int KVH, int BS, int MAXB, int window, float scale) {
-  constexpr int E = D / 32;  // elements per lane
-  // slots each warp has in flight per iteration, fewer when the per-head
-  // registers (GB * E floats each for q and the accumulator) are many
-  constexpr int kU = GB * E >= 64 ? 1 : (GB * E >= 32 ? 2 : 4);
+__global__ void __launch_bounds__(kThreads, 1)  // min 1 block: ptxas spills some builds otherwise
+paged_split_kernel(const T* __restrict__ q,              // [N, 1, H, D]
+                   const T* __restrict__ k_pool,         // [P, KVH, BS, D]
+                   const T* __restrict__ v_pool,         // [P, KVH, BS, D]
+                   const int* __restrict__ block_tables, // [N, MAXB]
+                   const int* __restrict__ ctx_lens,     // [N]
+                   T* __restrict__ out,                  // [N, 1, H, D]
+                   float* __restrict__ part_ml,          // [N, H, n_splits, 2]
+                   float* __restrict__ part_acc,         // [N, H, n_splits, D]
+                   int H, int KVH, int BS, int MAXB, int window, float scale, int split_slots,
+                   int n_splits) {
+  constexpr int E = D / 32;                 // elements per lane
+  constexpr int S = D + kPad;               // row stride of the stages
+  constexpr bool kTc = !std::is_same<T, float>::value;  // scores on the tensor cores
+  static_assert(GB <= 8, "a block's query heads are the rows g < 8 of an mma tile");
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Ks = reinterpret_cast<T*>(smem);  // [2][kStage][S]
+  T* Vs = Ks + 2 * kStage * S;         // [2][kStage][S]
+  float* sm_acc = reinterpret_cast<float*>(smem);  // [kWarps][GB][D], over the stages at the end
+  __shared__ int tbl[kMaxSplitPages];
+  __shared__ float sm_m[kWarps][GB];
+  __shared__ float sm_l[kWarps][GB];
+  __shared__ float sm_f[kWarps][GB];  // each warp's weight in the block's merge
+  __shared__ float sm_ml[GB][2];      // the block's (m, l) per query head
+
   const int G = H / KVH;
   const int n_gchunks = (G + GB - 1) / GB;
   const int kvh = blockIdx.x / n_gchunks;
   const int g0 = (blockIdx.x % n_gchunks) * GB;
-  const int n = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int w = threadIdx.x >> 5;
+  const int split = blockIdx.y;
+  const int n = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int gr = lane >> 2, tg = lane & 3;
   const int d0 = lane * E;  // this lane's first element of a head row
   const float NEG_INF = -CUDART_INF_F;
+  const int n_heads = min(GB, G - g0);
+  const size_t row_h0 = (size_t)n * H + kvh * G + g0;  // (row, first query head) of this block
 
-  const int ctx = min(max(ctx_lens[n], 0), MAXB * BS);
-  const int start = window > 0 ? max(ctx - window, 0) : 0;
+  // the row's context and the split's block-table entries, read together
+  const int page_base = split * (split_slots / BS);
+  const int n_table = min(split_slots / BS, MAXB - page_base);
+  for (int i = tid; i < n_table; i += kThreads) tbl[i] = block_tables[(size_t)n * MAXB + page_base + i];
+  const RowSpan span = row_span(ctx_lens[n], MAXB * BS, window, split_slots);
+  if (span.n_live == 0) {  // ctx 0: zeros, written by the first split's block
+    if (split == 0) {
+      for (int i = tid; i < n_heads * D; i += kThreads) out[row_h0 * D + i] = from_f<T>(0.f);
+    }
+    return;
+  }
+  const int lo = max(span.start, split * split_slots);
+  const int hi = min(span.ctx, (split + 1) * split_slots);
+  if (lo >= hi) return;  // the split lies outside [start, ctx)
 
-  float qf[GB][E];
+  // q: as mma A fragments (rows g < GB are the heads, rows 8-15 zero), or
+  // as this lane's D / 32 elements of each head for the f32 scores
+  uint32_t qa[kTc ? D / 16 : 1][2];
+  float qf[kTc ? 1 : GB][E];
+  if constexpr (kTc) {
 #pragma unroll
-  for (int gi = 0; gi < GB; ++gi) {
-    if (g0 + gi < G) {
-      load_f<T, E>(q + ((size_t)n * H + kvh * G + g0 + gi) * D + d0, qf[gi]);
-    } else {
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const T* row = q + (row_h0 + gr) * D + kk * 16 + 2 * tg;
+      qa[kk][0] = gr < n_heads ? *reinterpret_cast<const uint32_t*>(row) : 0u;
+      qa[kk][1] = gr < n_heads ? *reinterpret_cast<const uint32_t*>(row + 8) : 0u;
+    }
+  } else {
 #pragma unroll
-      for (int e = 0; e < E; ++e) qf[gi][e] = 0.f;
+    for (int gi = 0; gi < GB; ++gi) {
+      if (gi < n_heads) {
+        load_f<T, E>(q + (row_h0 + gi) * D + d0, qf[gi]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < E; ++e) qf[gi][e] = 0.f;
+      }
     }
   }
+  __syncthreads();  // tbl
 
-  const int* table = block_tables + (size_t)n * MAXB;
-  const size_t page_stride = (size_t)KVH * BS * D;
-  const size_t head_off = (size_t)kvh * BS * D + d0;
+  const T* k_head = k_pool + (size_t)kvh * BS * D;  // page 0 of this kv head
+  const T* v_head = v_pool + (size_t)kvh * BS * D;
+  const int n_stages = (hi - lo + kStage - 1) / kStage;
 
+  // this warp's online softmax: m (every head, in every lane), the P.V sums
+  // of this lane's elements; l per head in every lane (f32 route) or, on
+  // the tensor-core route, this thread's share of head gr's sum (m_own: m[gr])
   float m[GB], l[GB], acc[GB][E];
 #pragma unroll
   for (int gi = 0; gi < GB; ++gi) {
@@ -78,160 +193,318 @@ paged_decode_kernel(const T* __restrict__ q,              // [N, 1, H, D]
 #pragma unroll
     for (int e = 0; e < E; ++e) acc[gi][e] = 0.f;
   }
+  float m_own = NEG_INF, l_own = 0.f;
 
-  // ---- this warp's share of the live slots [start, ctx)
-  for (int j0 = start + w * kU; j0 < ctx; j0 += kWarps * kU) {
-    float kf[kU][E], vf[kU][E];
-    bool ok[kU];
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      const int j = j0 + u;
-      ok[u] = j < ctx;  // the same for every lane of the warp
-      if (ok[u]) {
-        const size_t off = (size_t)table[j / BS] * page_stride + head_off + (size_t)(j % BS) * D;
-        load_f<T, E>(k_pool + off, kf[u]);
-        load_f<T, E>(v_pool + off, vf[u]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < E; ++e) kf[u][e] = vf[u][e] = 0.f;
-      }
+  copy_stage<T, D>(Ks, Vs, k_head, v_head, tbl, lo, hi, page_base, BS, KVH);
+  for (int c = 0; c < n_stages; ++c) {
+    const int stage = c & 1;
+    if (c + 1 < n_stages) {
+      const int c0 = lo + (c + 1) * kStage;
+      copy_stage<T, D>(Ks + (stage ^ 1) * kStage * S, Vs + (stage ^ 1) * kStage * S, k_head,
+                       v_head, tbl, c0, hi, page_base, BS, KVH);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    float s[kU][GB];
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-#pragma unroll
-      for (int gi = 0; gi < GB; ++gi) {
-        float part = 0.f;
-#pragma unroll
-        for (int e = 0; e < E; ++e) part = fmaf(qf[gi][e], kf[u][e], part);
-        s[u][gi] = ok[u] ? warp_sum(part) * scale : NEG_INF;
-      }
-    }
-#pragma unroll
-    for (int gi = 0; gi < GB; ++gi) {
-      float mx = m[gi];
-#pragma unroll
-      for (int u = 0; u < kU; ++u) mx = fmaxf(mx, s[u][gi]);
-      if (mx == NEG_INF) continue;  // nothing live yet (warp-uniform)
-      const float alpha = expf(m[gi] - mx);  // 0 when m was -inf
-      l[gi] *= alpha;
-#pragma unroll
-      for (int e = 0; e < E; ++e) acc[gi][e] *= alpha;
-#pragma unroll
-      for (int u = 0; u < kU; ++u) {
-        const float p = ok[u] ? expf(s[u][gi] - mx) : 0.f;
-        l[gi] += p;
-#pragma unroll
-        for (int e = 0; e < E; ++e) acc[gi][e] = fmaf(p, vf[u][e], acc[gi][e]);
-      }
-      m[gi] = mx;
-    }
-  }
-
-  // ---- merge the warps' states, one query head at a time
-  __shared__ float sm_m[kWarps][GB];
-  __shared__ float sm_l[kWarps][GB];
-  __shared__ float sm_acc[kWarps][D];
-  if (lane == 0) {
-#pragma unroll
-    for (int gi = 0; gi < GB; ++gi) {
-      sm_m[w][gi] = m[gi];
-      sm_l[w][gi] = l[gi];
-    }
-  }
-#pragma unroll
-  for (int gi = 0; gi < GB; ++gi) {
-    if (g0 + gi >= G) break;  // the same for the whole block
-    __syncthreads();  // the previous head's readers are done with sm_acc
-#pragma unroll
-    for (int e = 0; e < E; ++e) sm_acc[w][d0 + e] = acc[gi][e];
     __syncthreads();
-    for (int d = threadIdx.x; d < D; d += kWarps * 32) {
-      float mx = NEG_INF;
+    const T* Kt = Ks + stage * kStage * S + 8 * w * S;  // this warp's 8 slots
+    const T* Vt = Vs + stage * kStage * S + 8 * w * S;
+    const int nw = min(8, hi - (lo + c * kStage) - 8 * w);  // of them live (warp-uniform)
+    if constexpr (kTc) {
+      if (nw > 0) {
+        // S = q K^T: rows g < GB (heads) by the warp's 8 slots
+        float sc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int ww = 0; ww < kWarps; ++ww) mx = fmaxf(mx, sm_m[ww][gi]);
-      float L = 0.f, A = 0.f;
-      if (mx != NEG_INF) {
+        for (int kk2 = 0; kk2 < D / 32; ++kk2) {
+          uint32_t b[4];
+          ldsm_x4(b, Kt + (lane & 7) * S + kk2 * 32 + (lane >> 3) * 8);
+          const uint32_t a0[4] = {qa[2 * kk2][0], 0u, qa[2 * kk2][1], 0u};
+          const uint32_t a1[4] = {qa[2 * kk2 + 1][0], 0u, qa[2 * kk2 + 1][1], 0u};
+          mma16816<T>(sc, a0, b[0], b[1]);
+          mma16816<T>(sc, a1, b[2], b[3]);
+        }
+        // head gr's scores of slots 2 tg and 2 tg + 1; its max over the 8
+        float x[2];
 #pragma unroll
-        for (int ww = 0; ww < kWarps; ++ww) {
-          const float mw = sm_m[ww][gi];
-          if (mw == NEG_INF) continue;
-          const float f = expf(mw - mx);
-          L = fmaf(sm_l[ww][gi], f, L);
-          A = fmaf(sm_acc[ww][d], f, A);
+        for (int i = 0; i < 2; ++i) x[i] = 2 * tg + i < nw ? sc[i] * scale : NEG_INF;
+        float mx = fmaxf(x[0], x[1]);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_own_new = fmaxf(m_own, mx);  // slot 0 is live: finite
+        l_own *= expf(m_own - m_own_new);
+        m_own = m_own_new;
+        float p[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          p[i] = expf(x[i] - m_own);
+          l_own += p[i];
+        }
+#pragma unroll
+        for (int gi = 0; gi < GB; ++gi) {
+          const float m_new = fmaxf(m[gi], __shfl_sync(0xffffffffu, mx, 4 * gi));
+          const float alpha = expf(m[gi] - m_new);  // 0 when m was -inf
+#pragma unroll
+          for (int e = 0; e < E; ++e) acc[gi][e] *= alpha;
+          m[gi] = m_new;
+        }
+        // P.V in f32: slot u's probability for head gi comes from lane 4 gi + u / 2
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          if (u >= nw) break;
+          float vf[E];
+          load_f<T, E>(Vt + u * S + d0, vf);
+          const float mine = (u & 1) ? p[1] : p[0];
+#pragma unroll
+          for (int gi = 0; gi < GB; ++gi) {
+            const float pv = __shfl_sync(0xffffffffu, mine, 4 * gi + (u >> 1));
+#pragma unroll
+            for (int e = 0; e < E; ++e) acc[gi][e] = fmaf(pv, vf[e], acc[gi][e]);
+          }
         }
       }
-      out[((size_t)n * H + kvh * G + g0 + gi) * D + d] = from_f<T>(L > 0.f ? A / L : 0.f);
+    } else {
+      // f32: a lane holds E elements of a slot row; each score is a warp sum
+#pragma unroll
+      for (int u0 = 0; u0 < 8; u0 += 4) {
+        if (u0 >= nw) break;
+        float sv[4][GB];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const bool ok = u0 + u < nw;  // the same for every lane of the warp
+          float kf[E];
+          if (ok) load_f<T, E>(Kt + (u0 + u) * S + d0, kf);
+#pragma unroll
+          for (int gi = 0; gi < GB; ++gi) {
+            float part = 0.f;
+            if (ok) {
+#pragma unroll
+              for (int e = 0; e < E; ++e) part = fmaf(qf[gi][e], kf[e], part);
+            }
+            sv[u][gi] = ok ? warp_sum(part) * scale : NEG_INF;
+          }
+        }
+#pragma unroll
+        for (int gi = 0; gi < GB; ++gi) {
+          float mx = m[gi];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) mx = fmaxf(mx, sv[u][gi]);
+          const float alpha = expf(m[gi] - mx);  // 0 when m was -inf; slot u0 is live
+          l[gi] *= alpha;
+#pragma unroll
+          for (int e = 0; e < E; ++e) acc[gi][e] *= alpha;
+          m[gi] = mx;
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (u0 + u >= nw) break;
+          float vf[E];
+          load_f<T, E>(Vt + (u0 + u) * S + d0, vf);
+#pragma unroll
+          for (int gi = 0; gi < GB; ++gi) {
+            const float pv = expf(sv[u][gi] - m[gi]);
+            l[gi] += pv;
+#pragma unroll
+            for (int e = 0; e < E; ++e) acc[gi][e] = fmaf(pv, vf[e], acc[gi][e]);
+          }
+        }
+      }
     }
+    __syncthreads();  // this stage is refilled in the next iteration
+  }
+
+  // ---- the block's merge of its warps (over the stages), then the output
+  // (the row's only split) or this split's partials
+  if constexpr (kTc) {
+    l_own += __shfl_xor_sync(0xffffffffu, l_own, 1);
+    l_own += __shfl_xor_sync(0xffffffffu, l_own, 2);
+    if (tg == 0 && gr < GB) sm_l[w][gr] = l_own;
+  } else if (lane == 0) {
+#pragma unroll
+    for (int gi = 0; gi < GB; ++gi) sm_l[w][gi] = l[gi];
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int gi = 0; gi < GB; ++gi) sm_m[w][gi] = m[gi];
+  }
+#pragma unroll
+  for (int gi = 0; gi < GB; ++gi) store_f<float, E>(sm_acc + (w * GB + gi) * D + d0, acc[gi]);
+  __syncthreads();
+  if (tid < GB) {
+    float mx = NEG_INF;
+#pragma unroll
+    for (int ww = 0; ww < kWarps; ++ww) mx = fmaxf(mx, sm_m[ww][tid]);
+    float L = 0.f;
+#pragma unroll
+    for (int ww = 0; ww < kWarps; ++ww) {
+      const float f = sm_m[ww][tid] == NEG_INF ? 0.f : expf(sm_m[ww][tid] - mx);
+      sm_f[ww][tid] = f;
+      L = fmaf(sm_l[ww][tid], f, L);
+    }
+    sm_ml[tid][0] = mx;
+    sm_ml[tid][1] = L;
+  }
+  __syncthreads();
+  const bool direct = span.n_live == 1;
+  for (int i = tid; i < n_heads * D; i += kThreads) {
+    const int gi = i / D, d = i % D;
+    float A = 0.f;
+#pragma unroll
+    for (int ww = 0; ww < kWarps; ++ww) A = fmaf(sm_acc[(ww * GB + gi) * D + d], sm_f[ww][gi], A);
+    if (direct) {
+      out[(row_h0 + gi) * D + d] = from_f<T>(__fdividef(A, sm_ml[gi][1]));  // l >= 1
+    } else {
+      part_acc[((row_h0 + gi) * n_splits + split) * D + d] = A;
+    }
+  }
+  if (!direct && tid < n_heads) {
+    const size_t part = (row_h0 + tid) * n_splits + split;
+    part_ml[2 * part] = sm_ml[tid][0];
+    part_ml[2 * part + 1] = sm_ml[tid][1];
   }
 }
 
+// One block per (query head, row): the row's splits merged in split order.
+// Rows whose live slots fit in one split were written by the split kernel.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+paged_combine_kernel(const int* __restrict__ ctx_lens, const float* __restrict__ part_ml,
+                     const float* __restrict__ part_acc, T* __restrict__ out, int H, int D,
+                     int max_slots, int window, int split_slots, int n_splits) {
+  const int h = blockIdx.x;
+  const int n = blockIdx.y;
+  const RowSpan span = row_span(ctx_lens[n], max_slots, window, split_slots);
+  if (span.n_live <= 1) return;
+  const size_t row = (size_t)n * H + h;
+  const size_t first = row * n_splits + span.start / split_slots;
+  float mx = -CUDART_INF_F;
+  for (int s = 0; s < span.n_live; ++s) mx = fmaxf(mx, part_ml[2 * (first + s)]);
+  for (int d = threadIdx.x; d < D; d += kThreads) {
+    float L = 0.f, A = 0.f;
+    for (int s = 0; s < span.n_live; ++s) {
+      const float f = expf(part_ml[2 * (first + s)] - mx);
+      L = fmaf(part_ml[2 * (first + s) + 1], f, L);
+      A = fmaf(part_acc[(first + s) * D + d], f, A);
+    }
+    out[row * D + d] = from_f<T>(__fdividef(A, L));  // L >= 1
+  }
+}
+
+struct Args {
+  const void *q, *k_pool, *v_pool;
+  const int *tables, *ctx_lens;
+  void* out;
+  float *part_ml, *part_acc;
+  int N, H, KVH, BS, MAXB, window;
+  float scale;
+  int split_slots, n_splits;
+  cudaStream_t stream;
+};
+
 template <typename T, int D, int GB>
-cudaError_t launch(const void* q, const void* k_pool, const void* v_pool, const int* tables,
-                   const int* ctx_lens, void* out, int N, int H, int KVH, int BS, int MAXB,
-                   int window, float scale, cudaStream_t stream) {
-  const int G = H / KVH;
-  dim3 grid(KVH * ((G + GB - 1) / GB), N);
-  paged_decode_kernel<T, D, GB><<<grid, kWarps * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
-      tables, ctx_lens, static_cast<T*>(out), H, KVH, BS, MAXB, window, scale);
+cudaError_t launch(const Args& a) {
+  constexpr size_t smem = split_smem<T, D>();
+  static bool smem_set = false;  // once per instantiation (also keeps it out of graph capture)
+  if (!smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(paged_split_kernel<T, D, GB>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  const int G = a.H / a.KVH;
+  dim3 grid(a.KVH * ((G + GB - 1) / GB), a.n_splits, a.N);
+  paged_split_kernel<T, D, GB><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k_pool),
+      static_cast<const T*>(a.v_pool), a.tables, a.ctx_lens, static_cast<T*>(a.out), a.part_ml,
+      a.part_acc, a.H, a.KVH, a.BS, a.MAXB, a.window, a.scale, a.split_slots, a.n_splits);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
-cudaError_t launch_g(const void* q, const void* k_pool, const void* v_pool, const int* tables,
-                     const int* ctx_lens, void* out, int N, int H, int KVH, int BS, int MAXB,
-                     int window, float scale, cudaStream_t stream) {
-  if (H / KVH <= 4) {
-    return launch<T, D, 4>(q, k_pool, v_pool, tables, ctx_lens, out, N, H, KVH, BS, MAXB,
-                           window, scale, stream);
-  }
-  return launch<T, D, 8>(q, k_pool, v_pool, tables, ctx_lens, out, N, H, KVH, BS, MAXB,
-                         window, scale, stream);
+cudaError_t launch_g(const Args& a) {
+  return a.H / a.KVH <= 4 ? launch<T, D, 4>(a) : launch<T, D, 8>(a);
 }
 
 template <typename T>
-cudaError_t launch_d(int D, const void* q, const void* k_pool, const void* v_pool,
-                     const int* tables, const int* ctx_lens, void* out, int N, int H, int KVH,
-                     int BS, int MAXB, int window, float scale, cudaStream_t stream) {
+cudaError_t launch_d(int D, const Args& a) {
   switch (D) {
     case 64:
-      return launch_g<T, 64>(q, k_pool, v_pool, tables, ctx_lens, out, N, H, KVH, BS, MAXB,
-                             window, scale, stream);
+      return launch_g<T, 64>(a);
     case 128:
-      return launch_g<T, 128>(q, k_pool, v_pool, tables, ctx_lens, out, N, H, KVH, BS, MAXB,
-                              window, scale, stream);
+      return launch_g<T, 128>(a);
     case 256:
-      return launch_g<T, 256>(q, k_pool, v_pool, tables, ctx_lens, out, N, H, KVH, BS, MAXB,
-                              window, scale, stream);
+      return launch_g<T, 256>(a);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+template <typename T>
+cudaError_t launch_combine(const int* ctx_lens, const float* part_ml, const float* part_acc,
+                           void* out, int N, int H, int D, int max_slots, int window,
+                           int split_slots, int n_splits, cudaStream_t stream) {
+  paged_combine_kernel<T><<<dim3(H, N), kThreads, 0, stream>>>(
+      ctx_lens, part_ml, part_acc, static_cast<T*>(out), H, D, max_slots, window, split_slots,
+      n_splits);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// Returns the launch's cudaGetLastError() (0 on success). window <= 0: none.
+// The split pass. split_slots: a multiple of BS, at most 64 pages; n_splits
+// = ceil(MAXB * BS / split_slots). part_ml [N, H, n_splits, 2] and part_acc
+// [N, H, n_splits, D] are f32 scratch. window <= 0: none. Returns the
+// launch's cudaGetLastError() (0 on success).
 extern "C" int ttpu_paged_decode(const void* q, const void* k_pool, const void* v_pool,
                                  const void* block_tables, const void* ctx_lens, void* out,
-                                 int N, int H, int KVH, int BS, int D, int MAXB, int window,
-                                 float scale, int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* bt = static_cast<const int*>(block_tables);
-  const int* cl = static_cast<const int*>(ctx_lens);
+                                 void* part_ml, void* part_acc, int N, int H, int KVH, int BS,
+                                 int D, int MAXB, int window, float scale, int split_slots,
+                                 int n_splits, int dtype, void* stream) {
+  if (split_slots <= 0 || split_slots % BS || split_slots / BS > kMaxSplitPages)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{q, k_pool, v_pool, static_cast<const int*>(block_tables),
+         static_cast<const int*>(ctx_lens), out, static_cast<float*>(part_ml),
+         static_cast<float*>(part_acc), N, H, KVH, BS, MAXB, window, scale, split_slots,
+         n_splits, static_cast<cudaStream_t>(stream)};
   cudaError_t err;
   switch (dtype) {
     case TTPU_F32:
-      err = launch_d<float>(D, q, k_pool, v_pool, bt, cl, out, N, H, KVH, BS, MAXB, window,
-                            scale, st);
+      err = launch_d<float>(D, a);
       break;
     case TTPU_BF16:
-      err = launch_d<__nv_bfloat16>(D, q, k_pool, v_pool, bt, cl, out, N, H, KVH, BS, MAXB,
-                                    window, scale, st);
+      err = launch_d<__nv_bfloat16>(D, a);
       break;
     case TTPU_F16:
-      err = launch_d<__half>(D, q, k_pool, v_pool, bt, cl, out, N, H, KVH, BS, MAXB, window,
-                             scale, st);
+      err = launch_d<__half>(D, a);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// The merge pass over the split pass's partials: writes the rows whose live
+// slots span more than one split. max_slots = MAXB * BS.
+extern "C" int ttpu_paged_decode_combine(const void* ctx_lens, const void* part_ml,
+                                         const void* part_acc, void* out, int N, int H, int D,
+                                         int max_slots, int window, int split_slots,
+                                         int n_splits, int dtype, void* stream) {
+  const int* cl = static_cast<const int*>(ctx_lens);
+  const float* ml = static_cast<const float*>(part_ml);
+  const float* acc = static_cast<const float*>(part_acc);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (dtype) {
+    case TTPU_F32:
+      err = launch_combine<float>(cl, ml, acc, out, N, H, D, max_slots, window, split_slots,
+                                  n_splits, st);
+      break;
+    case TTPU_BF16:
+      err = launch_combine<__nv_bfloat16>(cl, ml, acc, out, N, H, D, max_slots, window,
+                                          split_slots, n_splits, st);
+      break;
+    case TTPU_F16:
+      err = launch_combine<__half>(cl, ml, acc, out, N, H, D, max_slots, window, split_slots,
+                                   n_splits, st);
       break;
     default:
       err = cudaErrorInvalidValue;
