@@ -375,6 +375,22 @@ def event_ms(fn, iters: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_us(fn, calls: int = 320) -> float:
+    """Host microseconds per call of ``fn``: the best of three runs of
+    ``calls`` back-to-back calls, from an idle card to the last call's return.
+    For a kernel whose launch costs the host more than the card's time, this
+    is the host's cost of one call."""
+    best = float("inf")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, (time.perf_counter() - t0) * 1e6 / calls)
+    torch.cuda.synchronize()
+    return best
+
+
 def grad_ratio(a: torch.Tensor, ref: torch.Tensor, u: float) -> float:
     """Largest |a - ref| / (u * |ref| + u/2 * rms(ref)) over the elements: at
     most 1 where ``a`` holds ``ref`` to GRAD_ULP's bound."""
@@ -714,7 +730,9 @@ def _paged_inputs(gen, *, n=8, h=32, kvh=8, d=128, bs=32, ctx_lens, dtype=torch.
     return q, k_pool, v_pool, tables.to(dev), ctx
 
 
-def _paged_error(q, k_pool, v_pool, tables, ctx, window) -> float:
+def _paged_error(q, k_pool, v_pool, tables, ctx, window) -> tuple[float, float]:
+    """The kernel against its plain version: the max abs error, and the worst
+    ``grad_ratio`` at q's GRAD_ULP (a hold relative to the output's scale)."""
     from transformers_tpu_torch.ops.paged_attention import (paged_decode_attention,
                                                             paged_decode_plain)
 
@@ -722,24 +740,24 @@ def _paged_error(q, k_pool, v_pool, tables, ctx, window) -> float:
     out = paged_decode_attention(q, k_pool, v_pool, tables, ctx, **kw)
     ref = paged_decode_plain(q, k_pool, v_pool, tables, ctx, **kw)
     torch.cuda.synchronize()
-    return max_err(out, ref)
-
-
-PAGED_SPLIT_SWEEP = (32, 64, 128, 256, 640)  # split sizes timed at the CB shape
+    return max_err(out, ref), grad_ratio(out, ref, GRAD_ULP[q.dtype])
 
 
 def check_paged(gen, seed: int) -> list:
     """K6 at the CB path's shapes: 8 rows, 32 query heads over 8 kv heads,
     head_dim 128, pages of 32 slots, bf16, ragged contexts of 64-576 slots,
     without and with a 100-slot window; then contexts of 2000-4000 slots,
-    which the kernel cuts into many splits. At the CB shape the kernel runs
-    twice (bitwise-equal outputs required), is held to the split version of
-    the plain code too, and is timed at SPLIT_SLOTS and at the sweep's split
-    sizes; its merge kernel is held to the plain merge on the plain
-    partials and timed. Returns the entries of both kernels."""
+    which the kernel cuts into many splits. There the outputs are means of
+    thousands of values, about as small as KERNEL_ATOL, so they are also held
+    relative to their scale (``grad_ratio`` at most 1). At the CB shape the
+    kernel runs twice (bitwise-equal outputs required), is held to the split
+    version of the plain code too, and is timed, with its wrapper's host cost
+    a call; its merge kernel is held to
+    the plain merge on the plain partials and timed. Returns the entries of
+    both kernels."""
     import torch.nn.functional as F
 
-    from transformers_tpu_torch.ops.paged_attention import (SPLIT_SLOTS, paged_decode_attention,
+    from transformers_tpu_torch.ops.paged_attention import (paged_decode_attention,
                                                             paged_decode_combine,
                                                             paged_decode_merge_plain,
                                                             paged_decode_partials_plain,
@@ -755,9 +773,11 @@ def check_paged(gen, seed: int) -> list:
                                ("long_context", long_lens, None)):
         q, k_pool, v_pool, tables, ctx = _paged_inputs(
             long_gen if name == "long_context" else gen, ctx_lens=lens)
-        err = _paged_error(q, k_pool, v_pool, tables, ctx, window)
-        print(f"[paged] {name} ctx {lens}: max_abs_err {err:.3e} (tol {KERNEL_ATOL})")
-        if err > KERNEL_ATOL:
+        err, ratio = _paged_error(q, k_pool, v_pool, tables, ctx, window)
+        print(f"[paged] {name} ctx {lens}: max_abs_err {err:.3e} (tol {KERNEL_ATOL})"
+              + (f", grad_ratio {ratio:.4f} at u = 2^-7 (at most 1)"
+                 if name == "long_context" else ""))
+        if err > KERNEL_ATOL or (name == "long_context" and ratio > 1.0):
             raise AssertionError(f"paged decode kernel disagrees with its plain version ({name})")
         if name != "ragged":
             continue
@@ -780,9 +800,9 @@ def check_paged(gen, seed: int) -> list:
             raise AssertionError("paged decode kernel disagrees with the split plain version")
         ms = device_ms(lambda: paged_decode_attention(q, k_pool, v_pool, tables, ctx,
                                                       scale=scale))
-        sweep = {sp: device_ms(lambda: paged_decode_attention(q, k_pool, v_pool, tables, ctx,
-                                                              scale=scale, split_slots=sp))
-                 for sp in PAGED_SPLIT_SWEEP}
+        # the CB decode loop is host-bound: K6's wrapper costs the host this much a layer
+        wrapper_us = host_us(lambda: paged_decode_attention(q, k_pool, v_pool, tables, ctx,
+                                                            scale=scale))
         plain_ms = device_ms(lambda: paged_decode_plain(q, k_pool, v_pool, tables, ctx,
                                                         scale=scale))
         # yardstick: SDPA over the same pages already gathered contiguous
@@ -802,13 +822,12 @@ def check_paged(gen, seed: int) -> list:
                             source="transformers_tpu_torch/csrc/paged_decode.cu",
                             replaces="transformers_tpu/ops/pallas/paged_attention.py:216",
                             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                            library_ms=library_ms, split_slots=split,
-                            ms_by_split_slots={str(sp): t for sp, t in sweep.items()},
+                            library_ms=library_ms, split_slots=split, host_us=wrapper_us,
                             library="SDPA over the pages gathered contiguous beforehand"))
         print(f"[paged] N={n} H={h} KVH={kvh} D={d} BS={bs} live slots {n_live}: {ms:.4f} ms "
               f"(split {split} slots, with the merge kernel), plain {plain_ms:.4f} ms, sdpa (pages "
-              f"pre-gathered) {library_ms:.4f} ms, bound {bms:.4f} ms ({by}); by split size "
-              + ", ".join(f"{sp}: {t:.4f} ms" for sp, t in sweep.items()))
+              f"pre-gathered) {library_ms:.4f} ms, bound {bms:.4f} ms ({by}); the wrapper "
+              f"costs the host {wrapper_us:.1f} us a call")
 
         # the merge kernel alone, on the plain partials of the same inputs
         ml, acc = paged_decode_partials_plain(q, k_pool, v_pool, tables, ctx, scale=scale,
@@ -897,7 +916,7 @@ def check_reference_cases(gen) -> None:
         for name, (n, h, kvh, d, bs, ctx_lens, window) in PAGED_OPS_CASES.items():
             q, k_pool, v_pool, tables, ctx = _paged_inputs(gen, n=n, h=h, kvh=kvh, d=d, bs=bs,
                                                            ctx_lens=ctx_lens, dtype=dtype)
-            err = _paged_error(q, k_pool, v_pool, tables, ctx, window)
+            err = _paged_error(q, k_pool, v_pool, tables, ctx, window)[0]
             if err > tol:
                 raise AssertionError(f"paged decode kernel disagrees with its plain version: "
                                      f"{name} {dtype}: {err:.3e}")

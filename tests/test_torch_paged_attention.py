@@ -212,9 +212,10 @@ def test_paged_decode_merge_sums_in_split_order():
     ctx = torch.tensor([4 * split], dtype=torch.int32)
     out = paged_decode_merge_plain(ml, acc, ctx, max_slots=4 * split, split_slots=split)
     assert out.item() == 0.25
-    via_wrapper = paged_decode_combine(ctx, ml, acc, torch.zeros((1, 1, 1, 1)),
-                                       max_slots=4 * split, split_slots=split)
-    assert via_wrapper.item() == 0.25
+    # the merge kernel's wrapper takes CUDA tensors only: no second CPU path
+    with pytest.raises(ValueError, match="cuda"):
+        paged_decode_combine(ctx, ml, acc, torch.zeros((1, 1, 1, 1)), max_slots=4 * split,
+                             split_slots=split)
 
 
 def test_paged_decode_combine_writes_only_rows_over_several_splits():
@@ -222,9 +223,14 @@ def test_paged_decode_combine_writes_only_rows_over_several_splits():
     split = 64
     ml, acc = paged_decode_partials_plain(*args, **kw, split_slots=split)
     max_slots = args[3].shape[1] * args[1].shape[2]
-    out = paged_decode_combine(args[4], ml, acc, torch.full_like(args[0], 7.0),
-                               max_slots=max_slots, split_slots=split)
+    merged = paged_decode_merge_plain(ml, acc, args[4], max_slots=max_slots, split_slots=split)
+    # the rows the merge kernel writes: live slots in more than one split
+    ctx = args[4].long()
+    multi = torch.where(ctx > 0, (ctx - 1) // split + 1, 0) > 1
     single = torch.tensor([True, True, False, True, False])  # ctx 32, 1, 64 fit in one split
+    assert torch.equal(multi, ~single)
+    out = torch.full_like(args[0], 7.0)
+    out[multi] = merged[multi].to(out.dtype)
     assert torch.all(out[single] == 7.0)
     want = paged_decode_split_plain(*args, **kw, split_slots=split)
     assert torch.equal(out[~single], want[~single])

@@ -19,8 +19,10 @@
 //
 // - Split-KV (paged_split_kernel). Each row's slots are cut into splits of
 //   `split_slots` slots (a whole number of pages; the wrapper's SPLIT_SLOTS,
-//   64, was the fastest of 32-640 at the continuous-batching shape, 8 rows of
-//   64-576 slots, 32 query heads over 8 kv heads, D = 128, pages of 32). One
+//   64, was the fastest at the continuous-batching shape, 8 rows of 64-576
+//   slots, 32 query heads over 8 kv heads, D = 128, pages of 32: 32 / 64 /
+//   128 / 256 / 640 slots took 0.0145 / 0.0118 / 0.0127 / 0.0182 / 0.0260 ms
+//   with the merge, in a one-time sweep on an H100 80GB HBM3 at 700 W). One
 //   block of 4 warps owns one split of one (row, kv head) and holds up to GB
 //   of that kv head's G query heads (GB = 4 for G <= 4, else 8; G > 8 takes
 //   ceil(G / 8) blocks per kv head), so each K/V byte is read once per
@@ -43,7 +45,7 @@
 //   split gets its output from that split's block. Otherwise each split
 //   writes its f32 (m, l, acc) partials to scratch the wrapper allocates, and
 //   a second small kernel merges a row's splits in split order, so the output
-//   is the same bit for bit from run to run.
+//   is the same bit for bit from run to run. One C call launches both.
 // The scores, probabilities and P.V sums are f32; the output is rounded once
 // to T.
 
@@ -450,10 +452,17 @@ cudaError_t launch_combine(const int* ctx_lens, const float* part_ml, const floa
 
 }  // namespace
 
-// The split pass. split_slots: a multiple of BS, at most 64 pages; n_splits
-// = ceil(MAXB * BS / split_slots). part_ml [N, H, n_splits, 2] and part_acc
-// [N, H, n_splits, D] are f32 scratch. window <= 0: none. Returns the
-// launch's cudaGetLastError() (0 on success).
+extern "C" int ttpu_paged_decode_combine(const void* ctx_lens, const void* part_ml,
+                                         const void* part_acc, void* out, int N, int H, int D,
+                                         int max_slots, int window, int split_slots,
+                                         int n_splits, int dtype, void* stream);
+
+// One decode step: the split pass, then the merge pass on the same stream,
+// in one call (the host's cost per layer matters in a host-bound decode
+// loop). split_slots: a multiple of BS, at most 64 pages; n_splits =
+// ceil(MAXB * BS / split_slots). part_ml [N, H, n_splits, 2] and part_acc
+// [N, H, n_splits, D] are f32 scratch. window <= 0: none. Returns the first
+// launch error (0 on success).
 extern "C" int ttpu_paged_decode(const void* q, const void* k_pool, const void* v_pool,
                                  const void* block_tables, const void* ctx_lens, void* out,
                                  void* part_ml, void* part_acc, int N, int H, int KVH, int BS,
@@ -479,11 +488,13 @@ extern "C" int ttpu_paged_decode(const void* q, const void* k_pool, const void* 
     default:
       err = cudaErrorInvalidValue;
   }
-  return static_cast<int>(err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return ttpu_paged_decode_combine(ctx_lens, part_ml, part_acc, out, N, H, D, MAXB * BS, window,
+                                   split_slots, n_splits, dtype, stream);
 }
 
-// The merge pass over the split pass's partials: writes the rows whose live
-// slots span more than one split. max_slots = MAXB * BS.
+// The merge pass alone over the split pass's partials: writes the rows whose
+// live slots span more than one split. max_slots = MAXB * BS.
 extern "C" int ttpu_paged_decode_combine(const void* ctx_lens, const void* part_ml,
                                          const void* part_acc, void* out, int N, int H, int D,
                                          int max_slots, int window, int split_slots,

@@ -14,15 +14,17 @@ Unlike the Pallas kernel, which fetches dead pages (the null page)
 branch-free and casts the probabilities to the pool's dtype before P.V, the
 CUDA kernel reads live pages only and keeps P.V in f32. It cuts each row's
 slots into splits of ``SPLIT_SLOTS`` (one block each) and merges the splits'
-f32 (m, l, acc) partials in split order in a second kernel,
-``paged_decode_combine``; ``paged_decode_split_plain`` is that computation in
-plain PyTorch. What bounds it on the card, and what the design does about it:
-see the note at the top of ``csrc/paged_decode.cu``.
+f32 (m, l, acc) partials in split order in a second kernel, launched by the
+same C call (``paged_decode_combine`` launches it alone);
+``paged_decode_split_plain`` is that computation in plain PyTorch. What
+bounds it on the card, and what the design does about it: see the note at
+the top of ``csrc/paged_decode.cu``.
 
-The wrappers take CUDA tensors to the kernels and CPU tensors to the plain
-PyTorch versions below, and nothing else: there is no fallback. They count
-their kernel launches in ``paged_decode_attention.launches`` (the split pass)
-and ``paged_decode_combine.launches`` (the merge).
+``paged_decode_attention`` takes CUDA tensors to the kernels and CPU tensors
+to the plain PyTorch version, and nothing else: there is no fallback.
+``paged_decode_combine``, the merge kernel alone, takes CUDA tensors only.
+The launches are counted in ``paged_decode_attention.launches`` (the split
+pass) and ``paged_decode_combine.launches`` (the merge).
 """
 
 from __future__ import annotations
@@ -35,8 +37,9 @@ import torch
 from . import cuda_build
 
 KERNEL_HEAD_DIMS = (64, 128, 256)
-# Slots per split (rounded up to whole pages): the fastest of 32-640 at the
-# continuous-batching shape, measured by chip_smoke.py (see csrc/paged_decode.cu).
+# Slots per split (rounded up to whole pages): the fastest of 32 / 64 / 128 / 256 / 640
+# (0.0145 / 0.0118 / 0.0127 / 0.0182 / 0.0260 ms) at the continuous-batching shape, in a
+# one-time sweep on an H100 80GB HBM3 at 700 W (see csrc/paged_decode.cu and PERF.md).
 SPLIT_SLOTS = 64
 MAX_SPLIT_PAGES = 64  # csrc/paged_decode.cu kMaxSplitPages
 # ttpu_paged_decode(q, k_pool, v_pool, block_tables, ctx_lens, out, part_ml, part_acc,
@@ -54,11 +57,10 @@ def paged_decode_supported(q: torch.Tensor, k_pool: torch.Tensor) -> bool:
     return q.shape[1] == 1 and h % k_pool.shape[1] == 0 and d in KERNEL_HEAD_DIMS
 
 
-def split_size(block_size: int, split_slots: Optional[int] = None) -> int:
-    """The kernel's split: ``split_slots`` (default ``SPLIT_SLOTS``) rounded up
-    to whole pages of ``block_size`` slots."""
-    want = SPLIT_SLOTS if split_slots is None else int(split_slots)
-    return max(1, -(-want // block_size)) * block_size
+def split_size(block_size: int) -> int:
+    """The kernel's split: ``SPLIT_SLOTS`` rounded up to whole pages of
+    ``block_size`` slots."""
+    return max(1, -(-SPLIT_SLOTS // block_size)) * block_size
 
 
 def _gather(pool, block_tables):
@@ -170,20 +172,14 @@ def paged_decode_split_plain(q, k_pool, v_pool, block_tables, ctx_lens, *, scale
 
 def paged_decode_combine(ctx_lens, ml, acc, out, *, max_slots: int, split_slots: int,
                          sliding_window: Optional[int] = None):
-    """The merge pass: writes ``out`` [N, 1, H, D] at each row whose live slots
-    span more than one split, from the partials ``ml`` [N, H, n_splits, 2] and
-    ``acc`` [N, H, n_splits, D] (f32) of those splits, merged in split order;
-    other rows are left as they are. Returns ``out``."""
+    """The merge kernel alone, on CUDA tensors: writes ``out`` [N, 1, H, D] at
+    each row whose live slots span more than one split, from the partials
+    ``ml`` [N, H, n_splits, 2] and ``acc`` [N, H, n_splits, D] (f32) of those
+    splits, merged in split order; other rows are left as they are. Its plain
+    version is ``paged_decode_merge_plain``. Returns ``out``."""
     n, h, ns, d = acc.shape
-    if out.device.type == "cpu":
-        merged = paged_decode_merge_plain(ml, acc, ctx_lens, max_slots=max_slots,
-                                          split_slots=split_slots,
-                                          sliding_window=sliding_window)
-        rows = _live_splits(ctx_lens, max_slots, split_slots, sliding_window)[1] > 1
-        out[rows] = merged[rows].to(out.dtype)
-        return out
     if out.device.type != "cuda":
-        raise ValueError(f"paged_decode_combine runs on cuda or cpu, not {out.device}")
+        raise ValueError(f"paged_decode_combine runs on cuda, not {out.device}")
     if ml.shape != (n, h, ns, 2) or out.shape != (n, 1, h, d) or ctx_lens.shape != (n,):
         raise ValueError("paged decode combine: ml [N, H, n_splits, 2], acc [N, H, n_splits, "
                          "D], out [N, 1, H, D] and ctx_lens [N]")
@@ -202,8 +198,7 @@ def paged_decode_combine(ctx_lens, ml, acc, out, *, max_slots: int, split_slots:
     return out
 
 
-def _paged_decode_cuda(q, k_pool, v_pool, block_tables, ctx_lens, *, scale, sliding_window,
-                       split_slots):
+def _paged_decode_cuda(q, k_pool, v_pool, block_tables, ctx_lens, *, scale, sliding_window):
     n, _, h, d = q.shape
     p, kvh, bs = k_pool.shape[:3]
     maxb = block_tables.shape[1]
@@ -218,7 +213,7 @@ def _paged_decode_cuda(q, k_pool, v_pool, block_tables, ctx_lens, *, scale, slid
         raise ValueError("block_tables must be [N, MAXB] and ctx_lens [N]")
     if block_tables.dtype != torch.int32 or ctx_lens.dtype != torch.int32:
         raise ValueError("block_tables and ctx_lens must be int32")
-    split = split_size(bs, split_slots)
+    split = split_size(bs)
     if split // bs > MAX_SPLIT_PAGES:
         raise ValueError(f"paged decode: a split of {split} slots spans more than "
                          f"{MAX_SPLIT_PAGES} pages of {bs}")
@@ -228,34 +223,34 @@ def _paged_decode_cuda(q, k_pool, v_pool, block_tables, ctx_lens, *, scale, slid
     if n == 0:
         return out
     ns = -(-maxb * bs // split)
-    ml = torch.empty((n, h, ns, 2), dtype=torch.float32, device=q.device)
-    acc = torch.empty((n, h, ns, d), dtype=torch.float32, device=q.device)
+    # one scratch buffer: the partials' acc [N, H, n_splits, D], then ml [N, H, n_splits, 2]
+    # (D floats a row keep ml 16-byte aligned)
+    scratch = torch.empty(n * h * ns * (d + 2), dtype=torch.float32, device=q.device)
+    acc_ptr = scratch.data_ptr()
     fn = cuda_build.kernel_fn("paged_decode", "ttpu_paged_decode", _ARGTYPES)
     code = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_tables.data_ptr(),
-              ctx_lens.data_ptr(), out.data_ptr(), ml.data_ptr(), acc.data_ptr(), n, h, kvh, bs,
-              d, maxb, int(sliding_window or 0), float(scale), split, ns,
+              ctx_lens.data_ptr(), out.data_ptr(), acc_ptr + n * h * ns * d * 4, acc_ptr, n, h,
+              kvh, bs, d, maxb, int(sliding_window or 0), float(scale), split, ns,
               cuda_build.DTYPE_CODES[q.dtype], cuda_build.stream_ptr(q.device))
     cuda_build.raise_on_error(code, "paged_decode")
+    # one call launched both kernels: the split pass and the merge
     paged_decode_attention.launches += 1
-    return paged_decode_combine(ctx_lens, ml, acc, out, max_slots=maxb * bs, split_slots=split,
-                                sliding_window=sliding_window)
+    paged_decode_combine.launches += 1
+    return out
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, ctx_lens, *, scale: float,
-                           sliding_window: Optional[int] = None,
-                           split_slots: Optional[int] = None):
+                           sliding_window: Optional[int] = None):
     """One decode step over paged K/V. q [N, 1, H, D]; pools [P, KVH, BS, D];
     ``block_tables`` [N, MAXB] page ids; ``ctx_lens`` [N] live slots per row,
     this step's token included. Returns the attention output [N, 1, H, D].
-    ``split_slots`` sets the kernel's split (default ``SPLIT_SLOTS``; it does
-    not change the result beyond the order of f32 sums). Not differentiable:
-    raises when a gradient would be needed."""
+    Not differentiable: raises when a gradient would be needed."""
     cuda_build.refuse_grad("paged_decode_attention", q, k_pool, v_pool)
     args = (q.contiguous(), k_pool, v_pool, block_tables.to(torch.int32).contiguous(),
             ctx_lens.to(torch.int32).contiguous())
     kw = dict(scale=float(scale), sliding_window=sliding_window)
     if q.device.type == "cuda":
-        return _paged_decode_cuda(*args, **kw, split_slots=split_slots)
+        return _paged_decode_cuda(*args, **kw)
     if q.device.type == "cpu":
         return paged_decode_plain(*args, **kw)
     raise ValueError(f"paged_decode_attention runs on cuda or cpu, not {q.device}")
