@@ -7,25 +7,31 @@ Phases, in order; any failure exits non-zero:
 
 (a) build every CUDA kernel from ``transformers_tpu_torch/csrc`` (one nvcc per
     source, all at once), print the card's name and power limit, and each
-    tensor-core flash-forward and split-KV paged-decode build's registers,
-    shared memory and spills from ``nvcc -Xptxas -v``;
+    tensor-core flash-forward and split-KV decode build's (K2, K6, K7)
+    registers, shared memory and spills from ``nvcc -Xptxas -v``; a K2 or K7
+    build that spills fails the run;
 (b) hold each kernel against its plain PyTorch version at the main paths'
     shapes, in bf16, and time the kernel, the plain version and one PyTorch
     library call that computes the same function (a yardstick only: the port
     never calls it), beside the least time the card could take; then hold
     them on the cases of the reference's tests/ops files in float32, float16
-    and bf16, at head_dim 64, 128 and 256. The static-cache decode kernel
-    (K7, which no path of the JAX package runs) is held at the Llama-3-8B
-    decode geometry over a ragged BSHD cache and on the reference's cases; its
-    launches are those checks, and every path's count of it must stay 0. The
-    flash backward (K5 dQ, K4
+    and bf16, at head_dim 64, 128 and 256. The fused decode (K2, split-KV)
+    is also held on a long context (S = 4096, pos = 4000) relative to the
+    outputs' scale too, run twice (bitwise-equal outputs required), timed
+    with idle splits (pos 300 of 4096 slots against 320), and replayed from
+    a CUDA graph at two other slots set on the card. The static-cache decode
+    kernel (K7, which no path of the JAX package runs) is held at the
+    Llama-3-8B decode geometry over a ragged BSHD cache, on live ranges of
+    2000-4000 slots (relative hold, bitwise double run) and on the
+    reference's cases; its launches are those checks, and every path's count
+    of it must stay 0. The flash backward (K5 dQ, K4
     dK/dV) is held at the training shapes (4 rows of 2048 tokens, right-padded,
     32 heads over 8 kv heads, head_dim 128, bf16; causal, windowed, softcapped)
     and timed against SDPA's backward; the flash forward (K1) is held and
     timed at those training shapes too, beside SDPA's forward. The paged
     decode (K6, split-KV, with its merge kernel) is also held on contexts of
-    2000-4000 slots, run twice at the continuous-batching shape (the outputs
-    must be equal bit for bit), and timed at split sizes of 32-640 slots;
+    2000-4000 slots and run twice at the continuous-batching shape (the
+    outputs must be equal bit for bit);
 (c) the static-cache path at the Llama-3-8B geometry in bf16 with random
     weights from ``--seed``: a full-width, 2-layer checkpoint written with the
     port's safetensors writer and read back by ``from_pretrained``; then
@@ -55,6 +61,7 @@ ends with ``{"ok": true, "device": {...}}``. Needs one CUDA card.
 from __future__ import annotations
 
 import argparse
+import functools
 import gc
 import json
 import math
@@ -137,6 +144,8 @@ DECODE_OPS_CASES = {  # name: (b, h, kvh, d, s, pos, starts, hole fraction)
     "bench_geometry": (8, 32, 8, 128, 224, 192, None, 0),
     "d64_gqa_6": (2, 12, 2, 64, 96, 70, [5, 0], 0),
     "d256_gqa_8": (2, 8, 1, 256, 80, 79, [3, 0], 0.05),
+    "d64_gqa_2": (2, 4, 2, 64, 96, 95, [0, 40], 0),
+    "d256_gqa_4": (2, 8, 2, 256, 100, 99, [0, 33], 0.05),
 }
 # K7: the cases of tests/ops/test_decode_attention.py, plus GQA 1 and 8,
 # head_dim 64 and 256 and a row whose end lies before its start
@@ -149,6 +158,8 @@ STATIC_DECODE_OPS_CASES = {  # name: (b, s, h, kvh, d, starts, ends, window)
     "head_dim_64": (2, 256, 8, 2, 64, (10, 0), (250, 33), None),
     "head_dim_256": (2, 128, 4, 1, 256, (0, 17), (128, 90), 40),
     "end_before_start": (2, 512, 8, 2, 128, (300, 7), (200, 411), None),
+    "head_dim_64_gqa_8": (2, 256, 16, 2, 64, (0, 5), (256, 120), None),
+    "head_dim_256_gqa_8": (2, 192, 8, 1, 256, (2, 0), (190, 64), 100),
 }
 PAGED_OPS_CASES = {  # name: (n, h, kvh, d, block size, ctx_lens, window)
     "gqa_1": (3, 8, 8, 128, 16, (40, 16, 61), None),
@@ -213,7 +224,10 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 # --------------------------------------------------------------------- (a)
 # the builds this script reports one by one (the others as a summary per library)
-REPORTED_BUILDS = ("flash_fwd_tc_kernel", "paged_split_kernel", "paged_combine_kernel")
+REPORTED_BUILDS = ("flash_fwd_tc_kernel", "paged_split_kernel", "paged_combine_kernel",
+                   "fused_decode_kernel", "static_decode_kernel")
+# the split-KV decode builds (K2, K7) must not spill
+NO_SPILL_BUILDS = ("fused_decode_kernel", "static_decode_kernel")
 
 
 def _demangle(names: list) -> dict:
@@ -278,6 +292,8 @@ def phase_build() -> dict:
             if any(k in b["name"] for k in REPORTED_BUILDS):
                 print(f"[build]   {b['name']}: {b['regs']} registers, static smem {b['smem']} "
                       f"bytes, spill bytes {b['spill']}")
+            if b["spill"] and any(k in b["name"] for k in NO_SPILL_BUILDS):
+                raise AssertionError(f"{b['name']} spills {b['spill']} bytes")
     print(f"[build] kernels built in {secs:.1f} s")
     return {"build_s": secs}
 
@@ -571,41 +587,133 @@ def _decode_inputs(gen, *, b=8, h=32, kvh=8, d=128, s=160, starts=None, holes=0,
     return q, k_new, v_new, cos, sin, kc, vc, start, valid
 
 
-def check_decode(gen) -> dict:
+def _decode_case(gen, c: dict) -> tuple:
+    """K2's inputs for one case of ``check_decode``: ``c`` gives s, pos and
+    optionally starts, holes and a dead span of slots [lo, hi) of every row."""
+    args = _decode_inputs(gen, s=c["s"], starts=c.get("starts"), holes=c.get("holes", 0))
+    if "dead" in c:
+        args[-1][:, c["dead"][0]:c["dead"][1]] = 0
+    return args
+
+
+def _decode_run(fn, args, pos, scale):
+    """``fn`` (the wrapper or a plain version) on fresh copies of the caches:
+    the output and the caches it wrote."""
+    q, kn, vn, cos, sin, kc, vc, start, valid = args
+    kc, vc = kc.clone(), vc.clone()
+    out = fn(q, kn, vn, cos, sin, kc, vc, pos, start, valid, scale=scale)
+    return out, kc, vc
+
+
+def check_decode_graph_pos(gen) -> None:
+    """K2 reads pos from the card: one call captured in a CUDA graph with pos
+    a device tensor, the tensor set to two other slots, the graph replayed;
+    output and caches must equal, bit for bit, eager calls at those slots."""
+    from transformers_tpu_torch.ops.fused_decode import fused_decode_attention
+
+    args = _decode_inputs(gen, s=PROMPT + NEW, starts=list(PADS))
+    q, kn, vn, cos, sin, kc, vc, start, valid = args
+    scale = q.shape[-1] ** -0.5
+    pos_t = torch.full((1,), PROMPT + NEW - 1, dtype=torch.int32, device="cuda")
+    kc_g, vc_g = kc.clone(), vc.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # first call outside capture
+        fused_decode_attention(q, kn, vn, cos, sin, kc_g, vc_g, pos_t, start, valid, scale=scale)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_g = fused_decode_attention(q, kn, vn, cos, sin, kc_g, vc_g, pos_t, start, valid,
+                                       scale=scale)
+    for p in (PROMPT + 7, PROMPT - 30):
+        pos_t.fill_(p)
+        kc_g.copy_(kc)
+        vc_g.copy_(vc)
+        graph.replay()
+        want, kc_e, vc_e = _decode_run(fused_decode_attention, args,
+                                       torch.full((1,), p, dtype=torch.int32, device="cuda"), scale)
+        torch.cuda.synchronize()
+        same = (torch.equal(out_g, want), torch.equal(kc_g, kc_e), torch.equal(vc_g, vc_e))
+        written = not torch.equal(kc_g[:, :, p], kc[:, :, p])
+        print(f"[decode] graph replay at pos {p} (captured at {PROMPT + NEW - 1}): output, "
+              f"k cache, v cache bitwise equal to an eager call {same}; slot {p} written "
+              f"{written}")
+        if not all(same) or not written:
+            raise AssertionError("fused decode: a graph replay does not follow pos on the card")
+
+
+def check_decode(gen, seed: int) -> dict:
+    """K2 against its plain version: the generate shape (8 rows, 32 query heads
+    over 8 kv heads, head_dim 128, bf16, S = 160, the smoke's left pads), a
+    first token, kv_valid holes, a dead span of 70 slots, a row whose start
+    lies at or past pos, a dead span over a whole split (S = 2048, pos =
+    2000) and a long context (S = 4096, pos = 4000); the last two are held
+    also relative to the outputs' scale, since a dropped split can pass
+    KERNEL_ATOL. At the generate shape and the two long cases the kernel runs
+    twice (bitwise-equal outputs required) and is held to
+    ``fused_decode_split_plain``. Timed at the generate shape with pos a
+    device tensor, as the main path passes it, and at S = 4096 and S = 320
+    with pos = 300, which shows what the idle splits cost; then the
+    graph-replay check of pos on the card. The dead spans, the starts past
+    pos and the idle-split timing draw from their own generator, so that the
+    other checks' inputs stay as they were before those cases existed."""
     import torch.nn.functional as F
 
-    from transformers_tpu_torch.ops.fused_decode import (fused_decode_attention,
-                                                         fused_decode_plain)
+    from transformers_tpu_torch.ops.fused_decode import (SPLIT_SLOTS, fused_decode_attention,
+                                                         fused_decode_plain,
+                                                         fused_decode_split_plain)
 
     cases = {
         "first_token": dict(s=160, pos=0),
         "left_padded": dict(s=PROMPT + NEW, pos=PROMPT + NEW - 1, starts=list(PADS)),
         "mask_holes": dict(s=160, pos=100, holes=0.2),
+        "dead_span": dict(s=160, pos=150, dead=(20, 90)),
+        "start_past_pos": dict(s=160, pos=60, starts=[0, 61, 100, 0, 3, 60, 159, 7]),
+        "dead_split": dict(s=2048, pos=2000, dead=(512, 1100)),  # a whole split of holes
         "long_context": dict(s=4096, pos=4000, starts=[0, 100, 511, 512, 0, 7, 1000, 3]),
     }
+    long_cases = ("dead_split", "long_context")  # held relative to the outputs' scale too
+    extra_gen = torch.Generator(device="cuda").manual_seed(seed + 9)
     result = None
     for name, c in cases.items():
-        q, kn, vn, cos, sin, kc, vc, start, valid = _decode_inputs(
-            gen, s=c["s"], starts=c.get("starts"), holes=c.get("holes", 0))
+        new_case = name in ("dead_span", "start_past_pos", "dead_split")
+        args = _decode_case(extra_gen if new_case else gen, c)
+        q, kn, vn, cos, sin, kc, vc, start, valid = args
         pos = c["pos"]
         scale = q.shape[-1] ** -0.5
-        kc2, vc2 = kc.clone(), vc.clone()
-        out = fused_decode_attention(q, kn, vn, cos, sin, kc, vc, pos, start, valid,
-                                     scale=scale)
-        ref = fused_decode_plain(q, kn, vn, cos, sin, kc2, vc2, pos, start, valid, scale=scale)
+        out, kc_k, vc_k = _decode_run(fused_decode_attention, args, pos, scale)
+        ref, kc_p, vc_p = _decode_run(fused_decode_plain, args, pos, scale)
         torch.cuda.synchronize()
         err = max_err(out, ref)
-        cache_err = max(max_err(kc, kc2), max_err(vc, vc2))
+        cache_err = max(max_err(kc_k, kc_p), max_err(vc_k, vc_p))
+        ratio = grad_ratio(out, ref, GRAD_ULP[q.dtype])
         print(f"[decode] {name}: max_abs_err out {err:.3e}, caches {cache_err:.3e} "
-              f"(tol {KERNEL_ATOL})")
-        if err > KERNEL_ATOL or cache_err > KERNEL_ATOL:
+              f"(tol {KERNEL_ATOL})" + (f", grad_ratio {ratio:.4f} at u = 2^-7 (at most 1)"
+                                         if name in long_cases else ""))
+        if err > KERNEL_ATOL or cache_err > KERNEL_ATOL or (name in long_cases
+                                                             and ratio > 1.0):
             raise AssertionError(f"fused decode kernel disagrees with its plain version ({name})")
+        if name in ("left_padded", *long_cases):
+            again = _decode_run(fused_decode_attention, args, pos, scale)[0]
+            split_ref = _decode_run(functools.partial(fused_decode_split_plain,
+                                                      split_slots=SPLIT_SLOTS), args, pos, scale)[0]
+            torch.cuda.synchronize()
+            split_err = max_err(out, split_ref)
+            print(f"[decode] {name}: two runs bitwise equal {torch.equal(out, again)}; against "
+                  f"the split plain version ({SPLIT_SLOTS} slots a split) max_abs_err "
+                  f"{split_err:.3e} (tol {KERNEL_ATOL})")
+            if not torch.equal(out, again):
+                raise AssertionError(f"fused decode kernel: two runs differ ({name})")
+            if split_err > KERNEL_ATOL:
+                raise AssertionError("fused decode kernel disagrees with the split plain version")
         if name != "left_padded":
             continue
         b, _, h, d = q.shape
         kvh, s = kc.shape[1], kc.shape[2]
-        ms = device_ms(lambda: fused_decode_attention(q, kn, vn, cos, sin, kc, vc, pos, start,
+        pos_t = torch.full((1,), pos, dtype=torch.int32, device="cuda")
+        ms = device_ms(lambda: fused_decode_attention(q, kn, vn, cos, sin, kc, vc, pos_t, start,
                                                       valid, scale=scale))
+        kc2, vc2 = kc.clone(), vc.clone()
         plain_ms = device_ms(lambda: fused_decode_plain(q, kn, vn, cos, sin, kc2, vc2, pos,
                                                         start, valid, scale=scale))
         slots = torch.arange(s, device="cuda")[None, :]
@@ -621,13 +729,24 @@ def check_decode(gen) -> dict:
                   + 2 * b * kvh * d * 2                         # cache write at slot pos
                   + valid.numel() * 4 + start.numel() * 4)
         bms, by = bound_ms(nbytes, 4.0 * d * h * (n_live + b))
+        # the grid is sized from S: what idle splits cost, at pos 300 of 4096 and of 320 slots
+        idle = {}
+        for s_idle in (4096, 320):
+            a = _decode_inputs(extra_gen, s=s_idle)
+            p300 = torch.full((1,), 300, dtype=torch.int32, device="cuda")
+            idle[s_idle] = device_ms(lambda: fused_decode_attention(*a[:7], p300, *a[7:],
+                                                                    scale=scale))
         result = dict(name="fused_decode", route="cuda",
                       source="transformers_tpu_torch/csrc/fused_decode.cu",
                       replaces="transformers_tpu/ops/pallas/fused_decode.py:326",
                       max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                      library_ms=library_ms)
-        print(f"[decode] B={b} S={s} H={h} KVH={kvh} D={d} pos={pos}: {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+                      library_ms=library_ms, split_slots=SPLIT_SLOTS,
+                      ms_pos300_s4096=idle[4096], ms_pos300_s320=idle[320])
+        print(f"[decode] B={b} S={s} H={h} KVH={kvh} D={d} pos={pos}: {ms:.4f} ms (split "
+              f"{SPLIT_SLOTS} slots, pos on the card), plain {plain_ms:.4f} ms, sdpa "
+              f"{library_ms:.4f} ms, bound {bms:.4f} ms ({by}); at pos 300: {idle[4096]:.4f} ms "
+              f"with S = 4096, {idle[320]:.4f} ms with S = 320")
+    check_decode_graph_pos(extra_gen)
     return result
 
 
@@ -641,7 +760,9 @@ def _static_inputs(gen, *, b, s, h, kvh, d, starts, ends, dtype=torch.bfloat16):
     return q, k, v, st, en
 
 
-def _static_error(q, k, v, st, en, window) -> float:
+def _static_error(q, k, v, st, en, window) -> tuple:
+    """K7 against its plain version: the max abs error, the worst
+    ``grad_ratio`` at q's GRAD_ULP, and the kernel's output."""
     from transformers_tpu_torch.ops.decode_attention import (decode_attention,
                                                              decode_attention_plain)
 
@@ -651,38 +772,68 @@ def _static_error(q, k, v, st, en, window) -> float:
     torch.cuda.synchronize()
     if out[en <= st].any():
         raise AssertionError("static decode: a row with no live slot is not zero")
-    return max_err(out, ref)
+    return max_err(out, ref), grad_ratio(out, ref, GRAD_ULP[q.dtype]), out
 
 
-def check_static_decode(gen) -> dict:
+def check_static_decode(gen, seed: int) -> dict:
     """K7 at Llama-3-8B decode geometry: 8 rows, 32 query heads over 8 kv
     heads, head_dim 128, bf16, a BSHD cache of 224 slots with ragged live
     ranges [start, end) (starts 0-39, ends 150-224), without and with a
-    128-slot window. Timed beside SDPA with a boolean mask over the same
+    128-slot window; then a cache of 4096 slots with live ranges of 2000-4000
+    slots, held also relative to the outputs' scale (a dropped split can pass
+    KERNEL_ATOL). In the ragged case and the long one the kernel runs twice
+    (bitwise-equal outputs required) and is held to ``decode_split_plain``.
+    Timed in the ragged case beside SDPA with a boolean mask over the same
     cache, transposed to BHSD beforehand (a yardstick the port never calls).
     The JAX package runs this kernel from no model path: its launches are
     those of this phase's checks."""
     import torch.nn.functional as F
 
-    from transformers_tpu_torch.ops.decode_attention import (decode_attention,
-                                                             decode_attention_plain)
+    from transformers_tpu_torch.ops.decode_attention import (SPLIT_SLOTS, decode_attention,
+                                                             decode_attention_plain,
+                                                             decode_split_plain)
 
     b, s, h, kvh, d = BATCH, 224, 32, 8, 128
     starts = torch.randint(0, 40, (b,), generator=gen, device="cuda").tolist()
     ends = torch.randint(150, s + 1, (b,), generator=gen, device="cuda").tolist()
+    # the long case draws from its own generator: the other checks' inputs stay as they were
+    long_gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    long_starts = torch.randint(0, 100, (b,), generator=long_gen, device="cuda").tolist()
+    long_ends = [st + n for st, n in zip(long_starts, torch.randint(
+        2000, 3997, (b,), generator=long_gen, device="cuda").tolist())]
     result = None
-    for name, window in (("ragged", None), ("ragged_window_128", 128)):
-        q, k, v, st, en = _static_inputs(gen, b=b, s=s, h=h, kvh=kvh, d=d, starts=starts,
-                                         ends=ends)
-        err = _static_error(q, k, v, st, en, window)
-        print(f"[static decode] {name} [start, end) {list(zip(starts, ends))}: max_abs_err "
-              f"{err:.3e} (tol {KERNEL_ATOL})")
-        if err > KERNEL_ATOL:
+    for name, window in (("ragged", None), ("ragged_window_128", 128), ("long_context", None)):
+        if name == "long_context":
+            q, k, v, st, en = _static_inputs(long_gen, b=b, s=4096, h=h, kvh=kvh, d=d,
+                                             starts=long_starts, ends=long_ends)
+        else:
+            q, k, v, st, en = _static_inputs(gen, b=b, s=s, h=h, kvh=kvh, d=d, starts=starts,
+                                             ends=ends)
+        err, ratio, out = _static_error(q, k, v, st, en, window)
+        spans = list(zip(*((long_starts, long_ends) if name == "long_context"
+                           else (starts, ends))))
+        print(f"[static decode] {name} [start, end) {spans}: max_abs_err {err:.3e} (tol "
+              f"{KERNEL_ATOL})" + (f", grad_ratio {ratio:.4f} at u = 2^-7 (at most 1)"
+                                   if name == "long_context" else ""))
+        if err > KERNEL_ATOL or (name == "long_context" and ratio > 1.0):
             raise AssertionError(f"static decode kernel disagrees with its plain version ({name})")
         if window is not None:
             continue
-        checked = decode_attention.launches
         scale = d ** -0.5
+        again = decode_attention(q, k, v, st, en, scale=scale)
+        split_ref = decode_split_plain(q, k, v, st, en, scale=scale, split_slots=SPLIT_SLOTS)
+        torch.cuda.synchronize()
+        split_err = max_err(out, split_ref)
+        print(f"[static decode] {name}: two runs bitwise equal {torch.equal(out, again)}; "
+              f"against the split plain version ({SPLIT_SLOTS} slots a split) max_abs_err "
+              f"{split_err:.3e} (tol {KERNEL_ATOL})")
+        if not torch.equal(out, again):
+            raise AssertionError(f"static decode kernel: two runs differ ({name})")
+        if split_err > KERNEL_ATOL:
+            raise AssertionError("static decode kernel disagrees with the split plain version")
+        if name != "ragged":
+            continue
+        checked = decode_attention.launches
         ms = device_ms(lambda: decode_attention(q, k, v, st, en, scale=scale))
         plain_ms = device_ms(lambda: decode_attention_plain(q, k, v, st, en, scale=scale))
         decode_attention.launches = checked  # timing launches are not checks
@@ -702,12 +853,12 @@ def check_static_decode(gen) -> dict:
                       source="transformers_tpu_torch/csrc/fused_decode.cu",
                       replaces="transformers_tpu/ops/pallas/decode_attention.py:168",
                       max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                      library_ms=library_ms,
+                      library_ms=library_ms, split_slots=SPLIT_SLOTS,
                       library="SDPA with a boolean mask over the cache, transposed to BHSD "
                               "beforehand")
         print(f"[static decode] B={b} S={s} H={h} KVH={kvh} D={d} live slots {n_live}: "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-              f"{bms:.4f} ms ({by})")
+              f"{ms:.4f} ms (split {SPLIT_SLOTS} slots), plain {plain_ms:.4f} ms, sdpa "
+              f"{library_ms:.4f} ms, bound {bms:.4f} ms ({by})")
     return result
 
 
@@ -923,7 +1074,7 @@ def check_reference_cases(gen) -> None:
             worst[("paged_decode", dtype)] = max(worst.get(("paged_decode", dtype), 0.0), err)
         for name, (b, s, h, kvh, d, starts, ends, window) in STATIC_DECODE_OPS_CASES.items():
             err = _static_error(*_static_inputs(gen, b=b, s=s, h=h, kvh=kvh, d=d, starts=starts,
-                                                ends=ends, dtype=dtype), window)
+                                                ends=ends, dtype=dtype), window)[0]
             if err > tol:
                 raise AssertionError(f"static decode kernel disagrees with its plain version: "
                                      f"{name} {dtype}: {err:.3e}")
@@ -1519,8 +1670,8 @@ def main() -> int:
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     _reset_counts()
-    kernels = [check_flash(gen), check_decode(gen), *check_paged(gen, args.seed),
-               check_static_decode(gen)]
+    kernels = [check_flash(gen), check_decode(gen, args.seed), *check_paged(gen, args.seed),
+               check_static_decode(gen, args.seed)]
     bwd, k1_train = check_flash_bwd(gen, args.seed)
     kernels[0].update(k1_train)
     kernels += bwd

@@ -14,8 +14,17 @@ Pallas kernel's 256-slot blocks), where the Pallas kernel skips the block and
 gives zeros as the port does; inside a block it would average that block's V
 (see ``transformers_tpu_torch/ops/decode_attention.py``).
 
-Tolerances: 2e-5 in float32 (sums in another order); 2e-2 in bf16, one
-rounding step of bf16 at the outputs' magnitude.
+The kernel cuts each row's slots into splits and merges their f32 (m, l,
+acc) partials in split order; ``decode_split_plain`` is that computation in
+plain PyTorch, held at split sizes 16/32/64/128 (rows inside one split, rows
+over many, a window that starts inside a split, an empty row) to
+``decode_attention_plain`` and to the JAX kernel, whose outputs are computed
+once per module.
+
+Tolerances: 2e-5 in float32 (sums in another order), 1e-5 for the split
+version against the plain one (f32 sums over the same slots, split
+otherwise); 2e-2 in bf16, one rounding step of bf16 at the outputs'
+magnitude.
 """
 
 import jax.numpy as jnp
@@ -24,10 +33,17 @@ import pytest
 import torch
 
 from transformers_tpu.ops.pallas.decode_attention import decode_attention as jax_decode
-from transformers_tpu_torch.ops.decode_attention import decode_attention, decode_supported
+from transformers_tpu_torch.ops.decode_attention import (
+    decode_attention,
+    decode_attention_plain,
+    decode_split_plain,
+    decode_supported,
+)
 
 F32_TOL = 2e-5
+SPLIT_F32_TOL = 1e-5
 BF16_TOL = 2e-2
+SPLITS = (16, 32, 64, 128)
 
 CASES = {
     # name: (b, s, h, kvh, d, starts, ends, window, dtype, seed)
@@ -59,10 +75,20 @@ def _inputs(name):
             dict(scale=d ** -0.5, sliding_window=window))
 
 
+@pytest.fixture(scope="module")
+def jax_outputs():
+    """JAX's output for every case, computed once."""
+    outs = {}
+    for case in CASES:
+        _, (jq, jk, jv), starts, ends, kw = _inputs(case)
+        outs[case] = jax_decode(jq, jk, jv, jnp.asarray(starts), jnp.asarray(ends), **kw)
+    return outs
+
+
 @pytest.mark.parametrize("case", list(CASES))
-def test_decode_plain_matches_jax_pallas(case):
-    (q, k, v), (jq, jk, jv), starts, ends, kw = _inputs(case)
-    ref = jax_decode(jq, jk, jv, jnp.asarray(starts), jnp.asarray(ends), **kw)
+def test_decode_plain_matches_jax_pallas(jax_outputs, case):
+    (q, k, v), _, starts, ends, kw = _inputs(case)
+    ref = jax_outputs[case]
     before = decode_attention.launches
     out = decode_attention(q, k, v, torch.from_numpy(starts), torch.from_numpy(ends), **kw)
     assert decode_attention.launches == before  # CPU tensors never count a launch
@@ -72,6 +98,31 @@ def test_decode_plain_matches_jax_pallas(case):
                                rtol=tol)
     if case == "end_before_start":
         assert not out[0].any()
+
+
+@pytest.mark.parametrize("split", SPLITS)
+@pytest.mark.parametrize("case", list(CASES))
+def test_decode_split_plain_matches_plain_and_jax_pallas(jax_outputs, case, split):
+    (q, k, v), _, starts, ends, kw = _inputs(case)
+    args = (q, k, v, torch.from_numpy(starts), torch.from_numpy(ends))
+    out = decode_split_plain(*args, **kw, split_slots=split)
+    ref = decode_attention_plain(*args, **kw)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    tol = SPLIT_F32_TOL if q.dtype == torch.float32 else BF16_TOL
+    np.testing.assert_allclose(out.float().numpy(), ref.float().numpy(), atol=tol, rtol=tol)
+    tol = max(tol, F32_TOL)
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(jax_outputs[case], np.float32),
+                               atol=tol, rtol=tol)
+    if case == "end_before_start":
+        assert not out[0].any()
+
+
+@pytest.mark.parametrize("case", ["matches_eager", "sliding_window", "bf16"])
+def test_decode_split_plain_is_bitwise_repeatable(case):
+    (q, k, v), _, starts, ends, kw = _inputs(case)
+    args = (q, k, v, torch.from_numpy(starts), torch.from_numpy(ends))
+    assert torch.equal(decode_split_plain(*args, **kw, split_slots=16),
+                       decode_split_plain(*args, **kw, split_slots=16))
 
 
 def test_decode_supported_has_no_head_dim_128_gate():

@@ -234,3 +234,42 @@ def test_sampled_generate_stays_in_top_k():
                            top_k=20, temperature=0.8, generator=torch.Generator().manual_seed(7))
             for _ in range(2))
     assert torch.equal(a, b)
+
+
+def test_decode_steps_read_the_cache_slot_tensor(monkeypatch):
+    """Every fused decode call of a generate gets the static cache's one slot
+    tensor, holding that step's cache_position; the tensor is set once per
+    decode step (one ``fill_``), not once per layer."""
+    from transformers_tpu_torch.models.llama import modeling_llama
+
+    model = port.LlamaForCausalLM(port.LlamaConfig(**BASE), dtype=torch.float32,
+                                  device="cpu").init_weights(3)
+    calls, fills = [], []
+    real_decode, real_init = modeling_llama.fused_decode_attention, model.init_cache
+
+    def init_cache(*args, **kw):
+        cache = real_init(*args, **kw)
+        real_fill = cache.slot.fill_
+        cache.slot.fill_ = lambda v: (fills.append(int(v)), real_fill(v))[1]
+        return cache
+
+    def spy_decode(*args, **kw):
+        calls.append((args[7], int(args[7])))  # the pos argument, and what it holds now
+        return real_decode(*args, **kw)
+
+    monkeypatch.setattr(model, "init_cache", init_cache)
+    monkeypatch.setattr(modeling_llama, "fused_decode_attention", spy_decode)
+    ids = torch.as_tensor(IDS[1:])
+    model.generate(ids, max_new_tokens=5, prompt_pad_multiple=1)
+    s, layers = ids.shape[1], BASE["num_hidden_layers"]
+    assert [v for _, v in calls] == [s + g for g in range(4) for _ in range(layers)]
+    assert all(t is calls[0][0] and t.dtype == torch.int32 and t.numel() == 1 for t, _ in calls)
+    assert fills == [s + g for g in range(4)]
+
+
+def test_cache_slot_tensor_is_range_checked():
+    cache = port.cache_utils.init_static_cache(num_layers=1, batch_size=1, max_len=8,
+                                               num_kv_heads=1, head_dim=64, dtype=torch.float32)
+    assert int(cache.slot_tensor(7)) == 7
+    with pytest.raises(ValueError, match="outside"):
+        cache.slot_tensor(8)

@@ -5,14 +5,24 @@
   on the cases of tests/ops/test_flash_attention.py.
 - The fused decode wrapper (plain version) against JAX
   ``fused_decode_attention(..., interpret=True)`` on the cases of
-  tests/ops/test_fused_decode.py, updated caches included.
+  tests/ops/test_fused_decode.py, updated caches included, plus a start
+  moved up as a sliding window moves it, rows whose start lies at or past
+  ``pos``, and a row whose holes cover whole splits. The kernel cuts each
+  row's slots into splits and merges their f32 (m, l, acc) partials in
+  split order, the new column last; ``fused_decode_split_plain`` is that
+  computation in plain PyTorch, held at
+  split sizes 16/32/64/128 (rows inside one split, rows over many, whole
+  splits before ``start``) to ``fused_decode_plain`` and to the JAX kernel.
+  The JAX outputs are computed once per module. ``pos`` as a tensor, as the
+  static cache passes it, gives what the int gives.
 - rope, RMSNorm, activations, masks, ``eager_attention`` and
   ``cached_attention_bhsd`` against their JAX counterparts.
 
 Inputs are made from a seed with numpy. Tolerances: 2e-5 in float32 (sums in
-another order); 2e-2 in bf16, one rounding step of bf16 at the outputs'
-magnitude (the Pallas kernels also round probabilities to bf16 before P.V,
-the port keeps them in f32).
+another order), 1e-5 for the split version against the plain one (f32 sums
+over the same slots, split otherwise); 2e-2 in bf16, one rounding step of
+bf16 at the outputs' magnitude (the Pallas kernels also round probabilities
+to bf16 before P.V, the port keeps them in f32).
 """
 
 import jax.numpy as jnp
@@ -30,10 +40,17 @@ from transformers_tpu.ops.pallas.fused_decode import fused_decode_attention as j
 from transformers_tpu_torch.core.module import RMSNorm
 from transformers_tpu_torch.ops import activations, attention, masks, rope
 from transformers_tpu_torch.ops.flash_attention import flash_attention
-from transformers_tpu_torch.ops.fused_decode import fused_decode_attention
+from transformers_tpu_torch.ops.fused_decode import (
+    fused_decode_attention,
+    fused_decode_plain,
+    fused_decode_split_plain,
+)
+from transformers_tpu_torch.ops.paged_attention import merge_splits_plain
 
 F32_TOL = 2e-5
+SPLIT_F32_TOL = 1e-5
 BF16_TOL = 2e-2
+SPLITS = (16, 32, 64, 128)
 
 
 def _pair(x, dtype):
@@ -107,37 +124,119 @@ DECODE_CASES = {
     "bf16": (4, 8, 2, 128, 128, 100, torch.bfloat16, None, ()),
     "chunked_long_context": (4, 8, 8, 128, 1536, 1200, torch.bfloat16, (0, 100, 511, 512), ()),
     "bench_geometry": (8, 32, 8, 128, 224, 192, torch.bfloat16, None, ()),
+    # not in the reference file: a start moved up to pos + 1 - window (window 16),
+    # as a sliding layer moves it, and starts at and past pos (the new column alone)
+    "window_start": (3, 8, 2, 128, 96, 80, torch.float32, (65, 0, 70), ((1, 66), (2, 75))),
+    "start_past_pos": (3, 8, 2, 64, 96, 40, torch.float32, (0, 40, 90), ()),
+    # row 0's slots 32-99 are holes: whole splits with nothing live (m = -inf)
+    "dead_splits": (2, 8, 2, 64, 160, 150, torch.float32, None,
+                    tuple((0, j) for j in range(32, 100))),
 }
 
 
-@pytest.mark.parametrize("case", list(DECODE_CASES))
-def test_fused_decode_plain_matches_jax_pallas(case):
+def _decode_case(case):
+    """The case's inputs, each as a (jax array, torch tensor) pair, and its
+    pos, start and kv_valid as numpy."""
     b, h, kvh, d, s, pos, dtype, starts, holes = DECODE_CASES[case]
     rng = np.random.default_rng(len(case) + 100)
-    jq, q = _pair(rng.standard_normal((b, 1, h, d)), dtype)
-    jkn, kn = _pair(rng.standard_normal((b, 1, kvh, d)), dtype)
-    jvn, vn = _pair(rng.standard_normal((b, 1, kvh, d)), dtype)
+    pairs = [_pair(rng.standard_normal(shape), dtype) for shape in (
+        (b, 1, h, d), (b, 1, kvh, d), (b, 1, kvh, d))]
     ang = rng.standard_normal((b, 1, d))
-    jcos, cos = _pair(np.cos(ang), dtype)
-    jsin, sin = _pair(np.sin(ang), dtype)
-    jkc, kc = _pair(rng.standard_normal((b, kvh, s, d)), dtype)
-    jvc, vc = _pair(rng.standard_normal((b, kvh, s, d)), dtype)
+    pairs += [_pair(np.cos(ang), dtype), _pair(np.sin(ang), dtype)]
+    pairs += [_pair(rng.standard_normal((b, kvh, s, d)), dtype) for _ in range(2)]
     start = np.zeros((b,), np.int32) if starts is None else np.asarray(starts, np.int32)
     valid = np.ones((b, s), np.int32)
     for bi, si in holes:
         valid[bi, si] = 0
-    scale = d ** -0.5
-    ref, ref_kc, ref_vc = jax_fused_decode(
-        jq, jkn, jvn, jcos, jsin, jkc, jvc, jnp.asarray(pos, jnp.int32), jnp.asarray(start),
-        jnp.asarray(valid), scale=scale, interpret=True)
+    return pairs, pos, start, valid
+
+
+@pytest.fixture(scope="module")
+def jax_decode_outputs():
+    """JAX's output and updated caches for every decode case, computed once."""
+    outs = {}
+    for case in DECODE_CASES:
+        pairs, pos, start, valid = _decode_case(case)
+        d = DECODE_CASES[case][3]
+        outs[case] = jax_fused_decode(
+            *(j for j, _ in pairs), jnp.asarray(pos, jnp.int32), jnp.asarray(start),
+            jnp.asarray(valid), scale=d ** -0.5, interpret=True)
+    return outs
+
+
+def _torch_decode_args(case):
+    """The port's arguments for the case: (q, k_new, v_new, cos, sin, k_cache,
+    v_cache, pos, start, kv_valid), fresh caches each call."""
+    pairs, pos, start, valid = _decode_case(case)
+    return (*(t for _, t in pairs), pos, torch.as_tensor(start), torch.as_tensor(valid))
+
+
+@pytest.mark.parametrize("case", list(DECODE_CASES))
+def test_fused_decode_plain_matches_jax_pallas(jax_decode_outputs, case):
+    q, kn, vn, cos, sin, kc, vc, pos, start, valid = _torch_decode_args(case)
+    dtype, d = DECODE_CASES[case][6], DECODE_CASES[case][3]
+    ref, ref_kc, ref_vc = jax_decode_outputs[case]
     before = fused_decode_attention.launches
-    out = fused_decode_attention(q, kn, vn, cos, sin, kc, vc, pos, torch.as_tensor(start),
-                                 torch.as_tensor(valid), scale=scale)
+    out = fused_decode_attention(q, kn, vn, cos, sin, kc, vc, pos, start, valid, scale=d ** -0.5)
     assert fused_decode_attention.launches == before
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     _assert_close(out, ref, tol)
     _assert_close(kc, ref_kc, tol)  # caches updated in place at slot pos
     _assert_close(vc, ref_vc, tol)
+    if case == "start_past_pos":  # rows 1 and 2 see only the new column: its value
+        g = q.shape[2] // kn.shape[2]
+        want = vn[1:, 0].repeat_interleave(g, dim=1)
+        np.testing.assert_allclose(out[1:, 0].numpy(), want.numpy(), atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("split", SPLITS)
+@pytest.mark.parametrize("case", list(DECODE_CASES))
+def test_fused_decode_split_plain_matches_plain_and_jax_pallas(jax_decode_outputs, case, split):
+    args = _torch_decode_args(case)
+    d = DECODE_CASES[case][3]
+    kc, vc = args[5].clone(), args[6].clone()
+    out = fused_decode_split_plain(*args, scale=d ** -0.5, split_slots=split)
+    ref = fused_decode_plain(*args[:5], kc, vc, *args[7:], scale=d ** -0.5)
+    assert out.dtype == args[0].dtype and out.shape == args[0].shape
+    assert torch.equal(args[5], kc) and torch.equal(args[6], vc)  # the same cache writes
+    tol = SPLIT_F32_TOL if out.dtype == torch.float32 else BF16_TOL
+    np.testing.assert_allclose(out.float().numpy(), ref.float().numpy(), atol=tol, rtol=tol)
+    _assert_close(out, jax_decode_outputs[case][0], max(tol, F32_TOL))
+
+
+@pytest.mark.parametrize("case", ["left_padding_starts", "mask_holes", "chunked_long_context"])
+def test_fused_decode_split_plain_is_bitwise_repeatable(case):
+    d = DECODE_CASES[case][3]
+    first = fused_decode_split_plain(*_torch_decode_args(case), scale=d ** -0.5, split_slots=16)
+    again = fused_decode_split_plain(*_torch_decode_args(case), scale=d ** -0.5, split_slots=16)
+    assert torch.equal(first, again)
+
+
+def test_fused_decode_merge_sums_in_split_order_new_column_last():
+    """Four live splits and the new column, all with m = 0 (weights exactly 1),
+    whose f32 sum depends on the order: 1e8 + 1 - 1e8 + 1, then the new
+    column's 1, is 2; with the new column first it is 1, and right to left 0.
+    The merge gives 2 / 5."""
+    ml = torch.tensor([[[[0.0, 1.0]] * 4]])  # [N=1, H=1, 4 splits, (m, l)]
+    acc = torch.tensor([[[[1e8], [1.0], [-1e8], [1.0]]]])  # [1, 1, 4, D=1]
+    new = (torch.zeros((1, 1)), torch.ones((1, 1, 1)))
+    out = merge_splits_plain(ml, acc, torch.tensor([0]), torch.tensor([4]), new=new)
+    assert out.item() == np.float32(2.0) / np.float32(5.0)
+
+
+def test_fused_decode_pos_tensor_equals_int():
+    """``pos`` as a one-element int32 tensor, as the static cache passes it,
+    gives the output and cache writes that the int gives."""
+    case = "left_padding_starts"
+    d = DECODE_CASES[case][3]
+    by_int = _torch_decode_args(case)
+    by_tensor = _torch_decode_args(case)
+    pos = by_int[7]
+    out_int = fused_decode_attention(*by_int, scale=d ** -0.5)
+    out_t = fused_decode_attention(*by_tensor[:7], torch.tensor([pos], dtype=torch.int32),
+                                   *by_tensor[8:], scale=d ** -0.5)
+    assert torch.equal(out_int, out_t)
+    assert torch.equal(by_int[5], by_tensor[5]) and torch.equal(by_int[6], by_tensor[6])
 
 
 # ------------------------------------------------------------------ rope

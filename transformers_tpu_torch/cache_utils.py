@@ -8,6 +8,8 @@ head) slabs are contiguous, which is what the fused decode kernel streams.
 Unlike the JAX cache, which is immutable and returns a new cache from every
 update, this cache is updated IN PLACE: ``update`` writes into the
 preallocated buffers, and the fused decode kernel writes slot ``pos`` itself.
+That kernel reads ``pos`` from device memory: the cache owns the one-element
+int32 slot tensor it reads (``slot_tensor``), set once per decode step.
 Sliding-window layers keep a full-length buffer; the window is enforced by
 the attention mask.
 """
@@ -27,6 +29,20 @@ class StaticKVCache:
         self.values = values
         self.layer_windows = layer_windows
         self.max_len = max_len
+        self.slot = torch.zeros(1, dtype=torch.int32, device=keys[0].device if keys else None)
+        self._slot_pos: Optional[int] = None  # the value ``slot`` holds
+
+    def slot_tensor(self, pos: int) -> torch.Tensor:
+        """The decode step's cache slot ``pos`` as the fused decode kernel reads
+        it: ``slot``, a one-element int32 tensor on the cache's device. Every
+        layer of a step asks for the same ``pos``; the first ask of a new one
+        range-checks it and sets the tensor with one ``fill_``."""
+        if pos != self._slot_pos:
+            if not 0 <= pos < self.max_len:
+                raise ValueError(f"cache slot {pos} outside [0, {self.max_len})")
+            self.slot.fill_(pos)
+            self._slot_pos = pos
+        return self.slot
 
     def update(self, layer_idx: int, k: torch.Tensor, v: torch.Tensor, pos: int) -> None:
         """Write k/v given as [B, S, KVH, D] (the projection layout) at slots

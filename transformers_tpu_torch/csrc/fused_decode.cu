@@ -1,440 +1,499 @@
-// Fused single-token decode step: rotate-half rope on q and the new key,
-// attention over the bhsd cache slots [start, pos) that kv_valid marks live
-// plus the new token's own column, and the write of the roped key and the
-// value into cache slot `pos`.
+// Split-KV single-token decode for the H100, in two modes of one kernel body.
 //
-// Replaces transformers_tpu/ops/pallas/fused_decode.py
-// (fused_decode_attention: _fused_decode_kernel_whole and the chunked,
-// double-buffered _fused_decode_kernel) with one kernel for both.
+// K2 (+ K3), fused_decode_kernel: one decode step. Rotate-half rope on q and
+// the new key, attention over the bhsd cache slots [start, pos) that kv_valid
+// marks live plus the new token's own column, and the write of the roped key
+// and the value into cache slot pos. Replaces
+// transformers_tpu/ops/pallas/fused_decode.py (fused_decode_attention:
+// _fused_decode_kernel_whole and the chunked, double-buffered
+// _fused_decode_kernel). pos is read from device memory, as the Pallas kernel
+// reads it by scalar prefetch, so a captured CUDA graph can replay the step
+// at another slot.
+//
+// K7, static_decode_kernel: the static-cache decode of
+// transformers_tpu/ops/pallas/decode_attention.py (decode_attention /
+// _decode_kernel). Its cache is BSHD [B, S, KVH, D] (a slot stride of
+// KVH * D, against K2's D); each row reads its live slots [valid_start,
+// valid_end), start = max(valid_start, valid_end - window) under a sliding
+// window; no rope, no new-token column, no cache write. A row with end <=
+// start gives zeros.
 //
 // Bound on the H100: bytes. A step reads each live cache slot's key and value
-// once (2 * D * sizeof(T) per slot, per batch row and kv head) and does 4 * G
-// * D operations per slot, about one operation per byte, far below the card's
-// ~295 operations per byte. The design therefore reads every K/V byte once:
-// one block owns one (batch row, kv head) and holds up to GB = 4 of that kv
-// head's G query heads, so a GQA group shares the stream (G > 4 takes
-// ceil(G / 4) blocks per kv head). Each warp walks its own interleaved share
-// of the slots with coalesced vector loads (a lane holds D / 32 neighbouring
-// elements of a row), keeps a float online softmax, and the warps' partial
-// states are merged in shared memory at the end, where the new token's column
-// is scored last. The cache write happens here, not in a separate pass: the
-// slot loop reads only slots < pos, and the block that writes slot pos of a
-// (row, kv head) is the only one that owns it.
+// once (2 * D * sizeof(T) per slot, per row and kv head) and does 4 * G * D
+// operations per slot, about one operation per byte against the card's ~295.
+// At the generate shape that is ~5 MB, 0.0015 ms. The kernel before this
+// design (one block of 8 warps per (row, kv head)) took 0.0188 ms there and
+// K7's 0.0262 ms (chip_smoke.py, H100 80GB HBM3, 700 W; this design: 0.0085
+// and 0.0086 ms): 64 blocks on 132 SMs, each warp with 4 slots of 8 bytes a
+// lane in flight, every score a 5-shuffle warp sum, and a 16 KB merge of 8
+// warps. The design, K6's split-KV scheme (csrc/paged_decode.cu; the
+// per-warp scoring and the block's merge are shared through mma.cuh):
+//
+// - Split-KV. Each (row, kv head)'s slots are cut into splits of split_slots
+//   (the wrappers' SPLIT_SLOTS); one block owns one split and holds up to GB
+//   of that kv head's G query heads (GB = 4 for G <= 4, else 8; G > 8 takes
+//   ceil(G / 8) blocks per kv head), so each K/V byte is read once per
+//   query-head group. The grid is sized from the cache length S, not from
+//   pos: splits that lie wholly outside a row's live range return at once.
+// - Copies in flight. Right after reading its row's range, a block starts
+//   copying its split with cp.async in stages of 8 slots a warp (K, V and
+//   K2's kv_valid flags), double-buffered, rows padded by kPad so that
+//   ldmatrix reads K without bank conflicts; the queries (K2: rope on q and
+//   the new key) are set up while the first stage flies, every load of a
+//   thread issued before the first is used. A block has 8 warps (64-slot
+//   stages; 4 for f32 at head_dim 256, where two such stages would not fit
+//   in 144 KB of shared memory): a one-split row of 160 slots takes 3
+//   serial stages, not 5. A one-off build with K6's 4-warp blocks was
+//   slower at both smoke shapes; one with four buffers a block, as fast
+//   there and slower at S = 4096 (one block an SM).
+// - Scores on the tensor cores in bf16/fp16 (mma.sync m16n8k16, the block's
+//   heads as A rows, K by ldmatrix as B), by warp sums in f32. The softmax
+//   and P.V stay in f32.
+// - One launch, bitwise repeatable. A row whose live slots fit in one split
+//   gets its output from that split's block. Otherwise each split writes f32
+//   (m, l, acc) partials to scratch the wrapper allocates, and the last block
+//   of a (row, kv head, head group) to finish, found by __threadfence() and
+//   an atomic ticket, merges all the splits in split order (K2's new column
+//   last) and resets its ticket to 0 for the next call or graph replay. The
+//   output is the same bit for bit whichever block finishes last.
+// - K2's cache write: the block of split pos / split_slots (first head
+//   group) writes the roped key and the value into slot pos. No block reads
+//   slot pos of the cache: the slot loop stops there, and the new column
+//   comes from shared memory. A pos outside [0, S) writes no cache slot and
+//   gives NaN outputs.
+//
+// K7 keeps these blocks over its strided BSHD rows: each slot row of a kv
+// head is a contiguous D * sizeof(T) piece (256 bytes at D = 128 in bf16,
+// two whole 128-byte lines), so the stride costs no extra DRAM traffic.
+//
+// The split size: a one-time sweep (decode_split_sweep.py, H100 80GB HBM3,
+// 700 W) found 160-512 slots fastest at the generate shape and 224-512 at
+// K7's smoke shape, where every row then fits in one split and skips the
+// merge (smaller splits fill more SMs but pay the merge's round trips), and
+// 512 fastest for K2 at S = 4096, pos = 4000 (smaller splits lengthen the
+// last block's serial merge). The readings are beside SPLIT_SLOTS in
+// ops/fused_decode.py and ops/decode_attention.py.
 //
 // Rope rounds once to the storage type, as the Pallas kernel does: f32 math
-// on the T-valued q, k and cos/sin, then one cast to T. Probabilities stay in
-// f32 for the P.V product (the Pallas kernel casts them to T first).
-//
-// K7, static_decode_kernel, is a second mode of the same slot loop: the
-// static-cache decode of transformers_tpu/ops/pallas/decode_attention.py
-// (decode_attention / _decode_kernel). Its cache is BSHD [B, S, KVH, D] (a
-// slot stride of KVH * D, against K2's D), each row reads its live slots
-// [valid_start, valid_end) (start = max(start, end - window) under a sliding
-// window), and there is no rope, no new-token column and no cache write; a
-// row with end <= start gives zeros. The Pallas kernel clamps its block
-// index map so dead blocks cost no DMA; here a warp simply never loads a
-// dead slot. Bound: bytes, 2 * D * sizeof(T) per live slot per (row, kv
-// head), at one operation per byte or so, like K2.
+// on the T-valued q, k and cos/sin, then one cast to T. Scores,
+// probabilities and P.V sums are f32 (the Pallas kernels cast the
+// probabilities to T before P.V); the output is rounded once to T.
 
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;  // warps per block
-constexpr int kGB = 4;     // query heads per block
-constexpr int kU = 4;      // slots each warp has in flight per iteration
-
-// Float online-softmax state of one warp over the block's kGB query heads;
-// a lane holds E = D / 32 neighbouring elements of each head's accumulator.
-template <int E>
-struct WarpState {
-  float m[kGB], l[kGB], acc[kGB][E];
-};
-
-template <int E>
-__device__ __forceinline__ void init_state(WarpState<E>& st) {
-#pragma unroll
-  for (int gi = 0; gi < kGB; ++gi) {
-    st.m[gi] = -CUDART_INF_F;
-    st.l[gi] = 0.f;
-#pragma unroll
-    for (int e = 0; e < E; ++e) st.acc[gi][e] = 0.f;
-  }
-}
-
-// The slot loop both kernels share: warp w walks its interleaved share of
-// the slots j in [st, en) for which live(j) holds, reading slot j's key and
-// value row at kc / vc + j * slot_stride (this lane's D / 32 elements from
-// d0), and folds them into its online softmax.
-template <typename T, int D, typename Live>
-__device__ __forceinline__ void attend_slots(const float (&qr)[kGB][D / 32],
-                                             const T* __restrict__ kc,
-                                             const T* __restrict__ vc, size_t slot_stride,
-                                             int st, int en, Live live, float scale, int w,
-                                             int d0, WarpState<D / 32>& ws) {
-  constexpr int E = D / 32;
-  const float NEG_INF = -CUDART_INF_F;
-  for (int j0 = st + w * kU; j0 < en; j0 += kWarps * kU) {
-    float kf[kU][E], vf[kU][E];
-    bool ok[kU];
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      const int j = j0 + u;
-      ok[u] = j < en && live(j);
-      if (ok[u]) {
-        load_f<T, E>(kc + (size_t)j * slot_stride + d0, kf[u]);
-        load_f<T, E>(vc + (size_t)j * slot_stride + d0, vf[u]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < E; ++e) kf[u][e] = vf[u][e] = 0.f;
-      }
-    }
-    float s[kU][kGB];
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-#pragma unroll
-      for (int gi = 0; gi < kGB; ++gi) {
-        float part = 0.f;
-#pragma unroll
-        for (int e = 0; e < E; ++e) part = fmaf(qr[gi][e], kf[u][e], part);
-        s[u][gi] = ok[u] ? warp_sum(part) * scale : NEG_INF;
-      }
-    }
-#pragma unroll
-    for (int gi = 0; gi < kGB; ++gi) {
-      float mx = ws.m[gi];
-#pragma unroll
-      for (int u = 0; u < kU; ++u) mx = fmaxf(mx, s[u][gi]);
-      if (mx == NEG_INF) continue;  // nothing live yet (warp-uniform)
-      const float alpha = expf(ws.m[gi] - mx);  // 0 when m was -inf
-      ws.l[gi] *= alpha;
-#pragma unroll
-      for (int e = 0; e < E; ++e) ws.acc[gi][e] *= alpha;
-#pragma unroll
-      for (int u = 0; u < kU; ++u) {
-        const float p = ok[u] ? expf(s[u][gi] - mx) : 0.f;
-        ws.l[gi] += p;
-#pragma unroll
-        for (int e = 0; e < E; ++e) ws.acc[gi][e] = fmaf(p, vf[u][e], ws.acc[gi][e]);
-      }
-      ws.m[gi] = mx;
-    }
-  }
-}
-
-template <int D>
-struct MergeSmem {
-  float m[kWarps][kGB];
-  float l[kWarps][kGB];
-  float acc[kWarps][kGB][D];
-  float snew[kGB];  // K2: the new token's score per head
-  float vn[D];      // K2: the new token's value
-};
-
-// Stores this warp's state for the merge (the caller syncs after).
-template <int D>
-__device__ __forceinline__ void stash_state(const WarpState<D / 32>& ws, MergeSmem<D>& sm, int w,
-                                            int lane, int d0) {
-#pragma unroll
-  for (int gi = 0; gi < kGB; ++gi) {
-#pragma unroll
-    for (int e = 0; e < D / 32; ++e) sm.acc[w][gi][d0 + e] = ws.acc[gi][e];
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int gi = 0; gi < kGB; ++gi) {
-      sm.m[w][gi] = ws.m[gi];
-      sm.l[w][gi] = ws.l[gi];
-    }
-  }
-}
-
-// Merges the warps' states and writes head g0 + gi of the group to
-// out_heads + (g0 + gi) * D; with NEW the new token's column (sm.snew,
-// sm.vn) joins last. A head that saw no slot gets zeros.
-template <typename T, int D, bool NEW>
-__device__ __forceinline__ void merge_store(const MergeSmem<D>& sm, T* __restrict__ out_heads,
-                                            int G, int g0) {
-  const float NEG_INF = -CUDART_INF_F;
-  for (int idx = threadIdx.x; idx < kGB * D; idx += kWarps * 32) {
-    const int gi = idx / D;
-    const int d = idx % D;
-    if (g0 + gi >= G) continue;
-    float mx = NEW ? sm.snew[gi] : NEG_INF;
-#pragma unroll
-    for (int ww = 0; ww < kWarps; ++ww) mx = fmaxf(mx, sm.m[ww][gi]);
-    float L = 0.f, A = 0.f;
-#pragma unroll
-    for (int ww = 0; ww < kWarps; ++ww) {
-      const float mw = sm.m[ww][gi];
-      if (mw == NEG_INF) continue;
-      const float f = expf(mw - mx);
-      L = fmaf(sm.l[ww][gi], f, L);
-      A = fmaf(sm.acc[ww][gi][d], f, A);
-    }
-    if (NEW) {
-      const float p_new = expf(sm.snew[gi] - mx);
-      L += p_new;
-      A = fmaf(p_new, sm.vn[d], A);
-    }
-    out_heads[(size_t)(g0 + gi) * D + d] = from_f<T>(L > 0.f ? A / L : 0.f);
-  }
-}
-
-// ------------------------------------------------------------ K2 (+ K3)
+// Warps a block: eight (64-slot copy stages, 8 slots a warp) where the two
+// stages of K and V fit in 144 KB of shared memory, else four (f32 at
+// head_dim 256).
 template <typename T, int D>
-__global__ void __launch_bounds__(kWarps * 32)
-fused_decode_kernel(const T* __restrict__ q,       // [B, 1, H, D] pre-rope
-                    const T* __restrict__ k_new,   // [B, 1, KVH, D] pre-rope
-                    const T* __restrict__ v_new,   // [B, 1, KVH, D]
-                    const T* __restrict__ cos,     // [B, 1, D]
-                    const T* __restrict__ sin,     // [B, 1, D]
-                    T* __restrict__ k_cache,       // [B, KVH, S, D]
-                    T* __restrict__ v_cache,       // [B, KVH, S, D]
-                    const int* __restrict__ start,     // [B]
-                    const int* __restrict__ kv_valid,  // [B, S]
-                    T* __restrict__ out,           // [B, 1, H, D]
-                    int H, int KVH, int S, int pos, float scale) {
-  constexpr int E = D / 32;  // elements per lane
-  const int G = H / KVH;
-  const int n_gchunks = (G + kGB - 1) / kGB;
+__host__ __device__ constexpr int decode_warps() {
+  return 2 * 2 * 64 * (D + kPad) * sizeof(T) <= 144 * 1024 ? 8 : 4;
+}
+
+template <typename T, int D>
+constexpr size_t decode_smem() {
+  return (size_t)2 * 2 * 8 * decode_warps<T, D>() * (D + kPad) * sizeof(T);
+}
+
+// Arguments of both modes (K2: fused; K7: static).
+struct DecArgs {
+  const void* q;      // [B, 1, H, D] (K2: pre-rope)
+  const void* k_new;  // K2: [B, 1, KVH, D] pre-rope
+  const void* v_new;  // K2: [B, 1, KVH, D]
+  const void* cos;    // K2: [B, 1, D]
+  const void* sin;    // K2: [B, 1, D]
+  void* k;            // K2: [B, KVH, S, D] (slot pos written); K7: [B, S, KVH, D]
+  void* v;
+  const int* start;      // [B] first live slot (K7: valid_start)
+  const int* end;        // K7: [B] valid_end
+  const int* kv_valid;   // K2: [B, S]
+  const int* pos;        // K2: [1] the new token's cache slot
+  void* out;             // [B, 1, H, D]
+  float* part_acc;       // [B, H, n_splits, D]
+  float* part_ml;        // [B, H, n_splits, 2]
+  int* tickets;          // [B, gridDim.x], 0 between calls
+  int H, KVH, S, window, split_slots, n_splits;
+  float scale;
+};
+
+template <typename T, int D, int GB, bool kFused>
+__device__ __forceinline__ void decode_split(const DecArgs& a) {
+  constexpr int RS = D + kPad;  // row stride of the stages
+  constexpr int E = D / 32;
+  constexpr int NW = decode_warps<T, D>();  // warps
+  constexpr int NT = 32 * NW;                // threads
+  constexpr int ST = 8 * NW;                 // slots a copy stage
+  const float NEG_INF = -CUDART_INF_F;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Ks = reinterpret_cast<T*>(smem);  // [2][ST][RS]
+  T* Vs = Ks + 2 * ST * RS;            // [2][ST][RS]
+  float* sm_acc = reinterpret_cast<float*>(smem);  // [NW][GB][D], over the stages at the end
+  __shared__ DecodeMergeSmem<GB, NW> sm;
+  // K2: the block's roped query heads and the roped new key, as T
+  __shared__ __align__(16) unsigned char sq_raw[(kFused ? GB * D : 1) * sizeof(T)];
+  __shared__ __align__(16) unsigned char skn_raw[(kFused ? D : 1) * sizeof(T)];
+  T* sq = reinterpret_cast<T*>(sq_raw);
+  T* skn = reinterpret_cast<T*>(skn_raw);
+  __shared__ float svn[kFused ? D : 1];          // K2: the new value
+  __shared__ float snew[GB];                     // K2: the new column's score per head
+  __shared__ float spn[GB];                      // K2: its weight in the merge
+  __shared__ int valid_s[kFused ? 2 * ST : 1];  // K2: the stages' kv_valid flags
+  __shared__ int last_block;
+
+  const int G = a.H / a.KVH;
+  const int n_gchunks = (G + GB - 1) / GB;
   const int kvh = blockIdx.x / n_gchunks;
-  const int g0 = (blockIdx.x % n_gchunks) * kGB;
-  const int b = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int w = threadIdx.x >> 5;
-  const int d0 = lane * E;  // this lane's first element of a head row
+  const int g0 = (blockIdx.x % n_gchunks) * GB;
+  const int split = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int n_heads = min(GB, G - g0);
+  const int split_slots = a.split_slots;
+  const size_t row_h0 = (size_t)b * a.H + kvh * G + g0;  // (row, first query head) of this block
+  T* out = static_cast<T*>(a.out) + row_h0 * D;
 
-  // ---- rope (every warp computes it; it is a few hundred bytes)
-  float cs[E], sn[E];
-  load_f<T, E>(cos + (size_t)b * D + d0, cs);
-  load_f<T, E>(sin + (size_t)b * D + d0, sn);
-  // rotate_half(x)[d] = -x[d + D/2] for d < D/2, x[d - D/2] otherwise; with
-  // E elements per lane the partner of lane l is lane l ^ 16, same slot.
-  auto rope = [&](const float (&x)[E], float (&y)[E]) {
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      float partner = __shfl_xor_sync(0xffffffffu, x[e], 16);
-      float r = lane < 16 ? -partner : partner;
-      y[e] = round_to<T>(__fadd_rn(__fmul_rn(x[e], cs[e]), __fmul_rn(r, sn[e])));
+  // ---- the row's live slots [lo, hi) and this split's share of them
+  int lo, hi, pos = 0;
+  if constexpr (kFused) {
+    pos = *a.pos;
+    if (pos < 0 || pos >= a.S) {  // no cache write; NaN outputs
+      if (split == 0) {
+        for (int i = tid; i < n_heads * D; i += NT) out[i] = from_f<T>(CUDART_NAN_F);
+      }
+      return;
     }
+    lo = max(a.start[b], 0);
+    hi = pos;
+  } else {
+    const int end = a.end[b];
+    lo = max(a.start[b], 0);
+    if (a.window > 0) lo = max(lo, end - a.window);
+    hi = min(end, a.S);
+  }
+  const int n_live = hi > lo ? (hi - 1) / split_slots - lo / split_slots + 1 : 0;
+  const int s_lo = max(lo, split * split_slots);
+  const int s_hi = min(hi, (split + 1) * split_slots);
+  // K2: the block that writes slot pos and, when no cache slot is live, the output
+  const bool writer = kFused && split == pos / split_slots;
+  if (s_lo >= s_hi) {
+    if constexpr (!kFused) {
+      if (n_live == 0 && split == 0) {  // no live slot: zeros
+        for (int i = tid; i < n_heads * D; i += NT) out[i] = from_f<T>(0.f);
+      }
+      return;
+    }
+    if (!writer) return;
+  }
+
+  // ---- the split's first copies, in flight while the block sets up its queries
+  size_t stride;  // elements from one slot's row to the next
+  const T *k_rows, *v_rows;  // slot 0 of this (row, kv head)
+  if constexpr (kFused) {
+    stride = D;
+    k_rows = static_cast<const T*>(a.k) + ((size_t)b * a.KVH + kvh) * a.S * D;
+    v_rows = static_cast<const T*>(a.v) + ((size_t)b * a.KVH + kvh) * a.S * D;
+  } else {
+    stride = (size_t)a.KVH * D;
+    k_rows = static_cast<const T*>(a.k) + ((size_t)b * a.S * a.KVH + kvh) * D;
+    v_rows = static_cast<const T*>(a.v) + ((size_t)b * a.S * a.KVH + kvh) * D;
+  }
+  const int* valid_row = kFused ? a.kv_valid + (size_t)b * a.S : nullptr;
+  // stage c (slots from s_lo + c * ST) into buffer c & 1; one commit group
+  auto copy_stage = [&](int c) {
+    const int c0 = s_lo + c * ST;
+    const int buf = c & 1;
+    const int rows = min(ST, s_hi - c0);
+    cp_rows<T, D, ST, NT>(Ks + buf * ST * RS, k_rows + c0 * stride, stride, rows);
+    cp_rows<T, D, ST, NT>(Vs + buf * ST * RS, v_rows + c0 * stride, stride, rows);
+    if constexpr (kFused) cp_vals<ST>(valid_s + buf * ST, valid_row + c0, rows);
+    cp_async_commit();
   };
+  const int n_stages = s_lo < s_hi ? (s_hi - s_lo + ST - 1) / ST : 0;
+  if (n_stages > 0) copy_stage(0);
 
-  float qr[kGB][E];
+  // ---- the block's query heads (K2: roped, in shared memory, with the new key)
+  const T* q = static_cast<const T*>(a.q) + row_h0 * D;
+  DecodeWarp<T, D, GB> st;
+  if constexpr (kFused) {
+    const T* cs = static_cast<const T*>(a.cos) + (size_t)b * D;
+    const T* sn = static_cast<const T*>(a.sin) + (size_t)b * D;
+    const size_t kv_row = ((size_t)b * a.KVH + kvh) * D;
+    const T* kn = static_cast<const T*>(a.k_new) + kv_row;
+    const T* vn = static_cast<const T*>(a.v_new) + kv_row;
+    // element d of the GB heads and the new key (row GB): every load first,
+    // then rotate_half(x)[d] = -x[d + D/2] for d < D/2, x[d - D/2] otherwise
+    for (int d = tid; d < D; d += NT) {
+      float x[GB + 1], partner[GB + 1];
 #pragma unroll
-  for (int gi = 0; gi < kGB; ++gi) {
-    float x[E];
-    if (g0 + gi < G) {
-      load_f<T, E>(q + ((size_t)b * H + kvh * G + g0 + gi) * D + d0, x);
-    } else {
+      for (int gi = 0; gi <= GB; ++gi) {
+        const T* src = gi < GB ? q + gi * D : kn;
+        const bool ok = gi == GB || gi < n_heads;
+        x[gi] = ok ? to_f(src[d]) : 0.f;
+        partner[gi] = ok ? to_f(src[d ^ (D / 2)]) : 0.f;
+      }
+      const float c = to_f(cs[d]), sgn = to_f(sn[d]);
+      svn[d] = to_f(vn[d]);
 #pragma unroll
-      for (int e = 0; e < E; ++e) x[e] = 0.f;
+      for (int gi = 0; gi <= GB; ++gi) {
+        const float r = d < D / 2 ? -partner[gi] : partner[gi];
+        const T y = from_f<T>(__fadd_rn(__fmul_rn(x[gi], c), __fmul_rn(r, sgn)));
+        if (gi < GB) {
+          sq[gi * D + d] = y;
+        } else {
+          skn[d] = y;
+        }
+      }
     }
-    rope(x, qr[gi]);
-  }
-  float kn[E], knr[E], vn[E];
-  load_f<T, E>(k_new + ((size_t)b * KVH + kvh) * D + d0, kn);
-  rope(kn, knr);
-  load_f<T, E>(v_new + ((size_t)b * KVH + kvh) * D + d0, vn);
-
-  const size_t slab = ((size_t)b * KVH + kvh) * (size_t)S * D;
-  if (w == 0 && g0 == 0) {
-    store_f<T, E>(k_cache + slab + (size_t)pos * D + d0, knr);
-    store_f<T, E>(v_cache + slab + (size_t)pos * D + d0, vn);
-  }
-
-  // ---- this warp's share of the live slots in [start, pos)
-  const int* valid_row = kv_valid + (size_t)b * S;
-  WarpState<E> ws;
-  init_state(ws);
-  attend_slots<T, D>(qr, k_cache + slab, v_cache + slab, D, max(start[b], 0), pos,
-                     [&](int j) { return valid_row[j] != 0; }, scale, w, d0, ws);
-
-  // ---- merge the warps' states, then the new token's own column
-  __shared__ MergeSmem<D> sm;
-  stash_state<D>(ws, sm, w, lane, d0);
-  if (w == 0) {
-#pragma unroll
-    for (int gi = 0; gi < kGB; ++gi) {
+    __syncthreads();
+    if (writer && g0 == 0) {
+      const size_t slot = (((size_t)b * a.KVH + kvh) * a.S + pos) * D;
+      T* kc = static_cast<T*>(a.k) + slot;
+      T* vc = static_cast<T*>(a.v) + slot;
+      for (int d = tid; d < D; d += NT) {
+        kc[d] = skn[d];
+        vc[d] = from_f<T>(svn[d]);
+      }
+    }
+    if (s_lo >= s_hi) {  // the writer split holds no live cache slot
+      if (n_live == 0) {  // nor does the row: the new column alone
+        for (int i = tid; i < n_heads * D; i += NT) out[i] = from_f<T>(svn[i % D]);
+      }
+      return;
+    }
+    // the new column's score per head (warp w: heads w, w + NW)
+    for (int gi = w; gi < GB; gi += NW) {
       float part = 0.f;
 #pragma unroll
-      for (int e = 0; e < E; ++e) part = fmaf(qr[gi][e], knr[e], part);
-      part = warp_sum(part) * scale;
-      if (lane == 0) sm.snew[gi] = part;
+      for (int e = 0; e < E; ++e) {
+        part = fmaf(to_f(sq[gi * D + lane * E + e]), to_f(skn[lane * E + e]), part);
+      }
+      part = warp_sum(part) * a.scale;
+      if (lane == 0) snew[gi] = part;
     }
-#pragma unroll
-    for (int e = 0; e < E; ++e) sm.vn[d0 + e] = vn[e];
+    decode_init(st, sq, n_heads);
+  } else {
+    decode_init(st, q, n_heads);
   }
-  __syncthreads();
-  merge_store<T, D, true>(sm, out + ((size_t)b * H + kvh * G) * D, G, g0);
-}
 
-// ------------------------------------------------------------------- K7
-// Static-cache decode over a BSHD cache: query heads kvh * G + i of row b
-// attend over the cache slots [start, end) of kv head kvh, start =
-// max(valid_start, valid_end - window) under a window. No rope, no new-token
-// column, no cache write: the K2 slot loop at a slot stride of KVH * D.
-template <typename T, int D>
-__global__ void __launch_bounds__(kWarps * 32)
-static_decode_kernel(const T* __restrict__ q,            // [B, 1, H, D]
-                     const T* __restrict__ k,            // [B, S, KVH, D]
-                     const T* __restrict__ v,            // [B, S, KVH, D]
-                     const int* __restrict__ valid_start,  // [B]
-                     const int* __restrict__ valid_end,    // [B]
-                     T* __restrict__ out,                // [B, 1, H, D]
-                     int H, int KVH, int S, int window, float scale) {
-  constexpr int E = D / 32;
-  const int G = H / KVH;
-  const int n_gchunks = (G + kGB - 1) / kGB;
-  const int kvh = blockIdx.x / n_gchunks;
-  const int g0 = (blockIdx.x % n_gchunks) * kGB;
-  const int b = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int w = threadIdx.x >> 5;
-  const int d0 = lane * E;
-
-  float qr[kGB][E];
-#pragma unroll
-  for (int gi = 0; gi < kGB; ++gi) {
-    if (g0 + gi < G) {
-      load_f<T, E>(q + ((size_t)b * H + kvh * G + g0 + gi) * D + d0, qr[gi]);
+  // ---- the split's slots, the next stage's copies in flight while one is scored
+  for (int c = 0; c < n_stages; ++c) {
+    if (c + 1 < n_stages) {
+      copy_stage(c + 1);
+      cp_async_wait<1>();
     } else {
-#pragma unroll
-      for (int e = 0; e < E; ++e) qr[gi][e] = 0.f;
+      cp_async_wait<0>();
     }
+    __syncthreads();
+    const int buf = c & 1;
+    const int nw = min(8, s_hi - (s_lo + c * ST) - 8 * w);  // of the warp's 8 slots, live
+    decode_attend8<kFused>(st, Ks + (buf * ST + 8 * w) * RS, Vs + (buf * ST + 8 * w) * RS, nw,
+                           valid_s + (kFused ? buf * ST + 8 * w : 0), a.scale);
+    __syncthreads();  // this buffer is refilled in the next iteration
   }
-  const int end = valid_end[b];
-  int st = max(valid_start[b], 0);
-  if (window > 0) st = max(st, end - window);
-  const size_t head0 = ((size_t)b * S * KVH + kvh) * D;  // slot 0 of (b, kvh)
 
-  WarpState<E> ws;
-  init_state(ws);
-  attend_slots<T, D>(qr, k + head0, v + head0, (size_t)KVH * D, st, min(end, S),
-                     [](int) { return true; }, scale, w, d0, ws);
+  // ---- the block's merge of its warps; with one live split, the output
+  // (K2: the new column joins here)
+  const bool direct = n_live == 1;
+  decode_block_merge(st, sm_acc, sm,
+                     [&](int gi) { return kFused && direct ? snew[gi] : NEG_INF; });
+  if (direct) {
+    for (int i = tid; i < n_heads * D; i += NT) {
+      const int gi = i / D, d = i % D;
+      float A = decode_block_acc<D, GB, NW>(sm_acc, sm, gi, d);
+      float L = sm.ml[gi][1];
+      if constexpr (kFused) {
+        const float p_new = expf(snew[gi] - sm.ml[gi][0]);
+        A = fmaf(p_new, svn[d], A);
+        L += p_new;
+      }
+      out[i] = from_f<T>(__fdividef(A, L));  // L >= 1: the largest score's weight is 1
+    }
+    return;
+  }
 
-  __shared__ MergeSmem<D> sm;
-  stash_state<D>(ws, sm, w, lane, d0);
+  // ---- this split's partials; the last block of the (row, kv head, head
+  // group) merges them all in split order
+  const size_t part0 = row_h0 * a.n_splits;  // (row, first head, split 0)
+  for (int i = tid; i < n_heads * D; i += NT) {
+    const int gi = i / D, d = i % D;
+    a.part_acc[(part0 + (size_t)gi * a.n_splits + split) * D + d] =
+        decode_block_acc<D, GB, NW>(sm_acc, sm, gi, d);
+  }
+  if (tid < n_heads) {
+    const size_t p = part0 + (size_t)tid * a.n_splits + split;
+    a.part_ml[2 * p] = sm.ml[tid][0];
+    a.part_ml[2 * p + 1] = sm.ml[tid][1];
+  }
+  __threadfence();
   __syncthreads();
-  merge_store<T, D, false>(sm, out + ((size_t)b * H + kvh * G) * D, G, g0);
+  if (tid == 0) {
+    int* ticket = a.tickets + (size_t)b * gridDim.x + blockIdx.x;
+    const bool last = atomicAdd(ticket, 1) == n_live - 1;
+    if (last) atomicExch(ticket, 0);  // clean for the next call or graph replay
+    last_block = last;
+  }
+  __syncthreads();
+  if (!last_block) return;
+  __threadfence();
+  const int first = lo / split_slots;
+  if (tid < n_heads) {
+    const float* ml = a.part_ml + 2 * (part0 + (size_t)tid * a.n_splits + first);
+    float mx = kFused ? snew[tid] : NEG_INF;
+    for (int s = 0; s < n_live; ++s) mx = fmaxf(mx, __ldcg(ml + 2 * s));
+    float L = 0.f;
+    for (int s = 0; s < n_live; ++s) {
+      const float m_s = __ldcg(ml + 2 * s);
+      L = fmaf(__ldcg(ml + 2 * s + 1), m_s == NEG_INF ? 0.f : expf(m_s - mx), L);
+    }
+    if constexpr (kFused) {
+      spn[tid] = expf(snew[tid] - mx);
+      L += spn[tid];
+    }
+    sm.ml[tid][0] = mx;
+    sm.ml[tid][1] = L;
+  }
+  __syncthreads();
+  for (int i = tid; i < n_heads * D; i += NT) {
+    const int gi = i / D, d = i % D;
+    const size_t p = part0 + (size_t)gi * a.n_splits + first;
+    const float mx = sm.ml[gi][0];
+    float A = 0.f;
+    for (int s = 0; s < n_live; ++s) {
+      const float m_s = __ldcg(a.part_ml + 2 * (p + s));
+      A = fmaf(__ldcg(a.part_acc + (p + s) * D + d), m_s == NEG_INF ? 0.f : expf(m_s - mx), A);
+    }
+    if constexpr (kFused) A = fmaf(spn[gi], svn[d], A);
+    out[i] = from_f<T>(__fdividef(A, sm.ml[gi][1]));  // L >= 1
+  }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k_new, const void* v_new, const void* cos,
-                   const void* sin, void* k_cache, void* v_cache, const int* start,
-                   const int* kv_valid, void* out, int B, int H, int KVH, int S, int pos,
-                   float scale, cudaStream_t stream) {
-  const int G = H / KVH;
-  dim3 grid(KVH * ((G + kGB - 1) / kGB), B);
-  fused_decode_kernel<T, D><<<grid, kWarps * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_new), static_cast<const T*>(v_new),
-      static_cast<const T*>(cos), static_cast<const T*>(sin), static_cast<T*>(k_cache),
-      static_cast<T*>(v_cache), start, kv_valid, static_cast<T*>(out), H, KVH, S, pos, scale);
+template <typename T, int D, int GB>
+// min 1 block a multiprocessor, as K6's split kernel (which spilled without it)
+__global__ void __launch_bounds__(decode_warps<T, D>() * 32, 1)
+fused_decode_kernel(const DecArgs a) {
+  decode_split<T, D, GB, true>(a);
+}
+
+template <typename T, int D, int GB>
+__global__ void __launch_bounds__(decode_warps<T, D>() * 32, 1)
+static_decode_kernel(const DecArgs a) {
+  decode_split<T, D, GB, false>(a);
+}
+
+template <typename T, int D, int GB, bool kFused>
+cudaError_t launch(const DecArgs& a, int B, cudaStream_t stream) {
+  constexpr size_t smem = decode_smem<T, D>();
+  void (*kernel)(const DecArgs) = fused_decode_kernel<T, D, GB>;
+  if constexpr (!kFused) kernel = static_decode_kernel<T, D, GB>;
+  static bool smem_set = false;  // once per instantiation (also keeps it out of graph capture)
+  if (!smem_set) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  const int G = a.H / a.KVH;
+  dim3 grid(a.KVH * ((G + GB - 1) / GB), a.n_splits, B);
+  kernel<<<grid, decode_warps<T, D>() * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_d(int D, const void* q, const void* k_new, const void* v_new,
-                     const void* cos, const void* sin, void* k_cache, void* v_cache,
-                     const int* start, const int* kv_valid, void* out, int B, int H, int KVH,
-                     int S, int pos, float scale, cudaStream_t stream) {
+template <typename T, bool kFused>
+cudaError_t launch_d(int D, const DecArgs& a, int B, cudaStream_t stream) {
+  const bool g4 = a.H / a.KVH <= 4;
   switch (D) {
     case 64:
-      return launch<T, 64>(q, k_new, v_new, cos, sin, k_cache, v_cache, start, kv_valid, out,
-                           B, H, KVH, S, pos, scale, stream);
+      return g4 ? launch<T, 64, 4, kFused>(a, B, stream) : launch<T, 64, 8, kFused>(a, B, stream);
     case 128:
-      return launch<T, 128>(q, k_new, v_new, cos, sin, k_cache, v_cache, start, kv_valid,
-                            out, B, H, KVH, S, pos, scale, stream);
+      return g4 ? launch<T, 128, 4, kFused>(a, B, stream)
+                : launch<T, 128, 8, kFused>(a, B, stream);
     case 256:
-      return launch<T, 256>(q, k_new, v_new, cos, sin, k_cache, v_cache, start, kv_valid,
-                            out, B, H, KVH, S, pos, scale, stream);
+      return g4 ? launch<T, 256, 4, kFused>(a, B, stream)
+                : launch<T, 256, 8, kFused>(a, B, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-template <typename T, int D>
-cudaError_t launch_static(const void* q, const void* k, const void* v, const int* vs,
-                          const int* ve, void* out, int B, int H, int KVH, int S, int window,
-                          float scale, cudaStream_t stream) {
-  const int G = H / KVH;
-  dim3 grid(KVH * ((G + kGB - 1) / kGB), B);
-  static_decode_kernel<T, D><<<grid, kWarps * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), vs, ve,
-      static_cast<T*>(out), H, KVH, S, window, scale);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_static_d(int D, const void* q, const void* k, const void* v, const int* vs,
-                            const int* ve, void* out, int B, int H, int KVH, int S, int window,
-                            float scale, cudaStream_t stream) {
-  switch (D) {
-    case 64:
-      return launch_static<T, 64>(q, k, v, vs, ve, out, B, H, KVH, S, window, scale, stream);
-    case 128:
-      return launch_static<T, 128>(q, k, v, vs, ve, out, B, H, KVH, S, window, scale, stream);
-    case 256:
-      return launch_static<T, 256>(q, k, v, vs, ve, out, B, H, KVH, S, window, scale, stream);
+template <bool kFused>
+int launch_typed(int dtype, int D, DecArgs& a, void* scratch, int B, int split_slots,
+                 cudaStream_t stream) {
+  if (split_slots <= 0 || a.KVH <= 0 || a.H % a.KVH) return static_cast<int>(cudaErrorInvalidValue);
+  a.split_slots = split_slots;
+  a.n_splits = (a.S + split_slots - 1) / split_slots;
+  a.part_acc = static_cast<float*>(scratch);
+  a.part_ml = a.part_acc + (size_t)B * a.H * a.n_splits * D;
+  cudaError_t err;
+  switch (dtype) {
+    case TTPU_F32:
+      err = launch_d<float, kFused>(D, a, B, stream);
+      break;
+    case TTPU_BF16:
+      err = launch_d<__nv_bfloat16, kFused>(D, a, B, stream);
+      break;
+    case TTPU_F16:
+      err = launch_d<__half, kFused>(D, a, B, stream);
+      break;
     default:
-      return cudaErrorInvalidValue;
+      err = cudaErrorInvalidValue;
   }
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
-// Returns the launch's cudaGetLastError() (0 on success).
+// K2. pos: a device int32, the new token's cache slot. scratch: f32, B * H *
+// n_splits * (D + 2) (the partials' acc, then their (m, l)), n_splits =
+// ceil(S / split_slots); tickets: int32, B * H, all 0 (and left so). Returns
+// the launch's cudaGetLastError() (0 on success).
 extern "C" int ttpu_fused_decode(const void* q, const void* k_new, const void* v_new,
                                  const void* cos, const void* sin, void* k_cache,
                                  void* v_cache, const void* start, const void* kv_valid,
-                                 void* out, int B, int H, int KVH, int S, int D, int pos,
-                                 float scale, int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* s = static_cast<const int*>(start);
-  const int* kv = static_cast<const int*>(kv_valid);
-  cudaError_t err;
-  switch (dtype) {
-    case TTPU_F32:
-      err = launch_d<float>(D, q, k_new, v_new, cos, sin, k_cache, v_cache, s, kv, out, B, H,
-                            KVH, S, pos, scale, st);
-      break;
-    case TTPU_BF16:
-      err = launch_d<__nv_bfloat16>(D, q, k_new, v_new, cos, sin, k_cache, v_cache, s, kv,
-                                    out, B, H, KVH, S, pos, scale, st);
-      break;
-    case TTPU_F16:
-      err = launch_d<__half>(D, q, k_new, v_new, cos, sin, k_cache, v_cache, s, kv, out, B,
-                             H, KVH, S, pos, scale, st);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+                                 const void* pos, void* out, void* scratch, void* tickets, int B,
+                                 int H, int KVH, int S, int D, int split_slots, float scale,
+                                 int dtype, void* stream) {
+  DecArgs a{};
+  a.q = q;
+  a.k_new = k_new;
+  a.v_new = v_new;
+  a.cos = cos;
+  a.sin = sin;
+  a.k = k_cache;
+  a.v = v_cache;
+  a.start = static_cast<const int*>(start);
+  a.kv_valid = static_cast<const int*>(kv_valid);
+  a.pos = static_cast<const int*>(pos);
+  a.out = out;
+  a.tickets = static_cast<int*>(tickets);
+  a.H = H;
+  a.KVH = KVH;
+  a.S = S;
+  a.scale = scale;
+  return launch_typed<true>(dtype, D, a, scratch, B, split_slots,
+                            static_cast<cudaStream_t>(stream));
 }
 
-// K7. window <= 0: no window. Returns the launch's cudaGetLastError() (0 on
-// success).
+// K7. window <= 0: no window. scratch and tickets as for K2. Returns the
+// launch's cudaGetLastError() (0 on success).
 extern "C" int ttpu_static_decode(const void* q, const void* k, const void* v,
                                   const void* valid_start, const void* valid_end, void* out,
-                                  int B, int H, int KVH, int S, int D, int window, float scale,
-                                  int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* vs = static_cast<const int*>(valid_start);
-  const int* ve = static_cast<const int*>(valid_end);
-  cudaError_t err;
-  switch (dtype) {
-    case TTPU_F32:
-      err = launch_static_d<float>(D, q, k, v, vs, ve, out, B, H, KVH, S, window, scale, st);
-      break;
-    case TTPU_BF16:
-      err = launch_static_d<__nv_bfloat16>(D, q, k, v, vs, ve, out, B, H, KVH, S, window,
-                                           scale, st);
-      break;
-    case TTPU_F16:
-      err = launch_static_d<__half>(D, q, k, v, vs, ve, out, B, H, KVH, S, window, scale, st);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+                                  void* scratch, void* tickets, int B, int H, int KVH, int S,
+                                  int D, int window, int split_slots, float scale, int dtype,
+                                  void* stream) {
+  DecArgs a{};
+  a.q = q;
+  a.k = const_cast<void*>(k);
+  a.v = const_cast<void*>(v);
+  a.start = static_cast<const int*>(valid_start);
+  a.end = static_cast<const int*>(valid_end);
+  a.out = out;
+  a.tickets = static_cast<int*>(tickets);
+  a.H = H;
+  a.KVH = KVH;
+  a.S = S;
+  a.window = window;
+  a.scale = scale;
+  return launch_typed<false>(dtype, D, a, scratch, B, split_slots,
+                             static_cast<cudaStream_t>(stream));
 }

@@ -40,7 +40,8 @@
 //   softmax and P.V stay in f32 on the CUDA cores: a lane holds D / 32
 //   elements of each head's output and takes each slot's probability from
 //   the lane that scored it. The block's 4 warps are merged once, in shared
-//   memory over the spent stages.
+//   memory over the spent stages. (This scoring and merge are mma.cuh's
+//   decode helpers, shared with K2 and K7 in fused_decode.cu.)
 // - The merge (paged_combine_kernel). A row whose live slots fit in one
 //   split gets its output from that split's block. Otherwise each split
 //   writes its f32 (m, l, acc) partials to scratch the wrapper allocates, and
@@ -60,6 +61,7 @@ constexpr int kMaxSplitPages = 64;  // block-table entries one split may span
 
 // Dynamic shared memory of a split block: K and V stages, two each, with
 // rows padded by kPad elements (ldmatrix reads K without bank conflicts).
+// The block's merge of its warps reuses it (kWarps * GB * D floats fit).
 template <typename T, int D>
 constexpr size_t split_smem() {
   return (size_t)4 * kStage * (D + kPad) * sizeof(T);
@@ -114,19 +116,13 @@ paged_split_kernel(const T* __restrict__ q,              // [N, 1, H, D]
                    float* __restrict__ part_acc,         // [N, H, n_splits, D]
                    int H, int KVH, int BS, int MAXB, int window, float scale, int split_slots,
                    int n_splits) {
-  constexpr int E = D / 32;                 // elements per lane
-  constexpr int S = D + kPad;               // row stride of the stages
-  constexpr bool kTc = !std::is_same<T, float>::value;  // scores on the tensor cores
-  static_assert(GB <= 8, "a block's query heads are the rows g < 8 of an mma tile");
+  constexpr int S = D + kPad;  // row stride of the stages
   extern __shared__ __align__(16) unsigned char smem[];
   T* Ks = reinterpret_cast<T*>(smem);  // [2][kStage][S]
   T* Vs = Ks + 2 * kStage * S;         // [2][kStage][S]
   float* sm_acc = reinterpret_cast<float*>(smem);  // [kWarps][GB][D], over the stages at the end
   __shared__ int tbl[kMaxSplitPages];
-  __shared__ float sm_m[kWarps][GB];
-  __shared__ float sm_l[kWarps][GB];
-  __shared__ float sm_f[kWarps][GB];  // each warp's weight in the block's merge
-  __shared__ float sm_ml[GB][2];      // the block's (m, l) per query head
+  __shared__ DecodeMergeSmem<GB, kWarps> sm;
 
   const int G = H / KVH;
   const int n_gchunks = (G + GB - 1) / GB;
@@ -134,10 +130,7 @@ paged_split_kernel(const T* __restrict__ q,              // [N, 1, H, D]
   const int g0 = (blockIdx.x % n_gchunks) * GB;
   const int split = blockIdx.y;
   const int n = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
-  const int gr = lane >> 2, tg = lane & 3;
-  const int d0 = lane * E;  // this lane's first element of a head row
-  const float NEG_INF = -CUDART_INF_F;
+  const int tid = threadIdx.x, w = tid >> 5;
   const int n_heads = min(GB, G - g0);
   const size_t row_h0 = (size_t)n * H + kvh * G + g0;  // (row, first query head) of this block
 
@@ -156,46 +149,13 @@ paged_split_kernel(const T* __restrict__ q,              // [N, 1, H, D]
   const int hi = min(span.ctx, (split + 1) * split_slots);
   if (lo >= hi) return;  // the split lies outside [start, ctx)
 
-  // q: as mma A fragments (rows g < GB are the heads, rows 8-15 zero), or
-  // as this lane's D / 32 elements of each head for the f32 scores
-  uint32_t qa[kTc ? D / 16 : 1][2];
-  float qf[kTc ? 1 : GB][E];
-  if constexpr (kTc) {
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const T* row = q + (row_h0 + gr) * D + kk * 16 + 2 * tg;
-      qa[kk][0] = gr < n_heads ? *reinterpret_cast<const uint32_t*>(row) : 0u;
-      qa[kk][1] = gr < n_heads ? *reinterpret_cast<const uint32_t*>(row + 8) : 0u;
-    }
-  } else {
-#pragma unroll
-    for (int gi = 0; gi < GB; ++gi) {
-      if (gi < n_heads) {
-        load_f<T, E>(q + (row_h0 + gi) * D + d0, qf[gi]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < E; ++e) qf[gi][e] = 0.f;
-      }
-    }
-  }
+  DecodeWarp<T, D, GB> st;
+  decode_init(st, q + row_h0 * D, n_heads);
   __syncthreads();  // tbl
 
   const T* k_head = k_pool + (size_t)kvh * BS * D;  // page 0 of this kv head
   const T* v_head = v_pool + (size_t)kvh * BS * D;
   const int n_stages = (hi - lo + kStage - 1) / kStage;
-
-  // this warp's online softmax: m (every head, in every lane), the P.V sums
-  // of this lane's elements; l per head in every lane (f32 route) or, on
-  // the tensor-core route, this thread's share of head gr's sum (m_own: m[gr])
-  float m[GB], l[GB], acc[GB][E];
-#pragma unroll
-  for (int gi = 0; gi < GB; ++gi) {
-    m[gi] = NEG_INF;
-    l[gi] = 0.f;
-#pragma unroll
-    for (int e = 0; e < E; ++e) acc[gi][e] = 0.f;
-  }
-  float m_own = NEG_INF, l_own = 0.f;
 
   copy_stage<T, D>(Ks, Vs, k_head, v_head, tbl, lo, hi, page_base, BS, KVH);
   for (int c = 0; c < n_stages; ++c) {
@@ -209,159 +169,29 @@ paged_split_kernel(const T* __restrict__ q,              // [N, 1, H, D]
       cp_async_wait<0>();
     }
     __syncthreads();
-    const T* Kt = Ks + stage * kStage * S + 8 * w * S;  // this warp's 8 slots
-    const T* Vt = Vs + stage * kStage * S + 8 * w * S;
-    const int nw = min(8, hi - (lo + c * kStage) - 8 * w);  // of them live (warp-uniform)
-    if constexpr (kTc) {
-      if (nw > 0) {
-        // S = q K^T: rows g < GB (heads) by the warp's 8 slots
-        float sc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int kk2 = 0; kk2 < D / 32; ++kk2) {
-          uint32_t b[4];
-          ldsm_x4(b, Kt + (lane & 7) * S + kk2 * 32 + (lane >> 3) * 8);
-          const uint32_t a0[4] = {qa[2 * kk2][0], 0u, qa[2 * kk2][1], 0u};
-          const uint32_t a1[4] = {qa[2 * kk2 + 1][0], 0u, qa[2 * kk2 + 1][1], 0u};
-          mma16816<T>(sc, a0, b[0], b[1]);
-          mma16816<T>(sc, a1, b[2], b[3]);
-        }
-        // head gr's scores of slots 2 tg and 2 tg + 1; its max over the 8
-        float x[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) x[i] = 2 * tg + i < nw ? sc[i] * scale : NEG_INF;
-        float mx = fmaxf(x[0], x[1]);
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_own_new = fmaxf(m_own, mx);  // slot 0 is live: finite
-        l_own *= expf(m_own - m_own_new);
-        m_own = m_own_new;
-        float p[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          p[i] = expf(x[i] - m_own);
-          l_own += p[i];
-        }
-#pragma unroll
-        for (int gi = 0; gi < GB; ++gi) {
-          const float m_new = fmaxf(m[gi], __shfl_sync(0xffffffffu, mx, 4 * gi));
-          const float alpha = expf(m[gi] - m_new);  // 0 when m was -inf
-#pragma unroll
-          for (int e = 0; e < E; ++e) acc[gi][e] *= alpha;
-          m[gi] = m_new;
-        }
-        // P.V in f32: slot u's probability for head gi comes from lane 4 gi + u / 2
-#pragma unroll
-        for (int u = 0; u < 8; ++u) {
-          if (u >= nw) break;
-          float vf[E];
-          load_f<T, E>(Vt + u * S + d0, vf);
-          const float mine = (u & 1) ? p[1] : p[0];
-#pragma unroll
-          for (int gi = 0; gi < GB; ++gi) {
-            const float pv = __shfl_sync(0xffffffffu, mine, 4 * gi + (u >> 1));
-#pragma unroll
-            for (int e = 0; e < E; ++e) acc[gi][e] = fmaf(pv, vf[e], acc[gi][e]);
-          }
-        }
-      }
-    } else {
-      // f32: a lane holds E elements of a slot row; each score is a warp sum
-#pragma unroll
-      for (int u0 = 0; u0 < 8; u0 += 4) {
-        if (u0 >= nw) break;
-        float sv[4][GB];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const bool ok = u0 + u < nw;  // the same for every lane of the warp
-          float kf[E];
-          if (ok) load_f<T, E>(Kt + (u0 + u) * S + d0, kf);
-#pragma unroll
-          for (int gi = 0; gi < GB; ++gi) {
-            float part = 0.f;
-            if (ok) {
-#pragma unroll
-              for (int e = 0; e < E; ++e) part = fmaf(qf[gi][e], kf[e], part);
-            }
-            sv[u][gi] = ok ? warp_sum(part) * scale : NEG_INF;
-          }
-        }
-#pragma unroll
-        for (int gi = 0; gi < GB; ++gi) {
-          float mx = m[gi];
-#pragma unroll
-          for (int u = 0; u < 4; ++u) mx = fmaxf(mx, sv[u][gi]);
-          const float alpha = expf(m[gi] - mx);  // 0 when m was -inf; slot u0 is live
-          l[gi] *= alpha;
-#pragma unroll
-          for (int e = 0; e < E; ++e) acc[gi][e] *= alpha;
-          m[gi] = mx;
-        }
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          if (u0 + u >= nw) break;
-          float vf[E];
-          load_f<T, E>(Vt + (u0 + u) * S + d0, vf);
-#pragma unroll
-          for (int gi = 0; gi < GB; ++gi) {
-            const float pv = expf(sv[u][gi] - m[gi]);
-            l[gi] += pv;
-#pragma unroll
-            for (int e = 0; e < E; ++e) acc[gi][e] = fmaf(pv, vf[e], acc[gi][e]);
-          }
-        }
-      }
-    }
+    const int nw = min(8, hi - (lo + c * kStage) - 8 * w);  // of the warp's 8 slots, live
+    decode_attend8<false>(st, Ks + stage * kStage * S + 8 * w * S,
+                          Vs + stage * kStage * S + 8 * w * S, nw, nullptr, scale);
     __syncthreads();  // this stage is refilled in the next iteration
   }
 
   // ---- the block's merge of its warps (over the stages), then the output
   // (the row's only split) or this split's partials
-  if constexpr (kTc) {
-    l_own += __shfl_xor_sync(0xffffffffu, l_own, 1);
-    l_own += __shfl_xor_sync(0xffffffffu, l_own, 2);
-    if (tg == 0 && gr < GB) sm_l[w][gr] = l_own;
-  } else if (lane == 0) {
-#pragma unroll
-    for (int gi = 0; gi < GB; ++gi) sm_l[w][gi] = l[gi];
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int gi = 0; gi < GB; ++gi) sm_m[w][gi] = m[gi];
-  }
-#pragma unroll
-  for (int gi = 0; gi < GB; ++gi) store_f<float, E>(sm_acc + (w * GB + gi) * D + d0, acc[gi]);
-  __syncthreads();
-  if (tid < GB) {
-    float mx = NEG_INF;
-#pragma unroll
-    for (int ww = 0; ww < kWarps; ++ww) mx = fmaxf(mx, sm_m[ww][tid]);
-    float L = 0.f;
-#pragma unroll
-    for (int ww = 0; ww < kWarps; ++ww) {
-      const float f = sm_m[ww][tid] == NEG_INF ? 0.f : expf(sm_m[ww][tid] - mx);
-      sm_f[ww][tid] = f;
-      L = fmaf(sm_l[ww][tid], f, L);
-    }
-    sm_ml[tid][0] = mx;
-    sm_ml[tid][1] = L;
-  }
-  __syncthreads();
+  decode_block_merge(st, sm_acc, sm, [](int) { return -CUDART_INF_F; });
   const bool direct = span.n_live == 1;
   for (int i = tid; i < n_heads * D; i += kThreads) {
     const int gi = i / D, d = i % D;
-    float A = 0.f;
-#pragma unroll
-    for (int ww = 0; ww < kWarps; ++ww) A = fmaf(sm_acc[(ww * GB + gi) * D + d], sm_f[ww][gi], A);
+    const float A = decode_block_acc<D, GB, kWarps>(sm_acc, sm, gi, d);
     if (direct) {
-      out[(row_h0 + gi) * D + d] = from_f<T>(__fdividef(A, sm_ml[gi][1]));  // l >= 1
+      out[(row_h0 + gi) * D + d] = from_f<T>(__fdividef(A, sm.ml[gi][1]));  // l >= 1
     } else {
       part_acc[((row_h0 + gi) * n_splits + split) * D + d] = A;
     }
   }
   if (!direct && tid < n_heads) {
     const size_t part = (row_h0 + tid) * n_splits + split;
-    part_ml[2 * part] = sm_ml[tid][0];
-    part_ml[2 * part + 1] = sm_ml[tid][1];
+    part_ml[2 * part] = sm.ml[tid][0];
+    part_ml[2 * part + 1] = sm.ml[tid][1];
   }
 }
 

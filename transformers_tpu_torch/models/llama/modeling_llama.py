@@ -156,7 +156,8 @@ class LlamaAttention(nn.Module):
         start = kv_valid.ne(0).to(torch.int32).argmax(dim=-1)
         if self.sliding_window is not None:
             start = start.clamp_min(pos + 1 - self.sliding_window)
-        return fused_decode_attention(q, k, v, cos, sin, k_cache, v_cache, pos, start, kv_valid,
+        return fused_decode_attention(q, k, v, cos, sin, k_cache, v_cache,
+                                      cache.slot_tensor(pos), start, kv_valid,
                                       scale=float(self.scale))
 
     def _paged_decode_ok(self, q, kwargs, cache) -> bool:

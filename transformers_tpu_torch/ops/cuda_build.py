@@ -93,6 +93,30 @@ def kernel_fn(name: str, symbol: str, argtypes: tuple):
     return fn
 
 
+_TICKETS: dict = {}  # device -> the decode kernels' ticket buffer
+_RETIRED: list = []  # outgrown ticket buffers, kept: a captured graph may still point at one
+
+
+def tickets(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` int32 tickets on ``device``, all 0, for the split-KV
+    decode kernels (K2, K7): the last block of a (row, kv head) to finish
+    finds out through its ticket and sets it back to 0, so the buffer is 0
+    between calls and one buffer serves every call on the device's stream
+    (calls on two streams of one device at once would share tickets: the
+    port makes none). Allocated, zeroed, at a call outside CUDA graph
+    capture; a graph replays against the buffer it captured."""
+    buf = _TICKETS.get(device)
+    if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the decode kernels' tickets are allocated at a first call "
+                               "outside CUDA graph capture, at least this batch size")
+        if buf is not None:
+            _RETIRED.append(buf)
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _TICKETS[device] = buf
+    return buf
+
+
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 

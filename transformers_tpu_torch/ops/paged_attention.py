@@ -110,41 +110,42 @@ def _live_splits(ctx_lens, max_slots: int, split_slots: int, sliding_window):
     return first, n_live
 
 
-def paged_decode_partials_plain(q, k_pool, v_pool, block_tables, ctx_lens, *, scale: float,
-                                sliding_window: Optional[int] = None, split_slots: int):
-    """Each split's f32 partials, as the split kernel forms them: ``ml`` [N, H,
-    n_splits, 2] holds the split's score max m and sum l of exp(s - m), ``acc``
-    [N, H, n_splits, D] the sum of exp(s - m) v. A split with no live slot has
-    m = -inf, l = 0, acc = 0. n_splits = ceil(MAXB * BS / split_slots)."""
-    n, _, h, d = q.shape
-    kvh = k_pool.shape[1]
-    s = _scores(q, k_pool, block_tables, ctx_lens, scale, sliding_window)
-    v = _gather(v_pool, block_tables)
-    slots = s.shape[-1]
+def split_partials_plain(scores, v, split_slots: int):
+    """Each split's f32 partials, as the split-KV decode kernels (K2, K6, K7)
+    form them, from f32 scores [N, KVH, G, slots] (-inf where a slot is not
+    live) and values [N, KVH, slots, D]: ``ml`` [N, H, n_splits, 2] holds the
+    split's score max m and sum l of exp(s - m), ``acc`` [N, H, n_splits, D]
+    the sum of exp(s - m) v. A split with no live slot has m = -inf, l = 0,
+    acc = 0. n_splits = ceil(slots / split_slots)."""
+    n, kvh, g, slots = scores.shape
+    d = v.shape[-1]
     ns = -(-slots // split_slots)
     pad = ns * split_slots - slots
-    s = torch.nn.functional.pad(s, (0, pad), value=float("-inf"))
+    s = torch.nn.functional.pad(scores, (0, pad), value=float("-inf"))
     v = torch.nn.functional.pad(v, (0, 0, 0, pad))
-    s = s.reshape(n, kvh, h // kvh, ns, split_slots)
+    s = s.reshape(n, kvh, g, ns, split_slots)
     m = s.amax(dim=-1)
     p = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0)[..., None])
     acc = torch.einsum("nhgkj,nhkjd->nhgkd", p, v.reshape(n, kvh, ns, split_slots, d))
     ml = torch.stack([m, p.sum(dim=-1)], dim=-1)
-    return ml.reshape(n, h, ns, 2), acc.reshape(n, h, ns, d)
+    return ml.reshape(n, kvh * g, ns, 2), acc.reshape(n, kvh * g, ns, d)
 
 
-def paged_decode_merge_plain(ml, acc, ctx_lens, *, max_slots: int, split_slots: int,
-                             sliding_window: Optional[int] = None):
+def merge_splits_plain(ml, acc, first, n_live, *, new=None):
     """The merge of the splits' partials, in split order, as the kernels do
-    it: M = the live splits' largest m, then L and A summed over the splits
-    one after the other with weights exp(m - M); out = A / L (0 where the row
-    has no live slot). Returns f32 [N, 1, H, D]."""
+    it: row n's live splits are ``first[n]`` .. ``first[n] + n_live[n] - 1``;
+    M = their largest m (and the new column's score), then L and A summed
+    over the splits one after the other with weights exp(m - M), the new
+    column last; out = A / L (0 where the row has nothing live). ``new``:
+    K2's new column, (score [N, H], value [N, H, D]) in f32, or None. Returns
+    f32 [N, 1, H, D]."""
     n, h, ns, d = acc.shape
-    first, n_live = _live_splits(ctx_lens, max_slots, split_slots, sliding_window)
     k = torch.arange(ns, device=acc.device)[None, :]
     live = (k >= first[:, None]) & (k < (first + n_live)[:, None])  # [N, n_splits]
     m = ml[..., 0].masked_fill(~live[:, None, :], float("-inf"))
     top = m.amax(dim=-1, keepdim=True)
+    if new is not None:
+        top = torch.maximum(top, new[0][..., None])
     f = torch.where(live[:, None, :], torch.exp(m - torch.where(torch.isfinite(top), top, 0.0)),
                     0.0)
     total_l = torch.zeros((n, h), dtype=torch.float32, device=acc.device)
@@ -152,8 +153,29 @@ def paged_decode_merge_plain(ml, acc, ctx_lens, *, max_slots: int, split_slots: 
     for i in range(ns):
         total_l = total_l + ml[:, :, i, 1] * f[:, :, i]
         total_a = total_a + acc[:, :, i] * f[:, :, i, None]
+    if new is not None:
+        p_new = torch.exp(new[0] - top[..., 0])
+        total_l = total_l + p_new
+        total_a = total_a + p_new[..., None] * new[1]
     out = total_a / torch.where(total_l > 0, total_l, 1.0)[..., None]
     return out.reshape(n, 1, h, d)
+
+
+def paged_decode_partials_plain(q, k_pool, v_pool, block_tables, ctx_lens, *, scale: float,
+                                sliding_window: Optional[int] = None, split_slots: int):
+    """Each split's f32 partials, as the split kernel forms them
+    (``split_partials_plain`` over the gathered pages); n_splits = ceil(MAXB
+    * BS / split_slots)."""
+    s = _scores(q, k_pool, block_tables, ctx_lens, scale, sliding_window)
+    return split_partials_plain(s, _gather(v_pool, block_tables), split_slots)
+
+
+def paged_decode_merge_plain(ml, acc, ctx_lens, *, max_slots: int, split_slots: int,
+                             sliding_window: Optional[int] = None):
+    """The merge of K6's split partials in split order (``merge_splits_plain``
+    over each row's live splits). Returns f32 [N, 1, H, D]."""
+    first, n_live = _live_splits(ctx_lens, max_slots, split_slots, sliding_window)
+    return merge_splits_plain(ml, acc, first, n_live)
 
 
 def paged_decode_split_plain(q, k_pool, v_pool, block_tables, ctx_lens, *, scale: float,
