@@ -36,15 +36,27 @@ Phases, in order; any failure exits non-zero:
     weights from ``--seed``: a full-width, 2-layer checkpoint written with the
     port's safetensors writer and read back by ``from_pretrained``; then
     ``generate`` (batch 8, prompt 128, 32 new tokens, greedy) on the 32-layer
-    model, with the kernels' launch counts checked per layer; then the
-    generated tokens teacher-forced through the plain path;
+    model, its decode step replayed from a captured CUDA graph, against the
+    uncaptured step loop on the same inputs: ids bitwise equal, the kernels'
+    launch counts checked per layer for both, the graph's calls run under
+    ``torch.cuda.set_sync_debug_mode("error")``; prefill ms, decode ms/step,
+    tokens/s and the profiler's idle share of both, the capture's time and
+    the memory the captured program holds; then sampled at one seed (top-k,
+    top-p) and greedy with repetition penalty, no-repeat n-gram and min new
+    tokens, each graph against the step loop, bitwise; then the generated
+    tokens teacher-forced through the plain path;
 (d) the continuous-batching path on the same 32-layer model: the engine
     (block size 32, 8 resident requests, 128-token prefill budget, 320 pages)
     serves 16 requests with prompts of 64-512 tokens from ``--seed``, four of
-    them sharing a 256-token prefix, 64 new tokens each, greedy, once with a
-    host sync every step and once every 16 steps; launch counts checked
-    against the engine's own count of prefill chunks and decode steps; a few
-    finished requests teacher-forced through the plain path;
+    them sharing a 256-token prefix, 64 new tokens each, greedy, with a host
+    sync every step and every 16 steps, each by an engine whose decode steps
+    replay captured graphs and by one that runs them uncaptured (each engine
+    first serves the same traffic with shifted token ids, which captures its
+    graphs on the same schedule); the two engines' tokens must be equal for
+    every request, the graph engines' decode calls run under the sync-debug
+    check; launch counts checked against the engine's own count of prefill
+    chunks and decode steps; a few finished requests teacher-forced through
+    the plain path;
 (e) training at the same width, depth cut to 4 layers (f32 weights, bf16
     compute, random from ``--seed``), after (c)/(d)'s model is freed: layer 0's
     q/k/v gradients and the loss of one row through the kernel path held
@@ -61,6 +73,7 @@ ends with ``{"ok": true, "device": {...}}``. Needs one CUDA card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import gc
 import json
@@ -1176,7 +1189,40 @@ def build_model(seed: int):
     return LlamaForCausalLM(cfg, dtype=torch.bfloat16, device="cuda").init_weights(seed)
 
 
+@contextlib.contextmanager
+def no_host_sync():
+    """Any synchronising CUDA call inside raises (``set_sync_debug_mode("error")``):
+    a stream or device synchronisation, a copy to pageable host memory, an
+    ``item()``. The decode loops' deliberate reads (``cuda_build.read_back``,
+    an event wait after a copy to pinned memory) are not such calls."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _program_bytes(model) -> tuple:
+    """(bytes of the decode program's cache, of its other buffers)."""
+    prog = model._decode_program
+    cache = sum(t.numel() * t.element_size() for t in prog.cache.keys + prog.cache.values)
+    bufs = sum(t.numel() * t.element_size() for t in (prog.ids, prog.mask, prog.rope_last,
+                                                         prog.next_tok, prog.live, prog.finished))
+    return cache, bufs
+
+
+def _median_ms(run, reps: int = 3) -> float:
+    return sorted(_timed(run) for _ in range(reps))[reps // 2]
+
+
 def check_generate(model, seed: int, card: str) -> dict:
+    """Phase (c): greedy generate with the decode step replayed from its CUDA
+    graph, against the uncaptured step loop (``_generate(graph=False)``) on the
+    same inputs: ids bitwise equal, launch counts exact for both; the replays
+    run under ``no_host_sync``. Then sampled at one seed (top-k, top-p) and
+    greedy with processors, each graph against the step loop, bitwise. The
+    calls use ``decode_pad_multiple=NEW``, so the prefill-only runs (1 new
+    token) share the 32-token program and nothing is captured twice."""
     cfg = model.config
     layers = cfg.num_hidden_layers
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
@@ -1184,34 +1230,143 @@ def check_generate(model, seed: int, card: str) -> dict:
     mask = (torch.arange(PROMPT, device="cuda")[None, :]
             >= torch.tensor(PADS, device="cuda")[:, None]).to(torch.int32)
     ids = ids.masked_fill(mask == 0, 0)
-    kw = dict(attention_mask=mask, prompt_pad_multiple=PROMPT)
+    kw = dict(attention_mask=mask, prompt_pad_multiple=PROMPT, decode_pad_multiple=NEW)
 
-    model.generate(ids, max_new_tokens=2, **kw)  # warm-up: cuBLAS and kernel libraries
-    _reset_counts()
-    out = model.generate(ids, max_new_tokens=NEW, **kw)
+    def graph(**extra):
+        return model.generate(ids, **kw, **extra)
+
+    def eager(**extra):
+        return model._generate(ids, graph=False, **kw, **extra)
+
+    # the first call of the signature: prefill, one decode step run for real,
+    # the capture, then replays; what the program holds stays on the card
+    model._decode_program = None
+    gc.collect()
     torch.cuda.synchronize()
-    counts = _read_counts()
+    torch.cuda.empty_cache()
+    alloc0, reserved0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    first = graph(max_new_tokens=NEW)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() - alloc0 - first.numel() * first.element_size()
+    held_reserved = torch.cuda.memory_reserved() - reserved0
+    cache_bytes, buf_bytes = _program_bytes(model)
+    capture_ms = model._decode_program.graph.capture_ms
+    eager(max_new_tokens=NEW)  # warm-up of the step loop's own allocations
+
     expected = _expected(flash_fwd=layers, fused_decode=layers * (NEW - 1))
-    print(f"[generate] launches {counts}, expected {expected} "
-          f"({layers} layers, 1 prefill, {NEW - 1} decode steps)")
-    if counts != expected:
-        raise AssertionError("the main path did not go through the kernels as required")
+    runs = {}
+    for name, run in (("graph", graph), ("uncaptured", eager)):
+        _reset_counts()
+        if name == "graph":
+            with no_host_sync():
+                out = run(max_new_tokens=NEW)
+        else:
+            out = run(max_new_tokens=NEW)
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        print(f"[generate] {name}: launches {counts}, expected {expected} ({layers} layers, "
+              f"1 prefill, {NEW - 1} decode steps)")
+        if counts != expected:
+            raise AssertionError(f"{name}: the main path did not go through the kernels as "
+                                 f"required")
+        runs[name] = (out, counts)
+    out, counts = runs["graph"]
+    if not torch.equal(out, runs["uncaptured"][0]) or not torch.equal(out, first):
+        raise AssertionError("generate: the graph's ids differ from the uncaptured step loop's")
     if out.shape != (BATCH, PROMPT + NEW) or not torch.equal(out[:, :PROMPT], ids):
         raise AssertionError(f"generate returned {tuple(out.shape)} or changed the prompt")
     if int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
         raise AssertionError("generated ids outside the vocabulary")
+    print(f"[generate] graph == uncaptured step loop, bitwise (greedy); the graph's replays ran "
+          f"under set_sync_debug_mode('error')")
 
-    prefill = sorted(_timed(lambda: model.generate(ids, max_new_tokens=1, **kw))
-                     for _ in range(3))[1]
-    total = sorted(_timed(lambda: model.generate(ids, max_new_tokens=NEW, **kw))
-                   for _ in range(3))[1]
-    decode_tok = (total - prefill) / (NEW - 1)
-    print(f"[generate] B={BATCH} prompt={PROMPT} new={NEW} bf16, 32 layers: prefill "
-          f"{prefill:.2f} ms, decode {decode_tok:.3f} ms/step, "
-          f"{BATCH * 1e3 / decode_tok:.1f} decode tokens/s, "
-          f"{BATCH * NEW * 1e3 / total:.1f} tokens/s over the whole generate ({card})")
+    timing = {}
+    for name, run in (("graph", graph), ("uncaptured", eager), ("uncaptured", eager),
+                      ("graph", graph)):
+        prefill = _median_ms(lambda: run(max_new_tokens=1))
+        total = _median_ms(lambda: run(max_new_tokens=NEW))
+        timing.setdefault(name, []).append((prefill, total))
+    for name, pairs in timing.items():
+        prefill = min(p for p, _ in pairs)
+        total = min(t for _, t in pairs)
+        decode_tok = (total - prefill) / (NEW - 1)
+        timing[name] = total
+        print(f"[generate] {name}: B={BATCH} prompt={PROMPT} new={NEW} bf16, 32 layers: prefill "
+              f"{prefill:.2f} ms, decode {decode_tok:.3f} ms/step, "
+              f"{BATCH * 1e3 / decode_tok:.1f} decode tokens/s, "
+              f"{BATCH * NEW * 1e3 / total:.1f} tokens/s over the whole generate "
+              f"(best of two medians of 3) ({card})")
+    print(f"[generate] graph: capture {capture_ms:.2f} ms (host clock, the first call of the "
+          f"signature); the program holds {held / 1e9:.4f} GB allocated (KV cache "
+          f"{cache_bytes / 1e9:.4f} GB, buffers {buf_bytes / 1e6:.3f} MB, the graph's own "
+          f"{(held - cache_bytes - buf_bytes) / 1e6:.3f} MB) and {held_reserved / 1e9:.4f} GB "
+          f"reserved ({card})")
+    profile_run("generate (graph)", lambda: graph(max_new_tokens=NEW), timing["graph"], card)
+    profile_run("generate (uncaptured step loop)", lambda: eager(max_new_tokens=NEW),
+                timing["uncaptured"], card)
 
-    profile_run("generate", lambda: model.generate(ids, max_new_tokens=NEW, **kw), total, card)
+    # the streaming route replays the same graph, with a host read of every step
+    from transformers_tpu_torch.generation.streamers import BaseStreamer
+
+    class Chunks(BaseStreamer):
+        def __init__(self):
+            self.chunks = []
+
+        def put(self, value):
+            self.chunks.append(value)
+
+        def end(self):
+            pass
+
+    streamer = Chunks()
+    streamed = graph(max_new_tokens=NEW, streamer=streamer)
+    tokens = np.concatenate(streamer.chunks[1:], axis=1) if len(streamer.chunks) > 1 else None
+    ok = (torch.equal(streamed, out) and len(streamer.chunks) == NEW + 1
+          and np.array_equal(tokens, out[:, PROMPT:].cpu().numpy()))
+    print(f"[generate] streaming route (graph replays, a read per step): ids and the streamer's "
+          f"prompt + {len(streamer.chunks) - 1} chunks equal the plain route's: {ok}")
+    if not ok:
+        raise AssertionError("generate: the streaming route differs from the plain route")
+
+    # sampled at one seed: two graph calls and the step loop draw the same ids
+    skw = dict(max_new_tokens=NEW, do_sample=True, top_k=50, top_p=0.9, temperature=0.8)
+    seeded = lambda: torch.Generator(device="cuda").manual_seed(seed + 3)  # noqa: E731
+    s_first = graph(generator=seeded(), **skw)  # captures the sampled step
+    with no_host_sync():
+        s_graph = graph(generator=seeded(), **skw)
+    s_eager = eager(generator=seeded(), **skw)
+    same = (torch.equal(s_graph, s_first), torch.equal(s_graph, s_eager))
+    differs = int((s_graph[:, PROMPT:] != out[:, PROMPT:]).sum())
+    print(f"[generate] sampled (top_k 50, top_p 0.9, temperature 0.8, seed {seed + 3}): graph == "
+          f"graph, graph == uncaptured step loop, bitwise: {same}; {differs} of {BATCH * NEW} "
+          f"tokens differ from greedy")
+    if not all(same) or differs == 0:
+        raise AssertionError("sampled generate: the graph does not draw as the step loop does")
+
+    # greedy with processors: EOS ids that greedy decoding reaches early, held
+    # off by min_new_tokens
+    eos = sorted({int(out[r, PROMPT + 3]) for r in range(3)})
+    pkw = dict(max_new_tokens=NEW, repetition_penalty=1.3, no_repeat_ngram_size=3,
+               min_new_tokens=8, eos_token_id=eos)
+    p_first = graph(**pkw)  # captures the step with its processors
+    _reset_counts()
+    with no_host_sync():
+        p_graph = graph(**pkw)
+    torch.cuda.synchronize()
+    p_counts = _read_counts()
+    _reset_counts()
+    p_eager = eager(**pkw)
+    torch.cuda.synchronize()
+    e_counts = _read_counts()
+    same = (torch.equal(p_graph, p_first), torch.equal(p_graph, p_eager), p_counts == e_counts)
+    differs = int((p_graph[:, PROMPT:] != out[:, PROMPT:]).sum())
+    print(f"[generate] processors (repetition_penalty 1.3, no_repeat_ngram_size 3, min_new_tokens "
+          f"8, eos {eos}): graph == graph, graph == uncaptured step loop bitwise, equal launches "
+          f"{same} (fused_decode {p_counts['fused_decode']}); {differs} of {BATCH * NEW} tokens "
+          f"differ from plain greedy")
+    if not all(same) or differs == 0:
+        raise AssertionError("generate with processors: the graph differs from the step loop")
     teacher_force(model, out, mask)
     return counts
 
@@ -1232,9 +1387,11 @@ def profile_run(label: str, run, wall_ms: float, card: str) -> list:
         profiled_ms = (time.perf_counter() - t0) * 1e3
     # device events only; a user annotation (the optimizer's
     # "Optimizer.step#AdamW.step" range) spans kernels already counted
+    t0 = time.perf_counter()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)
                and not e.key.startswith("Optimizer.")]
+    print(f"[profile] {label}: the trace read in {time.perf_counter() - t0:.1f} s")
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms == 0:
         print("[profile] the profiler recorded no device time: busy share not measured")
@@ -1338,81 +1495,141 @@ def cb_prompts(seed: int, vocab: int) -> list:
     return prompts
 
 
-def run_cb(model, prompts, steps_per_sync: int):
-    """Serve ``prompts`` (CB_NEW new tokens each, greedy) through a fresh
-    engine. Returns the engine, the generated ids per request, the wall ms,
-    and the host-clock ms and device decode steps of the engine steps that
-    ran decode and no prefill (each such step ends in a host read)."""
-    from transformers_tpu_torch.generation.continuous_batching import (
-        ContinuousBatchingEngine, RequestState)
+def cb_engine(model, steps_per_sync: int, graph: bool):
+    """A fresh engine; ``graph`` False makes its runner run each decode step
+    uncaptured (the reference the graphs are held to)."""
+    from transformers_tpu_torch.generation.continuous_batching import ContinuousBatchingEngine
 
     engine = ContinuousBatchingEngine(model, steps_per_sync=steps_per_sync, **CB_ENGINE)
+    engine.runner._capture = graph
+    return engine
+
+
+def run_cb(engine, prompts, tag: str, strict: bool = False):
+    """Serve ``prompts`` (CB_NEW new tokens each, greedy) through ``engine``.
+    Returns the generated ids per request, the wall ms, the host-clock ms and
+    device decode steps of the engine steps that ran decode and no prefill
+    (each such step ends in a host read), and the runner's counts of this run.
+    ``strict``: the runner's decode calls run under ``no_host_sync``."""
+    from transformers_tpu_torch.generation.continuous_batching import RequestState
+
     for i, p in enumerate(prompts):
-        engine.add_request(RequestState(request_id=f"r{i}", prompt_ids=p,
+        engine.add_request(RequestState(request_id=f"{tag}{i}", prompt_ids=p,
                                         max_new_tokens=CB_NEW))
     runner = engine.runner
+    names = ("prefill_chunks", "single_token_chunks", "decode_steps", "prefill_tokens")
+    before = {n: getattr(runner, n) for n in names}
+    if strict:
+        calls = {n: getattr(runner, n) for n in ("decode_step", "decode_multi")}
+
+        def checked(fn):
+            def call(*args, **kw):
+                with no_host_sync():
+                    return fn(*args, **kw)
+            return call
+
+        for n, fn in calls.items():
+            setattr(runner, n, checked(fn))
     results, decode_ms, decode_steps = {}, 0.0, 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    while engine.has_work():
-        chunks = runner.prefill_chunks + runner.single_token_chunks
-        steps = runner.decode_steps
-        ts = time.perf_counter()
-        events = engine.step()
-        if runner.prefill_chunks + runner.single_token_chunks == chunks \
-                and runner.decode_steps > steps:
-            decode_ms += (time.perf_counter() - ts) * 1e3
-            decode_steps += runner.decode_steps - steps
-        for ev in events:
-            if ev.status in ("finished", "failed"):
-                results[ev.request_id] = ev
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while engine.has_work():
+            chunks = runner.prefill_chunks + runner.single_token_chunks
+            steps = runner.decode_steps
+            ts = time.perf_counter()
+            events = engine.step()
+            if runner.prefill_chunks + runner.single_token_chunks == chunks \
+                    and runner.decode_steps > steps:
+                decode_ms += (time.perf_counter() - ts) * 1e3
+                decode_steps += runner.decode_steps - steps
+            for ev in events:
+                if ev.status in ("finished", "failed"):
+                    results[ev.request_id] = ev
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        if strict:
+            for n in calls:
+                delattr(runner, n)
     bad = [rid for rid, ev in results.items() if ev.status != "finished"]
     if len(results) != len(prompts) or bad:
         raise AssertionError(f"continuous batching: {len(results)} of {len(prompts)} requests "
                              f"came back, not finished: {bad}")
-    generated = [results[f"r{i}"].generated_ids for i in range(len(prompts))]
-    return engine, generated, wall, decode_ms, decode_steps
+    generated = [results[f"{tag}{i}"].generated_ids for i in range(len(prompts))]
+    ran = {n: getattr(runner, n) - before[n] for n in names}
+    return generated, wall, decode_ms, decode_steps, ran
+
+
+def shifted(prompts, vocab: int, by: int) -> list:
+    """``prompts`` with every token moved by ``by`` within [1, vocab): the same
+    lengths and shared prefix, so the engine schedules the same chunks,
+    buckets and windows, and no page matches the originals'."""
+    return [[(t - 1 + by) % (vocab - 1) + 1 for t in p] for p in prompts]
 
 
 def check_cb(model, seed: int, card: str) -> dict:
-    """Phase (d): continuous batching at full width on the 32-layer model."""
+    """Phase (d): continuous batching at full width on the 32-layer model, at
+    one sync per step and one per 16, each with an engine whose decode steps
+    replay captured graphs and one that runs them uncaptured. Each engine
+    first serves the prompts shifted by one token id (its graphs are captured
+    and cuBLAS warmed there, on the same schedule), then the measured prompts;
+    the graph engines' decode calls run under ``no_host_sync``. Tokens of the
+    two engines must be equal for every request, launch counts exact."""
     layers = model.config.num_hidden_layers
     vocab = model.config.vocab_size
     prompts = cb_prompts(seed, vocab)
-    run_cb(model, prompts, 1)  # warm-up: GEMM shapes of every chunk and bucket
-    outputs, counts_by_sync = {}, {}
+    outputs, warm, counts_by_sync, engines, walls = {}, {}, {}, {}, {}
     for steps in (1, 16):
-        _reset_counts()
-        engine, generated, wall, decode_ms, decode_steps = run_cb(model, prompts, steps)
-        counts = _read_counts()
-        r = engine.runner
-        paged = layers * (r.decode_steps + r.single_token_chunks)
-        expected = _expected(flash_fwd=layers * r.prefill_chunks, paged_decode=paged,
-                             paged_decode_combine=paged)
-        print(f"[cb] steps_per_sync={steps}: launches {counts}, expected {expected} ({layers} "
-              f"layers, {r.prefill_chunks} prefill chunks, {r.single_token_chunks} one-token "
-              f"chunks, {r.decode_steps} decode steps)")
-        if counts != expected:
-            raise AssertionError("the CB path did not go through the kernels as required")
-        if any(len(g) != CB_NEW or min(g) < 0 or max(g) >= vocab for g in generated):
-            raise AssertionError(f"a request did not return {CB_NEW} ids inside the vocabulary")
-        cached = sum(len(p) for p in prompts) - r.prefill_tokens
-        print(f"[cb] steps_per_sync={steps}: {CB_REQUESTS} requests, prompts "
-              f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens ({cached} served from "
-              f"the prefix cache), {CB_NEW} new tokens each, bf16, {layers} layers: wall "
-              f"{wall:.2f} ms, {CB_REQUESTS * CB_NEW * 1e3 / wall:.1f} generated tokens/s, decode "
-              f"{decode_ms / max(decode_steps, 1):.3f} ms per device step over {decode_steps} "
-              f"steps of decode-only engine steps ({card})")
-        outputs[steps], counts_by_sync[steps] = generated, counts
-    same = sum(a == b for x, y in zip(outputs[1], outputs[16]) for a, b in zip(x, y))
+        for graph in (True, False):
+            name = "graph" if graph else "uncaptured"
+            engine = cb_engine(model, steps, graph)
+            warm[(steps, name)] = run_cb(engine, shifted(prompts, vocab, 1), "warm")[0]
+            _reset_counts()
+            generated, wall, decode_ms, decode_steps, r = run_cb(engine, prompts, "r",
+                                                                 strict=graph)
+            counts = _read_counts()
+            paged = layers * (r["decode_steps"] + r["single_token_chunks"])
+            expected = _expected(flash_fwd=layers * r["prefill_chunks"], paged_decode=paged,
+                                 paged_decode_combine=paged)
+            print(f"[cb] {name}, steps_per_sync={steps}: launches {counts}, expected {expected} "
+                  f"({layers} layers, {r['prefill_chunks']} prefill chunks, "
+                  f"{r['single_token_chunks']} one-token chunks, {r['decode_steps']} decode "
+                  f"steps)")
+            if counts != expected:
+                raise AssertionError("the CB path did not go through the kernels as required")
+            if any(len(g) != CB_NEW or min(g) < 0 or max(g) >= vocab for g in generated):
+                raise AssertionError(f"a request did not return {CB_NEW} ids inside the "
+                                     f"vocabulary")
+            cached = sum(len(p) for p in prompts) - r["prefill_tokens"]
+            print(f"[cb] {name}, steps_per_sync={steps}: {CB_REQUESTS} requests, prompts "
+                  f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens ({cached} served "
+                  f"from the prefix cache), {CB_NEW} new tokens each, bf16, {layers} layers: wall "
+                  f"{wall:.2f} ms, {CB_REQUESTS * CB_NEW * 1e3 / wall:.1f} generated tokens/s, "
+                  f"decode {decode_ms / max(decode_steps, 1):.3f} ms per device step over "
+                  f"{decode_steps} steps of decode-only engine steps; "
+                  f"{len(engine.runner._programs)} decode programs ({card})")
+            outputs[(steps, name)], engines[(steps, name)] = generated, engine
+            walls[(steps, name)] = wall
+            if graph:
+                counts_by_sync[steps] = counts
+        same = (outputs[(steps, "graph")] == outputs[(steps, "uncaptured")]
+                and warm[(steps, "graph")] == warm[(steps, "uncaptured")])
+        print(f"[cb] steps_per_sync={steps}: graph engine's tokens == uncaptured engine's for "
+              f"every request, in the warm-up (where each graph's first call runs the step for "
+              f"real and captures it) and the measured run: {same}")
+        if not same:
+            raise AssertionError("CB: the graph engine's tokens differ from the uncaptured one's")
+    same = sum(a == b for x, y in zip(outputs[(1, "graph")], outputs[(16, "graph")])
+               for a, b in zip(x, y))
     print(f"[cb] steps_per_sync 1 vs 16: {same} of {CB_REQUESTS * CB_NEW} generated tokens "
           f"equal (bf16 GEMMs of other batch shapes round differently; random weights give "
           f"near-ties)")
-    profile_run("continuous batching, 16 steps per sync", lambda: run_cb(model, prompts, 16),
-                wall, card)
-    teacher_force_cb(model, engine, prompts, outputs[16])
+    # the graph engine only, to keep the run well inside its time limit
+    profile_run("continuous batching, 16 steps per sync (graph)",
+                lambda: run_cb(engines[(16, "graph")], shifted(prompts, vocab, 2), "prof"),
+                walls[(16, "graph")], card)
+    teacher_force_cb(model, engines[(16, "graph")], prompts, outputs[(16, "graph")])
     return counts_by_sync[1]
 
 
@@ -1667,7 +1884,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(f"[card] {card}")
+    clock = [time.perf_counter()]
+
+    def lap(label: str) -> None:
+        now = time.perf_counter()
+        print(f"[time] {label}: {now - clock[0]:.1f} s")
+        clock[0] = now
+
     phase_build()
+    lap("phase (a), build")
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     _reset_counts()
     kernels = [check_flash(gen), check_decode(gen, args.seed), *check_paged(gen, args.seed),
@@ -1677,14 +1902,18 @@ def main() -> int:
     kernels += bwd
     check_reference_cases(gen)
     phase_b = _read_counts()  # K7 serves no path: its launches are phase (b)'s checks
+    lap("phase (b), kernel holds")
     check_load_path(args.seed, card)
     model = build_model(args.seed)
-    paths = {"generate": check_generate(model, args.seed, card),
-             "continuous_batching": check_cb(model, args.seed, card)}
+    paths = {"generate": check_generate(model, args.seed, card)}
+    lap("phase (c), load and generate")
+    paths["continuous_batching"] = check_cb(model, args.seed, card)
+    lap("phase (d), continuous batching")
     del model
     gc.collect()
     torch.cuda.empty_cache()
     paths["train"] = check_train(args.seed, card)
+    lap("phase (e), training")
     serves = {"paged_decode": "continuous_batching", "paged_decode_combine": "continuous_batching",
               "flash_bwd_dkv": "train", "flash_bwd_dq": "train"}
     for k in kernels:

@@ -115,6 +115,23 @@ def test_gumbel_noise_is_a_function_of_seed_and_count():
 
 
 # ------------------------------------------------------------------ e2e
+def test_gathered_context_is_contiguous_at_one_page():
+    """A prefill chunk's gathered k/v are contiguous for the flash kernel, a
+    context of a single page included (reshaped alone, it would be a view
+    with transposed head and slot strides)."""
+    from transformers_tpu_torch.generation.continuous_batching.model_runner import PagedCacheView
+
+    pools = [torch.randn(6, 2, 4, 8)]
+    for tables in ([[3]], [[3, 1, 5]]):
+        bt = torch.tensor(tables, dtype=torch.int32)
+        view = PagedCacheView(pools, pools, bt, torch.zeros((1, 1), dtype=torch.int32),
+                              torch.tensor([1], dtype=torch.int32), block_size=4)
+        k, v = view.layer(0)
+        assert k.is_contiguous() and v.is_contiguous()
+        want = pools[0][bt[0].long()].transpose(1, 2).reshape(-1, 2, 8)
+        assert torch.equal(k[0], want)
+
+
 def test_generate_batch_matches_jax(models):
     """The port's CB greedy tokens equal the JAX package's CB tokens on ragged
     prompts (prefill-first scheduling: the JAX runner compiles one decode

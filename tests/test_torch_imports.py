@@ -61,7 +61,9 @@ def test_every_kernel_module_is_checked():
                  "transformers_tpu_torch.generation.continuous_batching.model_runner",
                  "transformers_tpu_torch.ops.cuda_build",
                  "transformers_tpu_torch.models.llama.modeling_llama",
-                 "transformers_tpu_torch.trainer"):
+                 "transformers_tpu_torch.trainer",
+                 "transformers_tpu_torch.generation.stopping_criteria",
+                 "transformers_tpu_torch.generation.streamers"):
         assert name in MODULES
     # the flash backward (K5 dQ, K4 dK/dV) lives in ops.flash_attention,
     # with a launch count per kernel
@@ -77,9 +79,14 @@ def test_every_kernel_module_is_checked():
     assert isinstance(da.decode_attention.launches, int)
     # K6 counts its split pass and its merge apart
     from transformers_tpu_torch.ops import paged_attention as pa
+    from transformers_tpu_torch.ops.fused_decode import fused_decode_attention
 
     assert isinstance(pa.paged_decode_attention.launches, int)
     assert isinstance(pa.paged_decode_combine.launches, int)
+    # every wrapper is registered, so a captured graph's replays keep its count
+    assert set(cuda_build._COUNTED) == {fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv,
+                                        da.decode_attention, pa.paged_decode_attention,
+                                        pa.paged_decode_combine, fused_decode_attention}
 
 
 @pytest.mark.parametrize("entry", ["constructor", "from_pretrained", "auto_from_config"])

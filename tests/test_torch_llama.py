@@ -238,19 +238,21 @@ def test_sampled_generate_stays_in_top_k():
 
 def test_decode_steps_read_the_cache_slot_tensor(monkeypatch):
     """Every fused decode call of a generate gets the static cache's one slot
-    tensor, holding that step's cache_position; the tensor is set once per
-    decode step (one ``fill_``), not once per layer."""
+    tensor, holding that step's cache_position. The tensor is the decode
+    loop's clock on the device: set once (one ``fill_``) before the first
+    step, and advanced once per step (one ``add_(1)``), not once per layer."""
     from transformers_tpu_torch.models.llama import modeling_llama
 
     model = port.LlamaForCausalLM(port.LlamaConfig(**BASE), dtype=torch.float32,
                                   device="cpu").init_weights(3)
-    calls, fills = [], []
+    calls, fills, adds = [], [], []
     real_decode, real_init = modeling_llama.fused_decode_attention, model.init_cache
 
     def init_cache(*args, **kw):
         cache = real_init(*args, **kw)
-        real_fill = cache.slot.fill_
+        real_fill, real_add = cache.slot.fill_, cache.slot.add_
         cache.slot.fill_ = lambda v: (fills.append(int(v)), real_fill(v))[1]
+        cache.slot.add_ = lambda v: (adds.append(int(v)), real_add(v))[1]
         return cache
 
     def spy_decode(*args, **kw):
@@ -264,7 +266,8 @@ def test_decode_steps_read_the_cache_slot_tensor(monkeypatch):
     s, layers = ids.shape[1], BASE["num_hidden_layers"]
     assert [v for _, v in calls] == [s + g for g in range(4) for _ in range(layers)]
     assert all(t is calls[0][0] and t.dtype == torch.int32 and t.numel() == 1 for t, _ in calls)
-    assert fills == [s + g for g in range(4)]
+    assert fills == [s]
+    assert adds == [1] * 4
 
 
 def test_cache_slot_tensor_is_range_checked():

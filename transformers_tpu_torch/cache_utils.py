@@ -9,7 +9,11 @@ Unlike the JAX cache, which is immutable and returns a new cache from every
 update, this cache is updated IN PLACE: ``update`` writes into the
 preallocated buffers, and the fused decode kernel writes slot ``pos`` itself.
 That kernel reads ``pos`` from device memory: the cache owns the one-element
-int32 slot tensor it reads (``slot_tensor``), set once per decode step.
+int32 slot tensor it reads (``slot``). An eager caller passes the step's slot
+as an int (``slot_tensor`` sets the tensor once per step); a decode loop on
+the device sets it once (``device_slot``) and advances it at the end of each
+step (``advance_slot``), so a captured CUDA graph of the step replays at the
+slot the tensor holds.
 Sliding-window layers keep a full-length buffer; the window is enforced by
 the attention mask.
 """
@@ -32,11 +36,15 @@ class StaticKVCache:
         self.slot = torch.zeros(1, dtype=torch.int32, device=keys[0].device if keys else None)
         self._slot_pos: Optional[int] = None  # the value ``slot`` holds
 
-    def slot_tensor(self, pos: int) -> torch.Tensor:
+    def slot_tensor(self, pos) -> torch.Tensor:
         """The decode step's cache slot ``pos`` as the fused decode kernel reads
-        it: ``slot``, a one-element int32 tensor on the cache's device. Every
+        it: a one-element int32 tensor on the cache's device. A tensor ``pos``
+        is that already (``slot`` itself, in a decode loop on the device) and
+        is returned as it is: its value is never read here. For an int, every
         layer of a step asks for the same ``pos``; the first ask of a new one
-        range-checks it and sets the tensor with one ``fill_``."""
+        range-checks it and sets ``slot`` with one ``fill_``."""
+        if isinstance(pos, torch.Tensor):
+            return pos
         if pos != self._slot_pos:
             if not 0 <= pos < self.max_len:
                 raise ValueError(f"cache slot {pos} outside [0, {self.max_len})")
@@ -44,10 +52,33 @@ class StaticKVCache:
             self._slot_pos = pos
         return self.slot
 
-    def update(self, layer_idx: int, k: torch.Tensor, v: torch.Tensor, pos: int) -> None:
+    def device_slot(self, pos: int) -> torch.Tensor:
+        """``slot`` set to ``pos`` (range-checked) as the clock of a decode loop
+        that advances it on the device (``advance_slot``); the host forgets
+        the value, so a later ``slot_tensor(int)`` sets the tensor again."""
+        if not 0 <= pos < self.max_len:
+            raise ValueError(f"cache slot {pos} outside [0, {self.max_len})")
+        self.slot.fill_(pos)
+        self._slot_pos = None
+        return self.slot
+
+    def advance_slot(self) -> None:
+        """``slot += 1`` on the device: the last op of a decode step."""
+        self.slot.add_(1)
+        self._slot_pos = None
+
+    def update(self, layer_idx: int, k: torch.Tensor, v: torch.Tensor, pos) -> None:
         """Write k/v given as [B, S, KVH, D] (the projection layout) at slots
-        ``pos .. pos + S - 1``, in place."""
+        ``pos .. pos + S - 1``, in place. ``pos`` an int, or for one token a
+        one-element tensor on the cache's device (not read back)."""
         s = k.shape[1]
+        if isinstance(pos, torch.Tensor):
+            if s != 1:
+                raise ValueError("a tensor cache position writes one token")
+            idx = pos.reshape(1).long()
+            for buf, new in ((self.keys[layer_idx], k), (self.values[layer_idx], v)):
+                buf.index_copy_(2, idx, new.transpose(1, 2).to(buf.dtype))
+            return
         self.keys[layer_idx][:, :, pos:pos + s] = k.transpose(1, 2)
         self.values[layer_idx][:, :, pos:pos + s] = v.transpose(1, 2)
 

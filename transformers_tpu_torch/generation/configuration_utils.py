@@ -56,6 +56,10 @@ class GenerationConfig:
         self.return_dict_in_generate = kwargs.pop("return_dict_in_generate", False)
         # prompts are left-padded to a multiple of this length (shape buckets)
         self.prompt_pad_multiple = kwargs.pop("prompt_pad_multiple", 64)
+        # when set, the cache and the captured decode step are sized for
+        # max_new_tokens padded to this multiple, and the actual max_new_tokens
+        # is only the loop's bound: lengths within one multiple share them
+        self.decode_pad_multiple = kwargs.pop("decode_pad_multiple", None)
         kwargs.pop("transformers_version", None)
         kwargs.pop("transformers_tpu_version", None)
         self._extra = kwargs

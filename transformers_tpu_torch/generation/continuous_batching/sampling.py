@@ -61,24 +61,35 @@ class RowSampling:
     count: torch.Tensor        # int64: tokens committed before this draw
     filtered: bool             # some row asks for top-k or top-p
 
-    @classmethod
-    def from_requests(cls, reqs: Sequence, counts: Sequence[int], device,
-                      rows: Optional[int] = None) -> Optional["RowSampling"]:
-        """Parameters of ``reqs`` (RequestState), padded to ``rows`` greedy
-        rows; None when every request is greedy."""
+    @staticmethod
+    def host_values(reqs: Sequence, counts: Sequence[int],
+                    rows: Optional[int] = None) -> Optional[dict]:
+        """The fields of ``reqs`` (RequestState) as host lists, padded to
+        ``rows`` greedy rows, and ``filtered``; None when every request is
+        greedy."""
         if all(not r.temperature or r.temperature <= 0 for r in reqs):
             return None
         pad = (rows or len(reqs)) - len(reqs)
-        temps = [max(float(r.temperature or 0.0), 0.0) for r in reqs] + [0.0] * pad
         top_k = [int(r.top_k or 0) for r in reqs] + [0] * pad
         top_p = [float(r.top_p if r.top_p is not None else 1.0) for r in reqs] + [1.0] * pad
-        packed = torch.tensor([temps, top_p], dtype=torch.float32)
-        ints = torch.tensor([top_k, [int(r.seed) for r in reqs] + [0] * pad,
-                             list(counts) + [0] * pad], dtype=torch.int64)
+        return {"temperature": [max(float(r.temperature or 0.0), 0.0) for r in reqs] + [0.0] * pad,
+                "top_k": top_k, "top_p": top_p, "seed": [int(r.seed) for r in reqs] + [0] * pad,
+                "count": list(counts) + [0] * pad,
+                "filtered": any(k > 0 for k in top_k) or any(p < 1.0 for p in top_p)}
+
+    @classmethod
+    def from_requests(cls, reqs: Sequence, counts: Sequence[int],
+                      device) -> Optional["RowSampling"]:
+        """Parameters of ``reqs`` (RequestState) on ``device``; None when every
+        request is greedy."""
+        v = cls.host_values(reqs, counts)
+        if v is None:
+            return None
+        packed = torch.tensor([v["temperature"], v["top_p"]], dtype=torch.float32)
+        ints = torch.tensor([v["top_k"], v["seed"], v["count"]], dtype=torch.int64)
         packed, ints = packed.to(device), ints.to(device)
         return cls(temperature=packed[0], top_p=packed[1], top_k=ints[0], seed=ints[1],
-                   count=ints[2], filtered=any(k > 0 for k in top_k) or any(
-                       p < 1.0 for p in top_p))
+                   count=ints[2], filtered=v["filtered"])
 
 
 def sample_tokens(logits: torch.Tensor, sampling: Optional[RowSampling],

@@ -14,7 +14,9 @@ attends over the local k/v through the registry, whose default is the flash
 kernel (ops/flash_attention.py); a single-token step over the static cache
 goes through the fused decode kernel (ops/fused_decode.py) whenever the
 family uses plain rotate-half rope and the shapes fit, at every batch size;
-any other step over the static cache takes ``cached_attention_bhsd``.
+any other step over the static cache takes ``cached_attention_bhsd``. A
+static decode step's ``cache_position`` is the int slot or, in a decode loop
+on the device, the cache's one-element slot tensor, which no step reads back.
 
 Over a paged cache (continuous batching, ``layout == "paged"``), where
 ``cache_position`` is a per-row tensor ([1, 1] for a prefill chunk, [N, 1]
@@ -150,14 +152,15 @@ class LlamaAttention(nn.Module):
         if (kv_valid is None or k_cache.dtype != self.dtype
                 or not fused_decode_supported(q, k_cache)):
             return None
-        pos = int(cache_position)
+        # the step's slot on the device: never read back, so a captured graph
+        # of the step replays at whatever slot the tensor holds
+        pos = cache.slot_tensor(cache_position)
         # first live slot: the first valid one (0 for an all-zero row), moved
         # up to the window's start on sliding layers
         start = kv_valid.ne(0).to(torch.int32).argmax(dim=-1)
         if self.sliding_window is not None:
-            start = start.clamp_min(pos + 1 - self.sliding_window)
-        return fused_decode_attention(q, k, v, cos, sin, k_cache, v_cache,
-                                      cache.slot_tensor(pos), start, kv_valid,
+            start = torch.maximum(start, pos + (1 - self.sliding_window))
+        return fused_decode_attention(q, k, v, cos, sin, k_cache, v_cache, pos, start, kv_valid,
                                       scale=float(self.scale))
 
     def _paged_decode_ok(self, q, kwargs, cache) -> bool:

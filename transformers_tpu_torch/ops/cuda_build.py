@@ -7,17 +7,25 @@ library's file name carries a hash of the sources and flags, so an edited
 source is rebuilt and a stale build is never loaded. Nothing is built or
 loaded when this module is imported: the CPU tests import every module on a
 machine without ``nvcc``.
+
+Each kernel wrapper counts its launches in its ``launches`` attribute
+(``counted``). A captured CUDA graph runs no Python when it is replayed, so
+``CountedGraph`` keeps those counts exact under replay: a capture's rise is
+taken back and added again at every replay.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -92,6 +100,89 @@ def kernel_fn(name: str, symbol: str, argtypes: tuple):
     fn.restype = ctypes.c_int
     return fn
 
+
+_COUNTED: list = []  # the kernel wrappers, each counting its launches in ``launches``
+
+
+def counted(wrapper):
+    """Register ``wrapper``, whose ``launches`` attribute (set to 0 here) it
+    raises by one where it launches its kernel."""
+    wrapper.launches = 0
+    _COUNTED.append(wrapper)
+    return wrapper
+
+
+class CountedGraph:
+    """A CUDA graph whose replays keep the wrappers' launch counts exact.
+
+    A capture runs each wrapper's Python once and launches nothing; a replay
+    launches the captured kernels and runs no Python. So ``capture`` records
+    how far each count rose while capturing and takes that back, and
+    ``replay`` adds it at every replay. ``generator``: a CUDA generator whose
+    draws the graph captures (registered before the capture; each replay
+    advances it as the eager calls would)."""
+
+    def __init__(self, generator: Optional[torch.Generator] = None):
+        self.graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            self.graph.register_generator_state(generator)
+        self.launches: dict = {}  # wrapper -> launches of one replay
+        self.capture_ms: Optional[float] = None  # host time of the capture
+
+    @contextlib.contextmanager
+    def capture(self, stream: Optional[torch.cuda.Stream] = None):
+        before = [w.launches for w in _COUNTED]
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(self.graph, stream=stream):
+                yield
+        finally:
+            self.capture_ms = (time.perf_counter() - t0) * 1e3
+            for w, n in zip(_COUNTED, before):
+                if w.launches != n:
+                    self.launches[w] = w.launches - n
+                    w.launches = n
+
+    def capture_after_run(self, run, captured=None) -> tuple:
+        """``run()`` for real on a side stream, so that what a first call sets
+        up (cuBLAS workspaces, kernel libraries, the decode kernels' tickets)
+        exists before the capture; then ``captured()`` (``run`` by default)
+        captured on that stream. Returns (``run()``'s result, the captured
+        call's result: the graph's output, written by each replay)."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            result = run()
+        torch.cuda.current_stream().wait_stream(side)
+        with self.capture(stream=side):
+            out = (captured or run)()
+        return result, out
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for w, n in self.launches.items():
+            w.launches += n
+
+
+def read_back(t: torch.Tensor) -> torch.Tensor:
+    """``t`` on the host: a decode loop's deliberate read. On the card, a copy
+    into pinned memory on the current stream and a wait on an event recorded
+    after it. ``torch.cuda.set_sync_debug_mode`` flags stream and device
+    synchronisations and copies to pageable memory, not this wait, so under
+    that mode a loop's reads other than these raise. Counted in
+    ``read_back.reads``."""
+    read_back.reads += 1
+    if t.device.type != "cuda":
+        return t.clone()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    done.synchronize()
+    return host
+
+
+read_back.reads = 0
 
 _TICKETS: dict = {}  # device -> the decode kernels' ticket buffer
 _RETIRED: list = []  # outgrown ticket buffers, kept: a captured graph may still point at one

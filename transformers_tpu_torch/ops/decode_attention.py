@@ -158,4 +158,4 @@ def decode_attention(q, k, v, valid_start, valid_end, *, scale: float,
     raise ValueError(f"decode_attention runs on cuda or cpu, not {q.device}")
 
 
-decode_attention.launches = 0
+cuda_build.counted(decode_attention)

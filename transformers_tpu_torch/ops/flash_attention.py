@@ -299,6 +299,6 @@ def flash_attention(q, k, v, *, q_positions=None, kv_valid=None, scale: Optional
     return (out, lse) if return_lse else out
 
 
-flash_attention.launches = 0
-flash_bwd_dq.launches = 0
-flash_bwd_dkv.launches = 0
+cuda_build.counted(flash_attention)
+cuda_build.counted(flash_bwd_dq)
+cuda_build.counted(flash_bwd_dkv)

@@ -15,8 +15,8 @@ chunked ``_fused_decode_kernel``). One call per layer per decode step does:
 there, as the Pallas kernel reads it by scalar prefetch: a captured CUDA
 graph of the step replays at whatever slot the tensor holds. A Python int is
 accepted too (the wrapper then makes that tensor). The static cache owns one
-such tensor and sets it once per decode step
-(``StaticKVCache.slot_tensor``).
+such tensor (``StaticKVCache.slot``): ``generate()``'s decode loop sets it
+once and each (captured) step advances it on the card.
 
 Rope is computed in f32 on the values cast to q's dtype and rounded once to
 that dtype, as the Pallas kernel does; the unfused path ropes in the compute
@@ -199,4 +199,4 @@ def fused_decode_attention(q, k_new, v_new, cos, sin, k_cache, v_cache,
     raise ValueError(f"fused_decode_attention runs on cuda or cpu, not {q.device}")
 
 
-fused_decode_attention.launches = 0
+cuda_build.counted(fused_decode_attention)

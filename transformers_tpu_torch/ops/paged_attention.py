@@ -278,5 +278,5 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, ctx_lens, *, scale: 
     raise ValueError(f"paged_decode_attention runs on cuda or cpu, not {q.device}")
 
 
-paged_decode_attention.launches = 0
-paged_decode_combine.launches = 0
+cuda_build.counted(paged_decode_attention)
+cuda_build.counted(paged_decode_combine)
