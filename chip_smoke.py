@@ -8,8 +8,9 @@ Phases, in order; any failure exits non-zero:
 (a) build every CUDA kernel from ``transformers_tpu_torch/csrc`` (one nvcc per
     source, all at once), print the card's name and power limit, and each
     tensor-core flash-forward and split-KV decode build's (K2, K6, K7)
-    registers, shared memory and spills from ``nvcc -Xptxas -v``; a K2 or K7
-    build that spills fails the run;
+    registers, shared memory and spills from ``nvcc -Xptxas -v``, and those
+    of the quantized product's builds (Q1, Q2) by name; a K2 or K7 build
+    that spills fails the run;
 (b) hold each kernel against its plain PyTorch version at the main paths'
     shapes, in bf16, and time the kernel, the plain version and one PyTorch
     library call that computes the same function (a yardstick only: the port
@@ -31,7 +32,15 @@ Phases, in order; any failure exits non-zero:
     timed at those training shapes too, beside SDPA's forward. The paged
     decode (K6, split-KV, with its merge kernel) is also held on contexts of
     2000-4000 slots and run twice at the continuous-batching shape (the
-    outputs must be equal bit for bit);
+    outputs must be equal bit for bit). The weight-only quantized product
+    (Q1 ``quantized_matmul`` from the codes, Q2 ``widen_codes`` then
+    ``torch.mm``) is held against the plain ``quantized_dot`` for int8, int4
+    and fp8 codes x bf16, f16 and f32 activations at the four Llama-3-8B
+    projection shapes and 1, 3, 8 and 16 rows (Q2 also 256), plus int4 rows
+    with a tail past the last whole tile; Q1 is timed at 8 and 16 rows beside
+    its bound, bf16 ``F.linear`` and the plain versions, each weight read
+    from device memory, and Q1 and Q2's route are swept over 1-64 rows (the
+    sweep that set ``ROW_THRESHOLD``);
 (c) the static-cache path at the Llama-3-8B geometry in bf16 with random
     weights from ``--seed``: a full-width, 2-layer checkpoint written with the
     port's safetensors writer and read back by ``from_pretrained``; then
@@ -57,6 +66,20 @@ Phases, in order; any failure exits non-zero:
     check; launch counts checked against the engine's own count of prefill
     chunks and decode steps; a few finished requests teacher-forced through
     the plain path;
+(f) (run after (d), while its model is alive) weight-only quantization: the
+    32-layer model's weights quantized to int8 on the card, the JAX bench's
+    serving leg: ``generate`` at batch 16 (prompt 128 left-padded by PADS
+    twice over, 32 new tokens, greedy), graph against the uncaptured step
+    loop bitwise with exact launches (Q1 224 per decode step from the
+    replays, Q2 224 per prefill, K2 32 per step), no Q2 and no dense copy of
+    a quantized weight in the decode step; int8 and bf16 (the same weights)
+    at batch 16 timed in turns and profiled; the int8 path's teacher-forced
+    logits held to the plain path against a float32 run of the same codes;
+    phase (d)'s traffic through int8 engines (graph and uncaptured, 16
+    steps per sync), tokens equal, launches exact per decode step and
+    prefill chunk; then 4 layers of the same width with int4 and fp8
+    weights (graph against step loop, logits held) and with int8 weights
+    over the int8 KV cache (``cache_implementation="quantized"``);
 (e) training at the same width, depth cut to 4 layers (f32 weights, bf16
     compute, random from ``--seed``), after (c)/(d)'s model is freed: layer 0's
     q/k/v gradients and the loss of one row through the kernel path held
@@ -66,8 +89,9 @@ Phases, in order; any failure exits non-zero:
     memory and a profiled step; then one step with gradient checkpointing
     (K1 twice per layer).
 
-Prints one ``{"kernels": [...]}`` line, the card's name and power limit, and
-ends with ``{"ok": true, "device": {...}}``. Needs one CUDA card.
+Prints one ``{"kernels": [...]}`` line, the smoke's total seconds, the card's
+name and power limit, and ends with ``{"ok": true, "device": {...}}``. Needs
+one CUDA card.
 """
 
 from __future__ import annotations
@@ -239,6 +263,9 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 # the builds this script reports one by one (the others as a summary per library)
 REPORTED_BUILDS = ("flash_fwd_tc_kernel", "paged_split_kernel", "paged_combine_kernel",
                    "fused_decode_kernel", "static_decode_kernel")
+# the builds reported as one line each (one instantiation per code type,
+# activation type and row tile)
+SUMMED_BUILDS = ("quantized_linear_kernel", "widen_codes_kernel")
 # the split-KV decode builds (K2, K7) must not spill
 NO_SPILL_BUILDS = ("fused_decode_kernel", "static_decode_kernel")
 
@@ -301,7 +328,15 @@ def phase_build() -> dict:
         spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill", log))
         print(f"[build] {name}: {len(regs)} kernels, registers {min(regs)}-{max(regs)}, "
               f"static smem up to {max(smem)} bytes, spill bytes {spills}")
-        for b in ptxas_builds(log):
+        builds = ptxas_builds(log)
+        for kernel in SUMMED_BUILDS:
+            group = [b for b in builds if kernel in b["name"]]
+            if group:
+                print(f"[build]   {kernel}: {len(group)} instantiations, registers "
+                      f"{min(b['regs'] for b in group)}-{max(b['regs'] for b in group)}, spill "
+                      f"bytes {sum(b['spill'] for b in group)} (in "
+                      f"{sum(1 for b in group if b['spill'])} of them)")
+        for b in builds:
             if any(k in b["name"] for k in REPORTED_BUILDS):
                 print(f"[build]   {b['name']}: {b['regs']} registers, static smem {b['smem']} "
                       f"bytes, spill bytes {b['spill']}")
@@ -1106,6 +1141,236 @@ def check_reference_cases(gen) -> None:
               f"{err:.3e} over {n_cases[kernel]} cases (tol {tol})")
 
 
+# Q1 / Q2: the seven projections of a Llama-3-8B layer come in four shapes (N x K)
+QUANT_SHAPES = ((4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336))
+QUANT_ROWS = (1, 3, 8, 16)  # decode rows: batch 1, ragged 3, 8 and 16
+QUANT_PREFILL_ROWS = 256  # Q2's route at a prefill's rows (a CB chunk is at most 128)
+QUANT_SWEEP_ROWS = (1, 2, 4, 8, 16, 32, 64)
+# the shape and rows of the kernels line's numbers: gate/up at the batch-16 decode step
+QUANT_MAIN_SHAPE, QUANT_MAIN_ROWS = (14336, 4096), 16
+L2_BYTES = 50 * 1024 ** 2
+
+
+# Q1 / Q2 outputs (x ~ N(0, 1), weights ~ N(0, 1/K)) have a standard deviation
+# of ~1 and reach ~5. Both sides sum in f32 and round once, so they may differ
+# by one rounding step of the activation type: each output is held to
+# grad_ratio at most 1 (u = GRAD_ULP, one step of its own size), and the
+# absolute TOLERANCE holds where it is set for, below QUANT_ATOL_RANGE (one
+# step of bf16 at 2-4 is 2^-6 < 2e-2; at 4-8 it is 2^-5, above it).
+QUANT_ATOL_RANGE = 4.0
+
+
+def _quantized_weights(gen, n, k, method):
+    """Codes and scale of an [n, k] weight of N(0, 1/k) entries."""
+    from transformers_tpu_torch.quantizers import get_quantizer
+    from transformers_tpu_torch.quantizers.weight_only import (Fp8WeightOnlyConfig,
+                                                               Int4WeightOnlyConfig,
+                                                               Int8WeightOnlyConfig)
+
+    cfg = {"int8": Int8WeightOnlyConfig, "int4": Int4WeightOnlyConfig,
+           "fp8": Fp8WeightOnlyConfig}[method]()
+    w = torch.randn((n, k), generator=gen, device="cuda") * k ** -0.5
+    return get_quantizer(cfg).quantize_tensor("w", w)
+
+
+def _cold(make, nbytes: int) -> list:
+    """Enough copies of a weight (``make(i)``) that cycling through them moves
+    more than the L2 cache holds, so each call reads its weight from device
+    memory as a decode step's 224 different weights do."""
+    return [make(i) for i in range(max(1, -(-2 * L2_BYTES // nbytes)))]
+
+
+def _cycled(fn, items):
+    """``fn(item)`` over ``items`` in turn, one per call (captured in order)."""
+    it = [0]
+
+    def call():
+        fn(items[it[0] % len(items)])
+        it[0] += 1
+    return call
+
+
+def check_wide_buffer_replay(gen) -> None:
+    """A graph of Q2's route (above ROW_THRESHOLD rows, as a decode step of a
+    large batch captures it), replayed after a later call grew Q2's buffer:
+    its output equals the eager call's, and memory allocated since the growth
+    keeps its contents. That memory is blocks of the outgrown buffer's size,
+    taken until the allocator has to reserve more: a freed buffer would be
+    among them, or cut into them."""
+    from transformers_tpu_torch.ops import cuda_build
+    from transformers_tpu_torch.ops import quantized_linear as ql
+
+    torch.cuda.empty_cache()
+    n, k = 1024, 4096
+    codes, scale = _quantized_weights(gen, n, k, "int8")
+    x = torch.randn((2 * ql.ROW_THRESHOLD, k), generator=gen, device="cuda").to(torch.bfloat16)
+    # sized first on this stream: the allocator hands a stream's freed blocks
+    # to that stream, and the fillers below come from this one
+    ql.quantized_linear(x, codes, scale, in_features=k)
+    graph = cuda_build.CountedGraph()
+    eager, y = graph.capture_after_run(lambda: ql.quantized_linear(x, codes, scale,
+                                                                   in_features=k))
+    old = ql._WIDE[(x.device, torch.bfloat16)]
+    old_numel, rows = old.numel(), old.numel() // k + 8
+    big, big_scale = _quantized_weights(gen, rows, k, "int8")
+    ql.quantized_linear(x, big, big_scale, in_features=k)  # grows the buffer
+    if ql._WIDE[(x.device, torch.bfloat16)].numel() <= old_numel:
+        raise AssertionError("Q2's buffer did not grow")
+    del big, big_scale, old
+    fillers = []
+    while len(fillers) < 256:
+        reserved = torch.cuda.memory_reserved()
+        fillers.append(torch.full((old_numel,), 7.0, dtype=torch.bfloat16, device="cuda"))
+        if torch.cuda.memory_reserved() > reserved:
+            break
+    y.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    kept = all(bool((f == 7.0).all()) for f in fillers)
+    same = torch.equal(y, eager)
+    print(f"[quantized] Q2 graph replayed after its buffer grew: output == eager {same}, "
+          f"{len(fillers)} blocks allocated since untouched {kept}")
+    if not (same and kept):
+        raise AssertionError("a graph of Q2's route replays into a buffer it no longer owns")
+
+
+def check_quantized_linear(gen) -> list:
+    """Q1 (quantized_matmul) and Q2 (widen_codes, then torch.mm) against the
+    plain ``quantized_dot`` for each code type (int8, int4, fp8) and
+    activation type (bf16, f16, f32) at the four Llama-3-8B projection shapes
+    and 1, 3, 8 and 16 rows (Q2 also at a prefill's 256), plus int4 at K =
+    4104 (8 values past the last whole 512-value tile, not a multiple of a
+    16-byte vector of 32 values); held element by element to one rounding
+    step (``grad_ratio``) and to TOLERANCE below QUANT_ATOL_RANGE, since both
+    sides sum in f32 and round once. Then a graph of Q2's route replayed
+    after Q2's buffer grew, the times at the main shape, and the rows sweep
+    that set ROW_THRESHOLD."""
+    import torch.nn.functional as F
+
+    from transformers_tpu_torch.ops import quantized_linear as ql
+    from transformers_tpu_torch.quantizers.weight_only import (dequantize_int8, quantized_dot,
+                                                               unpack_int4_codes)
+
+    def plain(x, codes, scale, k):
+        w = unpack_int4_codes(codes) if ql.code_type(codes, k) == "int4" else codes
+        return quantized_dot(x, w, scale, x.dtype)
+
+    worst = {}
+    cases = [(n, k, m) for n, k in QUANT_SHAPES for m in QUANT_ROWS]
+    for method in ("int8", "int4", "fp8"):
+        extra = [(512, 4104, 3), (512, 4104, 16)] if method == "int4" else []
+        weights = {}
+        for n, k, m in cases + extra:
+            if (n, k) not in weights:
+                weights[(n, k)] = _quantized_weights(gen, n, k, method)
+            codes, scale = weights[(n, k)]
+            for dtype in (torch.bfloat16, torch.float16, torch.float32):
+                for rows, route in ((m, "q1"), (m, "q2"), (QUANT_PREFILL_ROWS, "q2")):
+                    if rows == QUANT_PREFILL_ROWS and m != QUANT_ROWS[-1]:
+                        continue
+                    x = torch.randn((rows, k), generator=gen, device="cuda").to(dtype)
+                    ref = plain(x, codes, scale, k)
+                    out = (ql.quantized_matmul(x, codes, scale, k) if route == "q1"
+                           else ql._widened_matmul(x, codes, scale, k))
+                    torch.cuda.synchronize()
+                    in_range = ref.float().abs() < QUANT_ATOL_RANGE
+                    err = float((out.float() - ref.float()).abs()[in_range].max())
+                    ratio = grad_ratio(out, ref, GRAD_ULP[dtype])
+                    key = (route, method, str(dtype).replace("torch.", ""))
+                    w_err, w_ratio, w_ref = worst.get(key, (0.0, 0.0, 0.0))
+                    worst[key] = (max(w_err, err), max(w_ratio, ratio),
+                                  max(w_ref, float(ref.float().abs().max())))
+                    if not (err <= TOLERANCE[dtype] and ratio <= 1.0
+                            and bool(torch.isfinite(out).all())):
+                        raise AssertionError(f"{route} {method} {dtype} N={n} K={k} M={rows}: "
+                                             f"max_abs_err {err:.3e} (tol {TOLERANCE[dtype]}) "
+                                             f"below |{QUANT_ATOL_RANGE}|, grad_ratio "
+                                             f"{ratio:.3f} (at most 1)")
+        del weights
+    for (route, method, dtype), (err, ratio, top) in sorted(worst.items()):
+        print(f"[quantized] {route} {method} x {dtype}: max_abs_err {err:.3e} where |plain| < "
+              f"{QUANT_ATOL_RANGE} (tol {TOLERANCE[getattr(torch, dtype)]}), worst |err| / "
+              f"(u |plain| + u/2 rms) {ratio:.3f} at u = {GRAD_ULP[getattr(torch, dtype)]:.3g} "
+              f"(at most 1), largest |plain| {top:.2f}, over N x K in {QUANT_SHAPES}, M in "
+              f"{QUANT_ROWS} (q2 also {QUANT_PREFILL_ROWS})"
+              + (", int4 K=4104" if method == "int4" else ""))
+    check_wide_buffer_replay(gen)
+
+    # times, each weight read from device memory (copies cycled past the L2)
+    by_shape = {}
+    for n, k in QUANT_SHAPES:
+        codes_list = _cold(lambda i: _quantized_weights(gen, n, k, "int8"), n * k)
+        dense = _cold(lambda i: (torch.randn((n, k), generator=gen, device="cuda")
+                                       * k ** -0.5).to(torch.bfloat16), 2 * n * k)
+        row = {}
+        for m in (8, 16):
+            x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+            q1 = device_ms(_cycled(lambda cs: ql.quantized_matmul(x, cs[0], cs[1], k), codes_list))
+            lib = device_ms(_cycled(lambda w: F.linear(x, w), dense))
+            plain_ms = device_ms(_cycled(lambda cs: plain(x, cs[0], cs[1], k), codes_list))
+            deq = device_ms(_cycled(lambda cs: F.linear(x, dequantize_int8(
+                cs[0], cs[1], torch.bfloat16)), codes_list))
+            nbytes = n * k + n * 4 + m * (k + n) * 2
+            bms, by = bound_ms(nbytes, 2.0 * m * n * k)
+            row[m] = dict(ms=q1, bound_ms=bms, bound_by=by, library_ms=lib, plain_ms=plain_ms,
+                          dequant_linear_ms=deq)
+            print(f"[quantized] Q1 int8 x bf16 N={n} K={k} M={m}: {q1:.4f} ms, bound {bms:.4f} ms "
+                  f"({by}), bf16 F.linear {lib:.4f} ms, plain quantized_dot {plain_ms:.4f} ms, "
+                  f"dequantize then F.linear {deq:.4f} ms")
+        by_shape[f"{n}x{k}"] = row
+        del codes_list, dense
+
+    # the rows sweep: Q1 against Q2's route (widening, then torch.mm) at each shape
+    sweep = {}
+    for n, k in QUANT_SHAPES:
+        codes_list = _cold(lambda i: _quantized_weights(gen, n, k, "int8"), n * k)
+        times = []
+        for m in QUANT_SWEEP_ROWS:
+            x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+            q1 = device_ms(_cycled(lambda cs: ql.quantized_matmul(x, cs[0], cs[1], k), codes_list))
+            q2 = device_ms(_cycled(lambda cs: ql._widened_matmul(x, cs[0], cs[1], k), codes_list))
+            times.append((m, q1, q2))
+        sweep[f"{n}x{k}"] = {m: (q1, q2) for m, q1, q2 in times}
+        crossover = next((m for m, q1, q2 in times if q1 > q2), None)
+        print(f"[quantized] sweep N={n} K={k} (int8 x bf16), M: Q1 ms / Q2 route ms: "
+              + ", ".join(f"{m}: {q1:.4f}/{q2:.4f}" for m, q1, q2 in times)
+              + f"; Q1 first slower at M={crossover} (ROW_THRESHOLD {ql.ROW_THRESHOLD})")
+        del codes_list
+
+    n, k = QUANT_MAIN_SHAPE
+    main = by_shape[f"{n}x{k}"][QUANT_MAIN_ROWS]
+    q1_entry = dict(name="quantized_matmul", route="cuda",
+                    source="transformers_tpu_torch/csrc/quantized_linear.cu",
+                    replaces="transformers_tpu/quantizers/weight_only.py:104 (quantized_dot, no "
+                             "pallas_call: XLA fuses the widening into the dot)",
+                    max_abs_err=max(e for (r, *_), (e, *_) in worst.items() if r == "q1"),
+                    ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                    bound_by=main["bound_by"], library_ms=main["library_ms"],
+                    shape=f"int8 x bf16, N={n} K={k} M={QUANT_MAIN_ROWS}",
+                    note="library_ms: bf16 F.linear at the same shape (no PyTorch call "
+                         "multiplies int8 codes by bf16 activations)",
+                    by_shape=by_shape, sweep_q1_q2_ms=sweep)
+    codes_list = _cold(lambda i: _quantized_weights(gen, n, k, "int8"), n * k)
+    wms = device_ms(_cycled(lambda cs: ql.widen_codes(cs[0], k, torch.bfloat16), codes_list))
+    wplain = device_ms(_cycled(lambda cs: ql.widen_codes_plain(cs[0], k, torch.bfloat16),
+                               codes_list))
+    wlib = device_ms(_cycled(lambda cs: cs[0].to(torch.bfloat16), codes_list))
+    wbms, wby = bound_ms(n * k * 3, 0.0)
+    del codes_list
+    q2_entry = dict(name="widen_codes", route="cuda",
+                    source="transformers_tpu_torch/csrc/quantized_linear.cu",
+                    replaces="transformers_tpu/quantizers/weight_only.py:104 (quantized_dot's "
+                             "operand widening, fused by XLA; no pallas_call)",
+                    max_abs_err=max(e for (r, *_), (e, *_) in worst.items() if r == "q2"),
+                    ms=wms, plain_ms=wplain, bound_ms=wbms, bound_by=wby, library_ms=wlib,
+                    shape=f"int8 -> bf16, N={n} K={k}",
+                    note="library_ms: codes.to(torch.bfloat16); max_abs_err: the whole route "
+                         "(widening, torch.mm, scale) against quantized_dot")
+    print(f"[quantized] Q2 widen int8 -> bf16 N={n} K={k}: {wms:.4f} ms, bound {wbms:.4f} ms "
+          f"({wby}), plain {wplain:.4f} ms, codes.to(bf16) {wlib:.4f} ms")
+    return [q1_entry, q2_entry]
+
+
 # --------------------------------------------------------------------- (c)
 def _wrappers() -> dict:
     from transformers_tpu_torch.ops.flash_attention import (flash_attention, flash_bwd_dkv,
@@ -1114,11 +1379,13 @@ def _wrappers() -> dict:
     from transformers_tpu_torch.ops.fused_decode import fused_decode_attention
     from transformers_tpu_torch.ops.paged_attention import (paged_decode_attention,
                                                             paged_decode_combine)
+    from transformers_tpu_torch.ops.quantized_linear import quantized_matmul, widen_codes
 
     return {"flash_fwd": flash_attention, "fused_decode": fused_decode_attention,
             "paged_decode": paged_decode_attention, "paged_decode_combine": paged_decode_combine,
             "flash_bwd_dkv": flash_bwd_dkv, "flash_bwd_dq": flash_bwd_dq,
-            "static_decode": decode_attention}
+            "static_decode": decode_attention, "quantized_matmul": quantized_matmul,
+            "widen_codes": widen_codes}
 
 
 def _expected(**counts) -> dict:
@@ -1203,9 +1470,12 @@ def no_host_sync():
 
 
 def _program_bytes(model) -> tuple:
-    """(bytes of the decode program's cache, of its other buffers)."""
+    """(bytes of the decode program's cache, scales of the int8 cache included;
+    of its other buffers)."""
     prog = model._decode_program
-    cache = sum(t.numel() * t.element_size() for t in prog.cache.keys + prog.cache.values)
+    c = prog.cache
+    cache = sum(t.numel() * t.element_size() for t in c.keys + c.values
+                + getattr(c, "key_scales", []) + getattr(c, "value_scales", []))
     bufs = sum(t.numel() * t.element_size() for t in (prog.ids, prog.mask, prog.rope_last,
                                                          prog.next_tok, prog.live, prog.finished))
     return cache, bufs
@@ -1411,7 +1681,7 @@ def profile_run(label: str, run, wall_ms: float, card: str) -> list:
     return kernels
 
 
-def teacher_force(model, seq, prompt_mask) -> None:
+def teacher_force(model, seq, prompt_mask, quant=None) -> None:
     """The generated sequence through the kernel path (prefill of all but the
     last token, then one decode step) and through the plain path (eager
     attention, no cache, no kernel), against the same model in float32 as
@@ -1429,22 +1699,46 @@ def teacher_force(model, seq, prompt_mask) -> None:
               cache_position=0, logits_to_keep=1)
         kernel = model(seq[:, -1:], attention_mask=mask, position_ids=pos[:, -1:],
                        past_key_values=cache, cache_position=total - 1).logits[:, -1].float()
-    [(plain_all, ref)] = plain_and_f32_logits(model, [(seq, mask, pos)])
+    [(plain_all, ref)] = plain_and_f32_logits(model, [(seq, mask, pos)], quant)
     plain = plain_all[:, -1].float()
     agree = float((plain_all[:, PROMPT - 1:-1].argmax(-1) == seq[:, PROMPT:]).float().mean())
     hold_to_plain("teacher-force", kernel, plain, ref,
                   f"greedy tokens = plain argmax at {agree:.3f} of generated positions")
 
 
-def plain_and_f32_logits(model, batches) -> list:
+@contextlib.contextmanager
+def plain_quantized():
+    """Quantized Linears compute through the plain ``quantized_dot`` (the codes
+    widened in f32 by PyTorch ops: no kernel) instead of Q1 / Q2."""
+    from transformers_tpu_torch.core import module
+    from transformers_tpu_torch.ops.quantized_linear import code_type
+    from transformers_tpu_torch.quantizers.weight_only import quantized_dot, unpack_int4_codes
+
+    real = module.quantized_linear
+
+    def plain(x, codes, scale, *, in_features):
+        w = unpack_int4_codes(codes) if code_type(codes, in_features) == "int4" else codes
+        y = quantized_dot(x.reshape(-1, in_features), w, scale, x.dtype)
+        return y.reshape(*x.shape[:-1], codes.shape[0])
+
+    module.quantized_linear = plain
+    try:
+        yield
+    finally:
+        module.quantized_linear = real
+
+
+def plain_and_f32_logits(model, batches, quant=None) -> list:
     """For each (ids, mask, positions) batch: the logits of every position
-    through the plain path (eager attention, no cache, no kernel) of
-    ``model``, and the last position's logits of the same model in float32
-    (the reference)."""
-    from transformers_tpu_torch import LlamaForCausalLM
+    through the plain path (eager attention, no cache, no kernel; quantized
+    Linears through the plain ``quantized_dot``) of ``model``, and the last
+    position's logits of the same model in float32 (the reference; a model
+    quantized with ``quant`` keeps its codes and scales and computes the
+    quantized product in f32)."""
+    from transformers_tpu_torch import LlamaForCausalLM, quantize_params
 
     out = []
-    with torch.inference_mode():
+    with torch.inference_mode(), plain_quantized():
         _reset_counts()
         model.config.attn_implementation = "eager"
         for ids, mask, pos in batches:
@@ -1453,6 +1747,8 @@ def plain_and_f32_logits(model, batches) -> list:
         if any(_read_counts().values()):
             raise AssertionError("the plain path launched a kernel")
         ref_model = LlamaForCausalLM(model.config, dtype=torch.float32, device="cuda")
+        if quant is not None:
+            quantize_params(ref_model, quant)  # the layout; the codes come from ``model``
         ref_model.load_state_dict(model.state_dict())
         ref_model.config.attn_implementation = "eager"
         for item, (ids, mask, pos) in zip(out, batches):
@@ -1568,18 +1864,20 @@ def shifted(prompts, vocab: int, by: int) -> list:
     return [[(t - 1 + by) % (vocab - 1) + 1 for t in p] for p in prompts]
 
 
-def check_cb(model, seed: int, card: str) -> dict:
+def check_cb(model, seed: int, card: str) -> tuple:
     """Phase (d): continuous batching at full width on the 32-layer model, at
     one sync per step and one per 16, each with an engine whose decode steps
     replay captured graphs and one that runs them uncaptured. Each engine
     first serves the prompts shifted by one token id (its graphs are captured
     and cuBLAS warmed there, on the same schedule), then the measured prompts;
     the graph engines' decode calls run under ``no_host_sync``. Tokens of the
-    two engines must be equal for every request, launch counts exact."""
+    two engines must be equal for every request, launch counts exact. Returns
+    the launches at one sync per step and the graph engines' (generated
+    tokens/s, ms per device decode step) by steps per sync."""
     layers = model.config.num_hidden_layers
     vocab = model.config.vocab_size
     prompts = cb_prompts(seed, vocab)
-    outputs, warm, counts_by_sync, engines, walls = {}, {}, {}, {}, {}
+    outputs, warm, counts_by_sync, engines, walls, rates = {}, {}, {}, {}, {}, {}
     for steps in (1, 16):
         for graph in (True, False):
             name = "graph" if graph else "uncaptured"
@@ -1613,6 +1911,8 @@ def check_cb(model, seed: int, card: str) -> dict:
             walls[(steps, name)] = wall
             if graph:
                 counts_by_sync[steps] = counts
+                rates[steps] = (CB_REQUESTS * CB_NEW * 1e3 / wall,
+                                decode_ms / max(decode_steps, 1))
         same = (outputs[(steps, "graph")] == outputs[(steps, "uncaptured")]
                 and warm[(steps, "graph")] == warm[(steps, "uncaptured")])
         print(f"[cb] steps_per_sync={steps}: graph engine's tokens == uncaptured engine's for "
@@ -1630,7 +1930,7 @@ def check_cb(model, seed: int, card: str) -> dict:
                 lambda: run_cb(engines[(16, "graph")], shifted(prompts, vocab, 2), "prof"),
                 walls[(16, "graph")], card)
     teacher_force_cb(model, engines[(16, "graph")], prompts, outputs[(16, "graph")])
-    return counts_by_sync[1]
+    return counts_by_sync[1], rates
 
 
 def teacher_force_cb(model, engine, prompts, generated) -> None:
@@ -1661,6 +1961,338 @@ def teacher_force_cb(model, engine, prompts, generated) -> None:
     hold_to_plain("cb teacher-force", torch.cat(kernel), plain, ref,
                   f"requests {picks}; greedy tokens = plain argmax at {agree:.3f} of generated "
                   f"positions")
+
+
+# --------------------------------------------------------------------- (f)
+# quantized generate: the JAX bench's serving leg (int8 weight-only, batch 16)
+QUANT_BATCH = 16
+QUANT_SMALL_LAYERS = 4  # int4, fp8 and the int8 KV cache
+
+
+def quant_config(method: str):
+    from transformers_tpu_torch import (Fp8WeightOnlyConfig, Int4WeightOnlyConfig,
+                                        Int8WeightOnlyConfig)
+
+    return {"int8": Int8WeightOnlyConfig, "int4": Int4WeightOnlyConfig,
+            "fp8": Fp8WeightOnlyConfig}[method]()
+
+
+def build_quantized(seed: int, layers: int, method: str):
+    """The Llama-3-8B-geometry model of ``build_model`` (the same random bf16
+    weights at the same seed) cut to ``layers``, its Linear weights quantized
+    on the card, one tensor at a time."""
+    from transformers_tpu_torch import LlamaConfig, LlamaForCausalLM, quantize_params
+
+    cfg = LlamaConfig(**dict(GEOMETRY, num_hidden_layers=layers),
+                      max_position_embeddings=PROMPT + NEW, bos_token_id=None, eos_token_id=None,
+                      pad_token_id=0)
+    model = LlamaForCausalLM(cfg, dtype=torch.bfloat16, device="cuda").init_weights(seed)
+    quantize_params(model, quant_config(method))
+    torch.cuda.empty_cache()
+    return model
+
+
+def quant_inputs(seed: int, vocab: int) -> tuple:
+    """QUANT_BATCH prompts of PROMPT tokens, left-padded by PADS twice over."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    ids = torch.randint(1, vocab, (QUANT_BATCH, PROMPT), generator=gen, device="cuda")
+    pads = torch.tensor(PADS * (QUANT_BATCH // len(PADS)), device="cuda")
+    mask = (torch.arange(PROMPT, device="cuda")[None, :] >= pads[:, None]).to(torch.int32)
+    return ids.masked_fill(mask == 0, 0), mask
+
+
+def weight_bytes(model) -> tuple:
+    """(bytes of all weights, of the quantized Linears' codes and scales)."""
+    total = sum(p.numel() * p.element_size() for p in model.parameters())
+    quantized = sum(m.weight.numel() * m.weight.element_size()
+                    + m.weight_scale.numel() * m.weight_scale.element_size()
+                    for m in model.modules() if getattr(m, "weight_scale", None) is not None)
+    return total, quantized
+
+
+class WeightCopyWatch:
+    """Records each op, run inside ``watch()``, that makes a floating-point
+    tensor of at least ``numel`` elements: a dense copy of a quantized weight
+    (the smallest has 1024 x 4096 elements) would be one. Nothing else in a
+    decode step at batch 16 is that large."""
+
+    def __init__(self, numel: int):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils._pytree import tree_flatten
+
+        seen = self.seen = []
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                inputs = {t.untyped_storage().data_ptr()
+                          for t in tree_flatten((args, kwargs))[0] if isinstance(t, torch.Tensor)}
+                for t in tree_flatten(out)[0]:
+                    # a new tensor, not a view or the input itself (``.to`` of a weight
+                    # already in the compute type returns it)
+                    if isinstance(t, torch.Tensor) and t.is_floating_point() \
+                            and t.numel() >= numel \
+                            and t.untyped_storage().data_ptr() not in inputs:
+                        seen.append((str(func), tuple(t.shape), str(t.dtype)))
+                return out
+
+        self.mode = Mode
+
+    @contextlib.contextmanager
+    def watch(self):
+        with self.mode():
+            yield
+
+
+def _generate_runs(model, ids, mask):
+    kw = dict(attention_mask=mask, prompt_pad_multiple=PROMPT, decode_pad_multiple=NEW)
+
+    def graph(**extra):
+        return model.generate(ids, **kw, **extra)
+
+    def eager(**extra):
+        return model._generate(ids, graph=False, **kw, **extra)
+
+    return graph, eager
+
+
+def _first_call(model, graph, watch=None) -> dict:
+    """The signature's first call (prefill, one step for real, the capture,
+    replays), with each decode step run under ``watch``; what the program holds
+    afterwards."""
+    from transformers_tpu_torch.generation.utils import StaticDecode
+
+    model._decode_program = None
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    alloc0 = torch.cuda.memory_allocated()
+    step = StaticDecode.step
+    if watch is not None:
+        def watched(self, *args):
+            with watch.watch():
+                return step(self, *args)
+        StaticDecode.step = watched
+    try:
+        first = graph(max_new_tokens=NEW)
+    finally:
+        StaticDecode.step = step
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() - alloc0 - first.numel() * first.element_size()
+    cache_bytes, buf_bytes = _program_bytes(model)
+    return dict(first=first, held=held, cache=cache_bytes, bufs=buf_bytes,
+                capture_ms=model._decode_program.graph.capture_ms,
+                replay=dict(model._decode_program.graph.launches))
+
+
+def _graph_vs_step_loop(label, model, graph, eager, expected, **extra) -> tuple:
+    """The graph path (under ``no_host_sync``) and the uncaptured step loop on
+    the same inputs: ids bitwise equal, launch counts exact for both. Returns
+    the graph path's ids and its launch counts, read just after its run."""
+    runs = {}
+    for name, run in (("graph", graph), ("uncaptured", eager)):
+        _reset_counts()
+        if name == "graph":
+            with no_host_sync():
+                out = run(max_new_tokens=NEW, **extra)
+        else:
+            out = run(max_new_tokens=NEW, **extra)
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        if counts != expected:
+            raise AssertionError(f"{label} {name}: launches {counts}, expected {expected}")
+        runs[name] = out, counts
+    if not torch.equal(runs["graph"][0], runs["uncaptured"][0]):
+        raise AssertionError(f"{label}: the graph's ids differ from the uncaptured step loop's")
+    out, counts = runs["graph"]
+    if int(out.min()) < 0 or int(out.max()) >= model.config.vocab_size:
+        raise AssertionError(f"{label}: generated ids outside the vocabulary")
+    print(f"[quantized generate] {label}: graph == uncaptured step loop, bitwise (greedy, the "
+          f"graph's replays under set_sync_debug_mode('error')); launches {expected} for both")
+    return out, counts
+
+
+def check_quantized_generate(bf16_model, seed: int, card: str) -> tuple:
+    """Phase (f), first part: int8 weight-only generate at batch 16 on the
+    32-layer model, the JAX bench's serving leg: the graph path against the
+    uncaptured step loop, launches exact (Q1 224 per decode step from the
+    replays, Q2 224 per prefill, K2 32 per step), no Q2 and no dense copy of a
+    quantized weight in the decode step; then int8 and bf16 (``bf16_model``, the
+    same weights unquantized) timed in turns, and both profiled. Returns the
+    int8 path's launches, the int8 model and its generated ids and mask."""
+    layers = bf16_model.config.num_hidden_layers
+    ids, mask = quant_inputs(seed, bf16_model.config.vocab_size)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = build_quantized(seed, layers, "int8")
+    torch.cuda.synchronize()
+    total, quantized = weight_bytes(model)
+    bf16_total, _ = weight_bytes(bf16_model)
+    print(f"[quantized generate] int8 weight-only model built and quantized on the card in "
+          f"{time.perf_counter() - t0:.1f} s: weights {total / 1e9:.3f} GB ({quantized / 1e9:.3f} "
+          f"GB of int8 codes and f32 scales; bf16 embeddings, lm_head, norms), bf16 model "
+          f"{bf16_total / 1e9:.3f} GB ({card})")
+    runs = {"int8": _generate_runs(model, ids, mask), "bf16": _generate_runs(bf16_model, ids, mask)}
+    watch = WeightCopyWatch(1024 * 4096)
+    first = {"int8": _first_call(model, runs["int8"][0], watch),
+             "bf16": _first_call(bf16_model, runs["bf16"][0])}
+    replay = first["int8"]["replay"]
+    names = {w: n for n, w in _wrappers().items()}
+    per_replay = {names[w]: n for w, n in replay.items()}
+    print(f"[quantized generate] int8 decode graph, launches per replay: {per_replay}; large "
+          f"floating-point tensors made in the decode step (a dense weight copy would be one): "
+          f"{watch.seen}")
+    if per_replay != {"quantized_matmul": 7 * layers, "fused_decode": layers} or watch.seen:
+        raise AssertionError("int8 decode step: not Q1 alone for every projection")
+    expected = _expected(flash_fwd=layers, fused_decode=layers * (NEW - 1),
+                         quantized_matmul=7 * layers * (NEW - 1), widen_codes=7 * layers)
+    out, counts = _graph_vs_step_loop("int8 weight-only, batch 16, 32 layers", model,
+                                      *runs["int8"], expected)
+    if not torch.equal(out, first["int8"]["first"]):
+        raise AssertionError("int8 generate: the capturing call's ids differ from the replays'")
+    _reset_counts()
+    bf16_out = runs["bf16"][0](max_new_tokens=NEW)
+    torch.cuda.synchronize()
+    if _read_counts() != _expected(flash_fwd=layers, fused_decode=layers * (NEW - 1)):
+        raise AssertionError("bf16 generate at batch 16: launches differ")
+    same = int((bf16_out[:, PROMPT:] == out[:, PROMPT:]).sum())
+    print(f"[quantized generate] int8 vs bf16 (same weights before quantization): {same} of "
+          f"{QUANT_BATCH * NEW} generated tokens equal")
+
+    timing = {}
+    for name in ("bf16", "int8", "int8", "bf16"):
+        graph = runs[name][0]
+        prefill = _median_ms(lambda: graph(max_new_tokens=1))
+        whole = _median_ms(lambda: graph(max_new_tokens=NEW))
+        timing.setdefault(name, []).append((prefill, whole))
+    for name in ("bf16", "int8"):
+        prefill = min(p for p, _ in timing[name])
+        whole = min(t for _, t in timing[name])
+        step_ms = (whole - prefill) / (NEW - 1)
+        f = first[name]
+        timing[name] = whole
+        print(f"[quantized generate] {name} graph: B={QUANT_BATCH} prompt={PROMPT} new={NEW}, "
+              f"{layers} layers: prefill {prefill:.2f} ms, decode {step_ms:.3f} ms/step, "
+              f"{QUANT_BATCH * 1e3 / step_ms:.1f} decode tokens/s, "
+              f"{QUANT_BATCH * NEW * 1e3 / whole:.1f} tokens/s over the whole generate; capture "
+              f"{f['capture_ms']:.2f} ms; the program holds {f['held'] / 1e9:.4f} GB (KV cache "
+              f"{f['cache'] / 1e9:.4f} GB); weights {weight_bytes(model if name == 'int8' else bf16_model)[0] / 1e9:.3f} GB "
+              f"(best of two medians of 3, in turns bf16, int8, int8, bf16) ({card})")
+    for name in ("int8", "bf16"):
+        profile_run(f"generate {name}, batch {QUANT_BATCH} (graph)",
+                    lambda: runs[name][0](max_new_tokens=NEW), timing[name], card)
+    return counts, model, out, mask
+
+
+def check_quantized_small(seed: int, card: str) -> dict:
+    """Phase (f), last part, at 4 layers of the same width: int4 and fp8
+    weight-only generate at batch 16, each graph against the uncaptured step
+    loop bitwise with exact launches, and its teacher-forced logits held to
+    the plain path; then int8 weights over the int8 KV cache
+    (``cache_implementation="quantized"``, which takes the unfused attention
+    route: no K2), graph against step loop, and the cache's bytes."""
+    layers = QUANT_SMALL_LAYERS
+    counts = {}
+    ids = mask = None
+    for method in ("int4", "fp8", "int8"):
+        model = build_quantized(seed, layers, method)
+        if ids is None:
+            ids, mask = quant_inputs(seed, model.config.vocab_size)
+        graph, eager = _generate_runs(model, ids, mask)
+        extra = {}
+        fused = layers * (NEW - 1)
+        if method == "int8":
+            extra, fused = dict(cache_implementation="quantized"), 0
+        label = f"{method} weight-only, batch {QUANT_BATCH}, {layers} layers" + (
+            ", int8 KV cache" if extra else "")
+        graph(max_new_tokens=NEW, **extra)  # the signature's first call: the capture
+        expected = _expected(flash_fwd=layers, fused_decode=fused,
+                             quantized_matmul=7 * layers * (NEW - 1), widen_codes=7 * layers)
+        out, counts[method] = _graph_vs_step_loop(label, model, graph, eager, expected, **extra)
+        if extra:
+            cache = model._decode_program.cache
+            if type(cache).__name__ != "QuantizedKVCache" or cache.keys[0].dtype != torch.int8:
+                raise AssertionError("cache_implementation='quantized' did not build the int8 cache")
+            cache_bytes, _ = _program_bytes(model)
+            bf16_bytes = 2 * layers * QUANT_BATCH * GEOMETRY["num_key_value_heads"] \
+                * cache.max_len * GEOMETRY["head_dim"] * 2
+            print(f"[quantized generate] int8 KV cache: {cache_bytes / 1e6:.3f} MB (int8 codes "
+                  f"and f32 scales per token and head) against {bf16_bytes / 1e6:.3f} MB for the "
+                  f"bf16 cache of the same geometry ({card})")
+        else:
+            teacher_force(model, out, mask, quant_config(method))
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return counts
+
+
+def check_quantized_cb(model, seed: int, card: str, bf16_rates: dict) -> dict:
+    """Phase (f): phase (d)'s traffic through an int8 weight-only engine at 16
+    steps per sync, graph and uncaptured (each warmed by the shifted traffic),
+    tokens equal for every request; launches exact: Q1 224 per device decode
+    step and per prefill chunk of at most ROW_THRESHOLD tokens, Q2 224 per
+    longer chunk; each decode graph replays Q1 and no Q2."""
+    from transformers_tpu_torch.ops.quantized_linear import ROW_THRESHOLD
+
+    layers = model.config.num_hidden_layers
+    vocab = model.config.vocab_size
+    prompts = cb_prompts(seed, vocab)
+    steps, outputs = 16, {}
+    for graph in (True, False):
+        name = "graph" if graph else "uncaptured"
+        engine = cb_engine(model, steps, graph)
+        run_cb(engine, shifted(prompts, vocab, 1), "warm")
+        runner = engine.runner
+        lengths = []
+        chunk = runner.prefill_chunk
+
+        def recorded(input_ids, *args, **kw):
+            lengths.append(len(input_ids))
+            return chunk(input_ids, *args, **kw)
+
+        runner.prefill_chunk = recorded
+        _reset_counts()
+        try:
+            generated, wall, decode_ms, decode_steps, r = run_cb(engine, prompts, "r",
+                                                                 strict=graph)
+        finally:
+            del runner.prefill_chunk
+        counts = _read_counts()
+        small = sum(1 for n in lengths if n <= ROW_THRESHOLD)
+        paged = layers * (r["decode_steps"] + r["single_token_chunks"])
+        expected = _expected(flash_fwd=layers * r["prefill_chunks"], paged_decode=paged,
+                             paged_decode_combine=paged,
+                             quantized_matmul=7 * layers * (r["decode_steps"] + small),
+                             widen_codes=7 * layers * (len(lengths) - small))
+        print(f"[quantized cb] int8 {name}, steps_per_sync={steps}: launches {counts}, expected "
+              f"{expected} ({r['prefill_chunks']} prefill chunks, {r['single_token_chunks']} "
+              f"one-token chunks, {small} chunks of at most {ROW_THRESHOLD} tokens, "
+              f"{r['decode_steps']} decode steps)")
+        if counts != expected:
+            raise AssertionError("the int8 CB path did not go through the kernels as required")
+        if graph:
+            for key, prog in runner._programs.items():
+                per = {n: prog.graph.launches.get(w, 0) for n, w in _wrappers().items()}
+                if per["widen_codes"] or not per["quantized_matmul"] \
+                        or per["quantized_matmul"] != 7 * per["paged_decode"]:
+                    raise AssertionError(f"CB decode graph {key}: launches per replay {per}")
+        rate, step_ms = CB_REQUESTS * CB_NEW * 1e3 / wall, decode_ms / max(decode_steps, 1)
+        bf16_rate, bf16_step = bf16_rates[steps]
+        print(f"[quantized cb] int8 {name}, steps_per_sync={steps}, {layers} layers: wall "
+              f"{wall:.2f} ms, {rate:.1f} generated tokens/s, decode {step_ms:.3f} ms per device "
+              f"step over {decode_steps} steps; bf16 graph engine (phase d, same call): "
+              f"{bf16_rate:.1f} tokens/s, {bf16_step:.3f} ms per device step ({card})")
+        outputs[name] = generated
+        if graph:
+            graph_counts = counts
+    same = outputs["graph"] == outputs["uncaptured"]
+    print(f"[quantized cb] int8 graph engine's tokens == uncaptured engine's for every request: "
+          f"{same}")
+    if not same:
+        raise AssertionError("int8 CB: the graph engine's tokens differ from the uncaptured one's")
+    return graph_counts
 
 
 # --------------------------------------------------------------------- (e)
@@ -1884,7 +2516,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(f"[card] {card}")
-    clock = [time.perf_counter()]
+    start = time.perf_counter()
+    clock = [start]
 
     def lap(label: str) -> None:
         now = time.perf_counter()
@@ -1901,21 +2534,33 @@ def main() -> int:
     kernels[0].update(k1_train)
     kernels += bwd
     check_reference_cases(gen)
+    kernels += check_quantized_linear(gen)
     phase_b = _read_counts()  # K7 serves no path: its launches are phase (b)'s checks
     lap("phase (b), kernel holds")
     check_load_path(args.seed, card)
     model = build_model(args.seed)
     paths = {"generate": check_generate(model, args.seed, card)}
     lap("phase (c), load and generate")
-    paths["continuous_batching"] = check_cb(model, args.seed, card)
+    paths["continuous_batching"], cb_rates = check_cb(model, args.seed, card)
     lap("phase (d), continuous batching")
+    paths["quantized_generate"], qmodel, qout, qmask = check_quantized_generate(
+        model, args.seed, card)
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    teacher_force(qmodel, qout, qmask, quant_config("int8"))
+    paths["quantized_continuous_batching"] = check_quantized_cb(qmodel, args.seed, card, cb_rates)
+    del qmodel
+    gc.collect()
+    torch.cuda.empty_cache()
+    for method, counts in check_quantized_small(args.seed, card).items():
+        paths[f"quantized_{method}_small"] = counts
+    lap("phase (f), quantized weights and KV cache")
     paths["train"] = check_train(args.seed, card)
     lap("phase (e), training")
     serves = {"paged_decode": "continuous_batching", "paged_decode_combine": "continuous_batching",
-              "flash_bwd_dkv": "train", "flash_bwd_dq": "train"}
+              "flash_bwd_dkv": "train", "flash_bwd_dq": "train",
+              "quantized_matmul": "quantized_generate", "widen_codes": "quantized_generate"}
     for k in kernels:
         # each kernel's launches on the path it serves; every path's counts beside
         if k["name"] == "static_decode":
@@ -1927,6 +2572,7 @@ def main() -> int:
             k["launches"] = paths[serves.get(k["name"], "generate")][k["name"]]
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
     print(json.dumps({"kernels": kernels}))
+    print(f"[time] smoke total: {time.perf_counter() - start:.1f} s")
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

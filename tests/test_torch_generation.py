@@ -12,6 +12,8 @@
   route, as JAX's tests/generation/test_streaming.py holds them.
 - ``decode_pad_multiple``: outputs equal the uncapped ones, one kept decode
   program for both lengths.
+- ``cache_implementation="quantized"``: the int8 KV cache, its ids and every
+  step's logits against JAX ``generate`` and its int8 cache (2e-5).
 
 On the CPU the decode step runs as a Python loop over the same step function
 the card captures as a CUDA graph.
@@ -26,7 +28,7 @@ import pytest
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
-from test_torch_llama import _build  # noqa: E402
+from test_torch_llama import _build, jax_forward  # noqa: E402
 
 from transformers_tpu.generation import logits_process as jax_lp  # noqa: E402
 from transformers_tpu.generation import stopping_criteria as jax_sc  # noqa: E402
@@ -334,3 +336,49 @@ def test_read_back_counts_the_loops_host_reads(pair):
     before = cuda_build.read_back.reads
     model.generate(ids, max_new_tokens=5, prompt_pad_multiple=8, streamer=Collect())
     assert cuda_build.read_back.reads - before == 5
+
+
+def test_quantized_cache_generate_matches_jax(pair, monkeypatch):
+    """``cache_implementation="quantized"`` gives the int8 KV cache's result, as
+    in the JAX package: greedy ids equal, and the logits each step of
+    ``generate`` draws from (the prefill's, then every decode step's) below
+    2e-5 from the JAX package's, teacher-forced through its int8 cache. The
+    port used to accept the value and build its static cache instead, so the
+    same call gave other logits than the JAX package's."""
+    from transformers_tpu_torch.generation.utils import StaticDecode
+
+    jax_model, params, model = pair
+    drawn = []
+    draw = StaticDecode.draw
+
+    def record(self, logits, state, generator):
+        drawn.append(logits.float().clone())
+        return draw(self, logits, state, generator)
+
+    monkeypatch.setattr(StaticDecode, "draw", record)
+    out, ref = _jax_and_port(pair, cache_implementation="quantized", eos_token_id=[])
+    np.testing.assert_array_equal(out, ref)
+
+    new, bucket = GEN["max_new_tokens"], out.shape[1] - GEN["max_new_tokens"]
+    pad = bucket - PROMPT.shape[1]
+    ids = np.pad(PROMPT, ((0, 0), (pad, 0)))
+    mask = np.zeros((2, bucket + new), np.int32)
+    mask[:, pad:bucket] = PROMPT_MASK
+    pos = np.maximum(np.cumsum(mask[:, :bucket], -1) - 1, 0)
+    forward = jax_forward(jax_model)
+    jcache = jax_model.init_cache(2, bucket + new, dtype=jnp.float32, implementation="quantized")
+    logits, jcache = forward(params, dict(input_ids=jnp.asarray(ids),
+                                          attention_mask=jnp.asarray(mask),
+                                          position_ids=jnp.asarray(pos)), jcache)
+    assert len(drawn) == new
+    for g in range(new):
+        err = float(np.abs(drawn[g].numpy() - np.asarray(logits[:, -1])).max())
+        assert err < 2e-5, f"step {g}: max |port - jax| = {err}"
+        slot = bucket + g
+        mask[:, slot] = 1
+        logits, jcache = forward(params, dict(input_ids=jnp.asarray(out[:, slot:slot + 1]),
+                                              attention_mask=jnp.asarray(mask),
+                                              position_ids=jnp.asarray(pos[:, -1:] + g + 1)),
+                                 jcache, jnp.asarray(slot, jnp.int32))
+    cache = model._decode_program.cache
+    assert type(cache).__name__ == "QuantizedKVCache" and cache.keys[0].dtype == torch.int8

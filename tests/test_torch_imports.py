@@ -63,7 +63,12 @@ def test_every_kernel_module_is_checked():
                  "transformers_tpu_torch.models.llama.modeling_llama",
                  "transformers_tpu_torch.trainer",
                  "transformers_tpu_torch.generation.stopping_criteria",
-                 "transformers_tpu_torch.generation.streamers"):
+                 "transformers_tpu_torch.generation.streamers",
+                 "transformers_tpu_torch.ops.quantized_linear",
+                 "transformers_tpu_torch.quantizers",
+                 "transformers_tpu_torch.quantizers.base",
+                 "transformers_tpu_torch.quantizers.weight_only",
+                 "transformers_tpu_torch.quantizers.checkpoint_formats"):
         assert name in MODULES
     # the flash backward (K5 dQ, K4 dK/dV) lives in ops.flash_attention,
     # with a launch count per kernel
@@ -83,10 +88,17 @@ def test_every_kernel_module_is_checked():
 
     assert isinstance(pa.paged_decode_attention.launches, int)
     assert isinstance(pa.paged_decode_combine.launches, int)
+    # the quantized product: Q1 from the codes, Q2's widening, one library
+    from transformers_tpu_torch.ops import quantized_linear as ql
+
+    assert "quantized_linear" in cuda_build.KERNELS
+    assert isinstance(ql.quantized_matmul.launches, int)
+    assert isinstance(ql.widen_codes.launches, int)
     # every wrapper is registered, so a captured graph's replays keep its count
     assert set(cuda_build._COUNTED) == {fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv,
                                         da.decode_attention, pa.paged_decode_attention,
-                                        pa.paged_decode_combine, fused_decode_attention}
+                                        pa.paged_decode_combine, fused_decode_attention,
+                                        ql.quantized_matmul, ql.widen_codes}
 
 
 @pytest.mark.parametrize("entry", ["constructor", "from_pretrained", "auto_from_config"])

@@ -83,6 +83,22 @@ POS = np.maximum(np.cumsum(MASK, -1) - 1, 0)
 VALID = MASK.astype(bool)
 
 
+def jax_forward(jax_model):
+    """``jax_model``'s forward compiled once per model, the JAX reference run
+    as one XLA program instead of op by op: ``f(params, inputs, cache=None,
+    slot=None)`` -> (logits, past_key_values); with a cache and no ``slot``, a
+    static prefill at cache position 0."""
+    fn = getattr(jax_model, "_test_forward", None)
+    if fn is None:
+        def forward(params, inputs, cache=None, slot=None):
+            out = jax_model(params, **inputs, past_key_values=cache,
+                            cache_position=0 if slot is None else slot)
+            return out.logits, out.past_key_values
+
+        fn = jax_model._test_forward = jax.jit(forward)
+    return fn
+
+
 def _close(port_logits, jax_logits, where=None):
     a = port_logits.detach().float().numpy()
     b = np.asarray(jax_logits, np.float32)
@@ -101,7 +117,7 @@ def test_forward_logits_match_jax(pair, padded):
     else:
         kw = dict(input_ids=IDS[1:])
         where = None
-    ref = jax_model(params, **{k: jnp.asarray(v) for k, v in kw.items()}).logits
+    ref, _ = jax_forward(jax_model)(params, {k: jnp.asarray(v) for k, v in kw.items()})
     with torch.no_grad():
         out = model(**{k: torch.as_tensor(v) for k, v in kw.items()}).logits
     _close(out, ref, where)
@@ -117,28 +133,28 @@ def test_cached_prefill_and_decode_match_jax(pair):
     mask[:, :s] = MASK
     jcache = jax_model.init_cache(b, total, dtype=jnp.float32)
     pcache = model.init_cache(b, total)
-    jout = jax_model(params, input_ids=jnp.asarray(IDS), attention_mask=jnp.asarray(mask),
-                     position_ids=jnp.asarray(POS), past_key_values=jcache, cache_position=0)
+    forward = jax_forward(jax_model)
+    ref, jcache = forward(params, dict(input_ids=jnp.asarray(IDS), attention_mask=jnp.asarray(mask),
+                                       position_ids=jnp.asarray(POS)), jcache)
     with torch.no_grad():
         pout = model(input_ids=torch.as_tensor(IDS), attention_mask=torch.as_tensor(mask),
                      position_ids=torch.as_tensor(POS), past_key_values=pcache,
                      cache_position=0)
-    _close(pout.logits, jout.logits, VALID)
-    jcache = jout.past_key_values
+    _close(pout.logits, ref, VALID)
     tokens = np.array([[12], [200]], np.int64)
     for step in range(3):
         slot = s + step
         mask[:, slot] = 1
         pos = POS[:, -1:] + 1 + step
-        jout = jax_model(params, input_ids=jnp.asarray(tokens), attention_mask=jnp.asarray(mask),
-                         position_ids=jnp.asarray(pos), past_key_values=jcache,
-                         cache_position=jnp.asarray(slot, jnp.int32))
+        ref, jcache = forward(params, dict(input_ids=jnp.asarray(tokens),
+                                           attention_mask=jnp.asarray(mask),
+                                           position_ids=jnp.asarray(pos)),
+                              jcache, jnp.asarray(slot, jnp.int32))
         with torch.no_grad():
             pout = model(input_ids=torch.as_tensor(tokens), attention_mask=torch.as_tensor(mask),
                          position_ids=torch.as_tensor(pos), past_key_values=pcache,
                          cache_position=slot)
-        _close(pout.logits, jout.logits)
-        jcache = jout.past_key_values
+        _close(pout.logits, ref)
         tokens = (tokens * 7 + 3) % 256
 
 

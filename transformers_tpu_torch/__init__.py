@@ -11,6 +11,8 @@ from .generation import GenerationConfig
 from .modeling_utils import PreTrainedModel
 from .models.auto import AutoConfig, AutoModelForCausalLM
 from .models.llama import LlamaConfig, LlamaForCausalLM
+from .quantizers import (Fp8WeightOnlyConfig, Int4WeightOnlyConfig, Int8WeightOnlyConfig,
+                         QuantizationConfig, quantize_params)
 from .trainer import Trainer
 from .trainer_callback import TrainerCallback
 from .training_args import TrainingArguments

@@ -6,9 +6,18 @@ the port's weights under the same dotted hub names. The JAX ``Linear`` keeps
 its kernel as ``[in, out]``; the port keeps torch's ``[out, in]``, so every
 2-D ``weight`` is transposed except an ``embed_tokens`` table, which both keep
 as ``[vocab, hidden]``. Norm scales and biases pass as they are. A model with
-tied word embeddings has no ``lm_head`` on either side. bf16 arrays (the
-``ml_dtypes`` type) are read by their bits, so the port needs no
+tied word embeddings has no ``lm_head`` on either side. bf16 and fp8 e4m3
+arrays (the ``ml_dtypes`` types) are read by their bits, so the port needs no
 ``ml_dtypes``.
+
+Weight-only quantized leaves (``transformers_tpu.quantizers``) follow the same
+rule, which gives the port's layouts: int8 codes ``[in, out]`` -> ``[out, in]``;
+packed int4 ``[in / 2, out]`` -> ``[out, in / 2]`` (byte ``j`` of row ``n``
+then holds codes ``(n, 2j)`` and ``(n, 2j + 1)``, low nibble first, as
+``quantizers/weight_only.py`` packs them); fp8 codes ``[in, out]`` ->
+``[out, in]`` as ``torch.float8_e4m3fn``; ``weight_scale`` [out] as it is.
+A model takes them with ``load_state_dict`` once ``quantize_params`` has made
+its Linears quantized.
 """
 
 from __future__ import annotations
@@ -21,6 +30,8 @@ def _to_torch(arr: np.ndarray) -> torch.Tensor:
     arr = np.array(arr)  # a writable copy: arrays taken from JAX are read-only
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    if arr.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(arr.view(np.uint8)).view(torch.float8_e4m3fn)
     return torch.from_numpy(arr)
 
 

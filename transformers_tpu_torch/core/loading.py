@@ -60,9 +60,45 @@ def resolve_checkpoint_files(directory: str) -> list[str]:
                   f"{SAFE_WEIGHTS_NAME} and {SAFE_WEIGHTS_INDEX_NAME})")
 
 
+class DictSource:
+    """An in-memory state dict (torch tensors or numpy arrays) as a checkpoint
+    source: the dequantized output of a pre-quantized checkpoint, test
+    fixtures."""
+
+    def __init__(self, tensors: dict):
+        self._tensors = tensors
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        pass
+
+    def keys(self) -> list[str]:
+        return list(self._tensors)
+
+    def get_shape(self, key: str) -> tuple[int, ...]:
+        return tuple(self._tensors[key].shape)
+
+    def get_tensor(self, key: str) -> torch.Tensor:
+        return torch.as_tensor(self._tensors[key])
+
+
+def open_checkpoint_source(file):
+    """A checkpoint entry's reader (JAX ``core/loading.py`` ``open_checkpoint_source``):
+    a path -> safetensors (the only format ``resolve_checkpoint_files`` gives);
+    a dict -> in memory."""
+    if isinstance(file, (str, os.PathLike)):
+        return SafetensorsFile(str(file))
+    if isinstance(file, dict):
+        return DictSource(file)
+    raise TypeError(f"a checkpoint entry is a file path or a state dict, got {type(file)}")
+
+
 @torch.no_grad()
-def load_checkpoint_in_model(model: nn.Module, checkpoint_files: list[str]) -> LoadReport:
-    """Stream every tensor of the files into ``model``'s parameters. A
+def load_checkpoint_in_model(model: nn.Module, checkpoint_files: list) -> LoadReport:
+    """Stream every tensor of the checkpoint entries (file paths or in-memory
+    state dicts, ``open_checkpoint_source``) into ``model``'s parameters. A
     checkpoint of the bare base model loads into a task model and the other
     way round, by adding or stripping ``model.base_model_prefix``."""
     params = dict(model.named_parameters())
@@ -80,8 +116,8 @@ def load_checkpoint_in_model(model: nn.Module, checkpoint_files: list[str]) -> L
             return pref + key
         return key
 
-    for path in checkpoint_files:
-        with SafetensorsFile(path) as f:
+    for entry in checkpoint_files:
+        with open_checkpoint_source(entry) as f:
             for ckpt_key in f.keys():
                 key = fix_prefix(ckpt_key)
                 param = params.get(key)

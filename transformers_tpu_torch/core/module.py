@@ -14,11 +14,25 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.quantized_linear import code_type, quantized_linear
+from ..quantizers.weight_only import dequantize_fp8, dequantize_int8, unpack_int4
+
 
 class Linear(nn.Module):
     """Dense layer. ``weight`` is torch's ``[out, in]``, the layout hub
     checkpoints store, so loading needs no transpose (the JAX module keeps
-    ``[in, out]`` and transposes at load and save)."""
+    ``[in, out]`` and transposes at load and save).
+
+    Weight-only quantized (``set_quantized``, which ``quantizers.quantize_params``
+    calls): ``weight`` holds the codes, not trainable: int8 ``[out, in]``,
+    int4 packed two a byte along the input dim ``[out, in / 2]``, or
+    ``float8_e4m3fn`` ``[out, in]``; and ``weight_scale`` the float32
+    per-output-row scale [out]. The forward then computes ``(x @ codes.T) *
+    scale`` in f32 and rounds once to ``dtype`` (the JAX ``quantized_dot``),
+    through the port's quantized-product kernels on the card
+    (``ops/quantized_linear.py``) and their plain version on the CPU; it
+    refuses gradients, as the JAX package has no training route for quantized
+    weights."""
 
     def __init__(self, in_features: int, out_features: int, use_bias: bool = True, *,
                  dtype=torch.float32, param_dtype=torch.float32, device=None,
@@ -32,17 +46,47 @@ class Linear(nn.Module):
                                                device=device))
         self.bias = (nn.Parameter(torch.empty((out_features,), dtype=param_dtype, device=device))
                      if use_bias else None)
+        self.register_parameter("weight_scale", None)  # set by set_quantized
 
     @torch.no_grad()
     def init_parameter(self, name: str, generator: torch.Generator) -> None:
+        if self.weight_scale is not None:
+            raise ValueError("a quantized Linear is not initialised from a seed")
         if name == "weight":
             self.weight.normal_(0.0, self.init_std, generator=generator)
         else:
             self.bias.zero_()
 
+    def set_quantized(self, codes: torch.Tensor, scale: torch.Tensor) -> None:
+        """Replace the weight by its codes and per-output-row float32 scale."""
+        code_type(codes, self.in_features)  # raises for codes of no known layout
+        if codes.shape[0] != self.out_features or scale.shape != (self.out_features,):
+            raise ValueError(f"codes {tuple(codes.shape)} and scale {tuple(scale.shape)} do not "
+                             f"fit a Linear of {self.in_features} -> {self.out_features}")
+        self.weight = nn.Parameter(codes, requires_grad=False)
+        self.weight_scale = nn.Parameter(scale.to(torch.float32), requires_grad=False)
+
+    def materialize_weight(self) -> torch.Tensor:
+        """The weight ``[out, in]`` in the compute dtype; dequantizes a quantized
+        weight (JAX ``Linear.materialize_weight``)."""
+        w = self.weight
+        if self.weight_scale is None:
+            return w.to(self.dtype)
+        kind = code_type(w, self.in_features)
+        if kind == "fp8":
+            return dequantize_fp8(w, self.weight_scale, self.dtype)
+        if kind == "int8":
+            return dequantize_int8(w, self.weight_scale, self.dtype)
+        return unpack_int4(w, self.weight_scale, self.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(self.dtype)
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
+        if self.weight_scale is None:
+            return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
+        # codes stream at their stored width; the scale goes on the product's output
+        y = quantized_linear(x.to(self.dtype), self.weight, self.weight_scale,
+                             in_features=self.in_features)
+        return y if bias is None else y + bias
 
 
 class Embedding(nn.Module):

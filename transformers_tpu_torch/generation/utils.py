@@ -7,7 +7,9 @@ generation/utils.py:2250 ``generate``, :2772 ``_sample``). The JAX package
 compiles the prefill and a ``lax.while_loop`` decode into one XLA program per
 signature. Its counterpart here is ``StaticDecode``: the static cache, fixed
 buffers and the decode step of one signature (batch, bucket, total length,
-``do_sample``, EOS and pad ids, processors, cache dtype). On the card the
+``do_sample``, EOS and pad ids, processors, cache dtype, and
+``cache_implementation``: "quantized" builds the int8 cache, any other value
+the static one, as the JAX package does). On the card the
 step is captured once as a CUDA graph, after one step run for real, and
 replayed per token; on the CPU the same step function runs in a Python loop.
 The model keeps only the newest signature's program, which holds a whole KV
@@ -73,7 +75,7 @@ class StaticDecode:
 
     def __init__(self, model, signature: tuple, *, batch: int, bucket: int, total_len: int,
                  do_sample: bool, eos_ids: tuple, pad_id: int,
-                 processors: LogitsProcessorList, cache_dtype):
+                 processors: LogitsProcessorList, cache_dtype, cache_implementation: str):
         dev = model.device
         self.signature = signature
         self.bucket = bucket
@@ -81,7 +83,8 @@ class StaticDecode:
         self.eos_ids = eos_ids
         self.pad_id = pad_id
         self.processors = processors
-        self.cache = model.init_cache(batch, total_len, dtype=cache_dtype)
+        self.cache = model.init_cache(batch, total_len, dtype=cache_dtype,
+                                      implementation=cache_implementation)
         self.ids = torch.full((batch, total_len), pad_id, dtype=torch.int64, device=dev)
         self.mask = torch.zeros((batch, total_len), dtype=torch.int32, device=dev)
         self.rope_last = torch.zeros(batch, dtype=torch.int64, device=dev)
@@ -302,15 +305,17 @@ class GenerationMixin:
             generator.seed()
         processors = self._get_logits_processors(gen, eos_ids, max_new)
         cache_dtype = cache_dtype or self.dtype
+        # "quantized" builds the int8 cache, any other accepted value the static one
+        cache_impl = gen.cache_implementation or "static"
         signature = (b, bucket, total_len, do_sample, eos_ids, pad_id,
-                     processor_signature(processors), str(cache_dtype))
+                     processor_signature(processors), str(cache_dtype), cache_impl)
         if getattr(self, "_decode_program", None) is None \
                 or self._decode_program.signature != signature:
             self._decode_program = None  # release the old cache, buffers and graph first
             self._decode_program = StaticDecode(
                 self, signature, batch=b, bucket=bucket, total_len=total_len,
                 do_sample=do_sample, eos_ids=eos_ids, pad_id=pad_id, processors=processors,
-                cache_dtype=cache_dtype)
+                cache_dtype=cache_dtype, cache_implementation=cache_impl)
         program = self._decode_program
         try:
             program.prefill(self, input_ids, attention_mask, generator)

@@ -96,14 +96,20 @@ class PreTrainedModel(nn.Module):
     def from_pretrained(cls, pretrained_model_name_or_path, *,
                         config: Optional[PretrainedConfig] = None, dtype: Any = "auto",
                         param_dtype: Any = None, device="cuda",
-                        attn_implementation: Optional[str] = None, seed: int = 0,
-                        **config_kwargs) -> "PreTrainedModel":
+                        attn_implementation: Optional[str] = None, quantization_config=None,
+                        seed: int = 0, **config_kwargs) -> "PreTrainedModel":
         """Load config and weights from a local hub-layout directory.
 
         ``dtype="auto"`` takes the checkpoint's ``config.dtype`` (float32 when
         absent). Weights are streamed one tensor at a time onto ``device``.
         Parameters the checkpoint lacks are initialised from ``seed`` and
-        reported in ``model.load_report``."""
+        reported in ``model.load_report``. A pre-quantized checkpoint (GPTQ,
+        AWQ, compressed-tensors, fp8, bitsandbytes, HQQ, BitNet, named by the
+        config's ``quantization_config``) is dequantized on the host as it is
+        read (``quantizers/checkpoint_formats.py``). ``quantization_config``
+        (``Int8WeightOnlyConfig``, ``Int4WeightOnlyConfig``,
+        ``Fp8WeightOnlyConfig``) then quantizes the loaded Linear weights on
+        ``device``, one tensor at a time."""
         path = str(pretrained_model_name_or_path)
         if config is None:
             config = cls.config_class.from_pretrained(path, **config_kwargs)
@@ -114,10 +120,22 @@ class PreTrainedModel(nn.Module):
         else:
             load_dtype = dtype_from_str(dtype) or torch.float32
         model = cls(config, dtype=load_dtype, param_dtype=param_dtype, device=device)
-        report = load_checkpoint_in_model(model, resolve_checkpoint_files(path))
+        checkpoint_files = resolve_checkpoint_files(path)
+        config_qdict = getattr(config, "quantization_config", None)
+        if isinstance(config_qdict, dict) and config_qdict:
+            from .quantizers.checkpoint_formats import (detect_prequantized,
+                                                        load_prequantized_checkpoint)
+
+            if detect_prequantized(config_qdict) is not None:
+                checkpoint_files = [load_prequantized_checkpoint(checkpoint_files, config_qdict)]
+        report = load_checkpoint_in_model(model, checkpoint_files)
         if report.missing_keys:
             model._init_params(report.missing_keys, seed)
         report.log(cls.__name__)
+        if quantization_config is not None:
+            from .quantizers import quantize_params
+
+            quantize_params(model, quantization_config)
         model.load_report = report
 
         from .generation.configuration_utils import GENERATION_CONFIG_NAME, GenerationConfig

@@ -14,7 +14,9 @@ attends over the local k/v through the registry, whose default is the flash
 kernel (ops/flash_attention.py); a single-token step over the static cache
 goes through the fused decode kernel (ops/fused_decode.py) whenever the
 family uses plain rotate-half rope and the shapes fit, at every batch size;
-any other step over the static cache takes ``cached_attention_bhsd``. A
+any other step over the static cache, and every step over the int8 cache
+(``QuantizedKVCache``, dequantized by its ``layer``, as in the JAX package),
+takes ``cached_attention_bhsd``. A
 static decode step's ``cache_position`` is the int slot or, in a decode loop
 on the device, the cache's one-element slot tensor, which no step reads back.
 
@@ -413,6 +415,9 @@ class LlamaForCausalLM(LlamaPreTrainedModel, GenerationMixin):
             loss=loss, logits=logits, past_key_values=outputs.past_key_values,
             hidden_states=outputs.hidden_states, attentions=outputs.attentions)
 
-    def init_cache(self, batch_size: int, max_len: int, dtype=None) -> StaticKVCache:
+    def init_cache(self, batch_size: int, max_len: int, dtype=None,
+                   implementation: str = "static"):
+        """A bhsd cache: the static one, or the int8 one for ``implementation``
+        "quantized"."""
         return cache_from_config(self.config, batch_size, max_len, dtype or self.dtype,
-                                 device=self.device)
+                                 device=self.device, implementation=implementation)

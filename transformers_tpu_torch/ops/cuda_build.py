@@ -31,7 +31,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-KERNELS = ("flash_fwd", "flash_bwd", "fused_decode", "paged_decode")
+KERNELS = ("flash_fwd", "flash_bwd", "fused_decode", "paged_decode", "quantized_linear")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
