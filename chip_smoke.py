@@ -33,14 +33,18 @@ Phases, in order; any failure exits non-zero:
     decode (K6, split-KV, with its merge kernel) is also held on contexts of
     2000-4000 slots and run twice at the continuous-batching shape (the
     outputs must be equal bit for bit). The weight-only quantized product
-    (Q1 ``quantized_matmul`` from the codes, Q2 ``widen_codes`` then
-    ``torch.mm``) is held against the plain ``quantized_dot`` for int8, int4
-    and fp8 codes x bf16, f16 and f32 activations at the four Llama-3-8B
-    projection shapes and 1, 3, 8 and 16 rows (Q2 also 256), plus int4 rows
-    with a tail past the last whole tile; Q1 is timed at 8 and 16 rows beside
-    its bound, bf16 ``F.linear`` and the plain versions, each weight read
-    from device memory, and Q1 and Q2's route are swept over 1-64 rows (the
-    sweep that set ``ROW_THRESHOLD``);
+    (Q1 ``quantized_matmul`` from the codes, on the tensor cores for bf16 and
+    f16; Q2 ``widen_codes`` then ``torch.mm``) is held against the plain
+    ``quantized_dot`` for int8, int4 and fp8 codes x bf16, f16 and f32
+    activations at the four Llama-3-8B projection shapes and 1, 3, 8 and 16
+    rows and the rows above up to ``ROW_THRESHOLD`` (Q2 at 1-16 and 256),
+    plus int4 rows with a tail past the last whole chunk; the tensor-core Q1
+    also against ``quantized_matmul_split_plain`` at its split of K, and run
+    twice (bitwise-equal outputs required); Q1 is timed at 8 and 16 rows
+    beside its bound, ``torch._weight_int8pack_mm`` (the library yardstick),
+    bf16 ``F.linear`` and the plain versions, each weight read from device
+    memory, and Q1 and Q2's route are swept over 1-128 rows (the sweep that
+    set ``ROW_THRESHOLD``);
 (c) the static-cache path at the Llama-3-8B geometry in bf16 with random
     weights from ``--seed``: a full-width, 2-layer checkpoint written with the
     port's safetensors writer and read back by ``from_pretrained``; then
@@ -262,9 +266,9 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 # --------------------------------------------------------------------- (a)
 # the builds this script reports one by one (the others as a summary per library)
 REPORTED_BUILDS = ("flash_fwd_tc_kernel", "paged_split_kernel", "paged_combine_kernel",
-                   "fused_decode_kernel", "static_decode_kernel")
-# the builds reported as one line each (one instantiation per code type,
-# activation type and row tile)
+                   "fused_decode_kernel", "static_decode_kernel", "quantized_linear_tc_kernel")
+# the builds reported as one line each (one instantiation per code type and
+# row tile: Q1's f32 route, and Q2 per activation type)
 SUMMED_BUILDS = ("quantized_linear_kernel", "widen_codes_kernel")
 # the split-KV decode builds (K2, K7) must not spill
 NO_SPILL_BUILDS = ("fused_decode_kernel", "static_decode_kernel")
@@ -1145,7 +1149,10 @@ def check_reference_cases(gen) -> None:
 QUANT_SHAPES = ((4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336))
 QUANT_ROWS = (1, 3, 8, 16)  # decode rows: batch 1, ragged 3, 8 and 16
 QUANT_PREFILL_ROWS = 256  # Q2's route at a prefill's rows (a CB chunk is at most 128)
-QUANT_SWEEP_ROWS = (1, 2, 4, 8, 16, 32, 64)
+QUANT_WIDE_ROWS = (24, 32, 64, 100, 128)  # held where ROW_THRESHOLD reaches them
+QUANT_SWEEP_ROWS = (1, 2, 4, 8, 16, 32, 64, 128)  # 128: CB's prefill budget
+# projections of a Llama-3-8B layer at each shape: q, o; k, v; gate, up; down
+QUANT_LAYER_COUNT = {(4096, 4096): 2, (1024, 4096): 2, (14336, 4096): 2, (4096, 14336): 1}
 # the shape and rows of the kernels line's numbers: gate/up at the batch-16 decode step
 QUANT_MAIN_SHAPE, QUANT_MAIN_ROWS = (14336, 4096), 16
 L2_BYTES = 50 * 1024 ** 2
@@ -1234,93 +1241,33 @@ def check_wide_buffer_replay(gen) -> None:
         raise AssertionError("a graph of Q2's route replays into a buffer it no longer owns")
 
 
-def check_quantized_linear(gen) -> list:
-    """Q1 (quantized_matmul) and Q2 (widen_codes, then torch.mm) against the
-    plain ``quantized_dot`` for each code type (int8, int4, fp8) and
-    activation type (bf16, f16, f32) at the four Llama-3-8B projection shapes
-    and 1, 3, 8 and 16 rows (Q2 also at a prefill's 256), plus int4 at K =
-    4104 (8 values past the last whole 512-value tile, not a multiple of a
-    16-byte vector of 32 values); held element by element to one rounding
-    step (``grad_ratio``) and to TOLERANCE below QUANT_ATOL_RANGE, since both
-    sides sum in f32 and round once. Then a graph of Q2's route replayed
-    after Q2's buffer grew, the times at the main shape, and the rows sweep
-    that set ROW_THRESHOLD."""
-    import torch.nn.functional as F
+def quant_rows() -> tuple:
+    """Q1's rows held in phase (b): QUANT_ROWS and the rows above 16 up to
+    ROW_THRESHOLD."""
+    from transformers_tpu_torch.ops.quantized_linear import ROW_THRESHOLD
 
+    return QUANT_ROWS + tuple(m for m in QUANT_WIDE_ROWS if m <= ROW_THRESHOLD)
+
+
+def library_q1(x, codes, scale):
+    """``torch._weight_int8pack_mm`` on Q1's inputs (int8 codes; its scale in
+    x's dtype, rounded): the PyTorch call closest to Q1, a yardstick the port
+    never calls. None where the card's torch does not run it."""
+    fn = getattr(torch, "_weight_int8pack_mm", None)
+    if fn is None:
+        return None
+    try:
+        return fn(x, codes, scale.to(x.dtype))
+    except (RuntimeError, NotImplementedError):
+        return None
+
+
+def rows_sweep(gen) -> dict:
+    """Q1 against Q2's route (widening, then torch.mm) at each shape and row
+    count, int8 codes x bf16, each weight read from device memory: the sweep
+    that sets ROW_THRESHOLD."""
     from transformers_tpu_torch.ops import quantized_linear as ql
-    from transformers_tpu_torch.quantizers.weight_only import (dequantize_int8, quantized_dot,
-                                                               unpack_int4_codes)
 
-    def plain(x, codes, scale, k):
-        w = unpack_int4_codes(codes) if ql.code_type(codes, k) == "int4" else codes
-        return quantized_dot(x, w, scale, x.dtype)
-
-    worst = {}
-    cases = [(n, k, m) for n, k in QUANT_SHAPES for m in QUANT_ROWS]
-    for method in ("int8", "int4", "fp8"):
-        extra = [(512, 4104, 3), (512, 4104, 16)] if method == "int4" else []
-        weights = {}
-        for n, k, m in cases + extra:
-            if (n, k) not in weights:
-                weights[(n, k)] = _quantized_weights(gen, n, k, method)
-            codes, scale = weights[(n, k)]
-            for dtype in (torch.bfloat16, torch.float16, torch.float32):
-                for rows, route in ((m, "q1"), (m, "q2"), (QUANT_PREFILL_ROWS, "q2")):
-                    if rows == QUANT_PREFILL_ROWS and m != QUANT_ROWS[-1]:
-                        continue
-                    x = torch.randn((rows, k), generator=gen, device="cuda").to(dtype)
-                    ref = plain(x, codes, scale, k)
-                    out = (ql.quantized_matmul(x, codes, scale, k) if route == "q1"
-                           else ql._widened_matmul(x, codes, scale, k))
-                    torch.cuda.synchronize()
-                    in_range = ref.float().abs() < QUANT_ATOL_RANGE
-                    err = float((out.float() - ref.float()).abs()[in_range].max())
-                    ratio = grad_ratio(out, ref, GRAD_ULP[dtype])
-                    key = (route, method, str(dtype).replace("torch.", ""))
-                    w_err, w_ratio, w_ref = worst.get(key, (0.0, 0.0, 0.0))
-                    worst[key] = (max(w_err, err), max(w_ratio, ratio),
-                                  max(w_ref, float(ref.float().abs().max())))
-                    if not (err <= TOLERANCE[dtype] and ratio <= 1.0
-                            and bool(torch.isfinite(out).all())):
-                        raise AssertionError(f"{route} {method} {dtype} N={n} K={k} M={rows}: "
-                                             f"max_abs_err {err:.3e} (tol {TOLERANCE[dtype]}) "
-                                             f"below |{QUANT_ATOL_RANGE}|, grad_ratio "
-                                             f"{ratio:.3f} (at most 1)")
-        del weights
-    for (route, method, dtype), (err, ratio, top) in sorted(worst.items()):
-        print(f"[quantized] {route} {method} x {dtype}: max_abs_err {err:.3e} where |plain| < "
-              f"{QUANT_ATOL_RANGE} (tol {TOLERANCE[getattr(torch, dtype)]}), worst |err| / "
-              f"(u |plain| + u/2 rms) {ratio:.3f} at u = {GRAD_ULP[getattr(torch, dtype)]:.3g} "
-              f"(at most 1), largest |plain| {top:.2f}, over N x K in {QUANT_SHAPES}, M in "
-              f"{QUANT_ROWS} (q2 also {QUANT_PREFILL_ROWS})"
-              + (", int4 K=4104" if method == "int4" else ""))
-    check_wide_buffer_replay(gen)
-
-    # times, each weight read from device memory (copies cycled past the L2)
-    by_shape = {}
-    for n, k in QUANT_SHAPES:
-        codes_list = _cold(lambda i: _quantized_weights(gen, n, k, "int8"), n * k)
-        dense = _cold(lambda i: (torch.randn((n, k), generator=gen, device="cuda")
-                                       * k ** -0.5).to(torch.bfloat16), 2 * n * k)
-        row = {}
-        for m in (8, 16):
-            x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
-            q1 = device_ms(_cycled(lambda cs: ql.quantized_matmul(x, cs[0], cs[1], k), codes_list))
-            lib = device_ms(_cycled(lambda w: F.linear(x, w), dense))
-            plain_ms = device_ms(_cycled(lambda cs: plain(x, cs[0], cs[1], k), codes_list))
-            deq = device_ms(_cycled(lambda cs: F.linear(x, dequantize_int8(
-                cs[0], cs[1], torch.bfloat16)), codes_list))
-            nbytes = n * k + n * 4 + m * (k + n) * 2
-            bms, by = bound_ms(nbytes, 2.0 * m * n * k)
-            row[m] = dict(ms=q1, bound_ms=bms, bound_by=by, library_ms=lib, plain_ms=plain_ms,
-                          dequant_linear_ms=deq)
-            print(f"[quantized] Q1 int8 x bf16 N={n} K={k} M={m}: {q1:.4f} ms, bound {bms:.4f} ms "
-                  f"({by}), bf16 F.linear {lib:.4f} ms, plain quantized_dot {plain_ms:.4f} ms, "
-                  f"dequantize then F.linear {deq:.4f} ms")
-        by_shape[f"{n}x{k}"] = row
-        del codes_list, dense
-
-    # the rows sweep: Q1 against Q2's route (widening, then torch.mm) at each shape
     sweep = {}
     for n, k in QUANT_SHAPES:
         codes_list = _cold(lambda i: _quantized_weights(gen, n, k, "int8"), n * k)
@@ -1336,9 +1283,136 @@ def check_quantized_linear(gen) -> list:
               + ", ".join(f"{m}: {q1:.4f}/{q2:.4f}" for m, q1, q2 in times)
               + f"; Q1 first slower at M={crossover} (ROW_THRESHOLD {ql.ROW_THRESHOLD})")
         del codes_list
+    layer = {m: tuple(sum(sweep[f"{n}x{k}"][m][i] * QUANT_LAYER_COUNT[(n, k)]
+                          for n, k in QUANT_SHAPES) for i in (0, 1)) for m in QUANT_SWEEP_ROWS}
+    print("[quantized] sweep: a layer's seven projections, M: Q1 ms / Q2 route ms: "
+          + ", ".join(f"{m}: {a:.4f}/{b:.4f}" for m, (a, b) in layer.items()))
+    return sweep
+
+
+def check_quantized_linear(gen) -> list:
+    """Q1 (quantized_matmul) and Q2 (widen_codes, then torch.mm) against the
+    plain ``quantized_dot`` for each code type (int8, int4, fp8) and
+    activation type (bf16, f16, f32) at the four Llama-3-8B projection shapes
+    and ``quant_rows()`` rows (Q2 at QUANT_ROWS and a prefill's 256), plus
+    int4 at K = 4104 (8 values past the last whole chunk, rows not a multiple
+    of 16 bytes); held element by element to one rounding step
+    (``grad_ratio``) and to TOLERANCE below QUANT_ATOL_RANGE, since both sides
+    sum in f32 and round once. The tensor-core Q1 (bf16, f16) is held the
+    same way to ``quantized_matmul_split_plain`` at its split, and run twice
+    (bitwise-equal outputs required). Then a graph of Q2's route replayed
+    after Q2's buffer grew, the times at the main shape, and the rows sweep
+    that set ROW_THRESHOLD."""
+    import torch.nn.functional as F
+
+    from transformers_tpu_torch.ops import quantized_linear as ql
+    from transformers_tpu_torch.quantizers.weight_only import (dequantize_int8, quantized_dot,
+                                                               unpack_int4_codes)
+
+    def plain(x, codes, scale, k):
+        w = unpack_int4_codes(codes) if ql.code_type(codes, k) == "int4" else codes
+        return quantized_dot(x, w, scale, x.dtype)
+
+    def hold(label, out, ref, dtype):
+        in_range = ref.float().abs() < QUANT_ATOL_RANGE
+        err = float((out.float() - ref.float()).abs()[in_range].max())
+        ratio = grad_ratio(out, ref, GRAD_ULP[dtype])
+        if not (err <= TOLERANCE[dtype] and ratio <= 1.0 and bool(torch.isfinite(out).all())):
+            raise AssertionError(f"{label}: max_abs_err {err:.3e} (tol {TOLERANCE[dtype]}) below "
+                                 f"|{QUANT_ATOL_RANGE}|, grad_ratio {ratio:.3f} (at most 1)")
+        return err, ratio
+
+    worst = {}
+    rows = quant_rows()
+    cases = [(n, k, m) for n, k in QUANT_SHAPES for m in rows]
+    repeats = 0
+    for method in ("int8", "int4", "fp8"):
+        extra = [(512, 4104, 3), (512, 4104, 16)] if method == "int4" else []
+        weights = {}
+        for n, k, m in cases + extra:
+            if (n, k) not in weights:
+                weights[(n, k)] = _quantized_weights(gen, n, k, method)
+            codes, scale = weights[(n, k)]
+            for dtype in (torch.bfloat16, torch.float16, torch.float32):
+                routes = [(m, "q1")]
+                if m in QUANT_ROWS:
+                    routes.append((m, "q2"))
+                if m == QUANT_ROWS[-1]:
+                    routes.append((QUANT_PREFILL_ROWS, "q2"))
+                for rows_, route in routes:
+                    x = torch.randn((rows_, k), generator=gen, device="cuda").to(dtype)
+                    ref = plain(x, codes, scale, k)
+                    out = (ql.quantized_matmul(x, codes, scale, k) if route == "q1"
+                           else ql._widened_matmul(x, codes, scale, k))
+                    torch.cuda.synchronize()
+                    label = f"{route} {method} {dtype} N={n} K={k} M={rows_}"
+                    err, ratio = hold(label, out, ref, dtype)
+                    if route == "q1" and dtype != torch.float32:
+                        split = ql.split_size(n, k)
+                        hold(f"{label} against the split plain version (split {split})", out,
+                             ql.quantized_matmul_split_plain(x, codes, scale, k, split), dtype)
+                        again = ql.quantized_matmul(x, codes, scale, k)
+                        torch.cuda.synchronize()
+                        if not torch.equal(out, again):
+                            raise AssertionError(f"{label}: two runs of Q1 differ")
+                        repeats += 1
+                    key = (route, method, str(dtype).replace("torch.", ""))
+                    w_err, w_ratio, w_ref = worst.get(key, (0.0, 0.0, 0.0))
+                    worst[key] = (max(w_err, err), max(w_ratio, ratio),
+                                  max(w_ref, float(ref.float().abs().max())))
+        del weights
+    for (route, method, dtype), (err, ratio, top) in sorted(worst.items()):
+        print(f"[quantized] {route} {method} x {dtype}: max_abs_err {err:.3e} where |plain| < "
+              f"{QUANT_ATOL_RANGE} (tol {TOLERANCE[getattr(torch, dtype)]}), worst |err| / "
+              f"(u |plain| + u/2 rms) {ratio:.3f} at u = {GRAD_ULP[getattr(torch, dtype)]:.3g} "
+              f"(at most 1), largest |plain| {top:.2f}, over N x K in {QUANT_SHAPES}, M in "
+              f"{rows if route == 'q1' else QUANT_ROWS} (q2 also {QUANT_PREFILL_ROWS})"
+              + (", int4 K=4104" if method == "int4" else ""))
+    print(f"[quantized] tensor-core Q1 (bf16, f16) also held to quantized_matmul_split_plain at "
+          f"its split and run twice: {repeats} cases, outputs bitwise equal")
+    check_wide_buffer_replay(gen)
+
+    # times, each weight read from device memory (copies cycled past the L2)
+    by_shape = {}
+    for n, k in QUANT_SHAPES:
+        codes_list = _cold(lambda i: _quantized_weights(gen, n, k, "int8"), n * k)
+        dense = _cold(lambda i: (torch.randn((n, k), generator=gen, device="cuda")
+                                       * k ** -0.5).to(torch.bfloat16), 2 * n * k)
+        row = {}
+        for m in (8, 16):
+            x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+            q1 = device_ms(_cycled(lambda cs: ql.quantized_matmul(x, cs[0], cs[1], k), codes_list))
+            linear = device_ms(_cycled(lambda w: F.linear(x, w), dense))
+            lib_out = library_q1(x, *codes_list[0])
+            lib = None
+            if lib_out is not None:
+                lib_err = max_err(lib_out, plain(x, *codes_list[0], k))
+                lib = device_ms(_cycled(lambda cs: library_q1(x, cs[0], cs[1]), codes_list))
+            plain_ms = device_ms(_cycled(lambda cs: plain(x, cs[0], cs[1], k), codes_list))
+            deq = device_ms(_cycled(lambda cs: F.linear(x, dequantize_int8(
+                cs[0], cs[1], torch.bfloat16)), codes_list))
+            nbytes = n * k + n * 4 + m * (k + n) * 2
+            bms, by = bound_ms(nbytes, 2.0 * m * n * k)
+            row[m] = dict(ms=q1, bound_ms=bms, bound_by=by, library_ms=lib, linear_ms=linear,
+                          plain_ms=plain_ms, dequant_linear_ms=deq, split=ql.split_size(n, k))
+            print(f"[quantized] Q1 int8 x bf16 N={n} K={k} M={m} (split {ql.split_size(n, k)}): "
+                  f"{q1:.4f} ms, bound {bms:.4f} ms ({by}), fraction of bound {bms / q1:.3f}; "
+                  + (f"torch._weight_int8pack_mm {lib:.4f} ms (|its out - plain| {lib_err:.3e}, "
+                     f"its scale rounded to bf16)" if lib is not None else
+                     "torch._weight_int8pack_mm does not run here")
+                  + f"; bf16 F.linear {linear:.4f} ms, plain quantized_dot {plain_ms:.4f} ms, "
+                  f"dequantize then F.linear {deq:.4f} ms")
+        by_shape[f"{n}x{k}"] = row
+        del codes_list, dense
+
+    sweep = rows_sweep(gen)
 
     n, k = QUANT_MAIN_SHAPE
     main = by_shape[f"{n}x{k}"][QUANT_MAIN_ROWS]
+    lib_note = ("library_ms: torch._weight_int8pack_mm (int8 codes, its scale rounded to "
+                "bf16) at the same shape" if main["library_ms"] is not None else
+                "library_ms: none (torch._weight_int8pack_mm does not run on this card's "
+                "torch)")
     q1_entry = dict(name="quantized_matmul", route="cuda",
                     source="transformers_tpu_torch/csrc/quantized_linear.cu",
                     replaces="transformers_tpu/quantizers/weight_only.py:104 (quantized_dot, no "
@@ -1346,9 +1420,9 @@ def check_quantized_linear(gen) -> list:
                     max_abs_err=max(e for (r, *_), (e, *_) in worst.items() if r == "q1"),
                     ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
                     bound_by=main["bound_by"], library_ms=main["library_ms"],
+                    linear_ms=main["linear_ms"],
                     shape=f"int8 x bf16, N={n} K={k} M={QUANT_MAIN_ROWS}",
-                    note="library_ms: bf16 F.linear at the same shape (no PyTorch call "
-                         "multiplies int8 codes by bf16 activations)",
+                    note=lib_note + "; linear_ms: bf16 F.linear at the same shape",
                     by_shape=by_shape, sweep_q1_q2_ms=sweep)
     codes_list = _cold(lambda i: _quantized_weights(gen, n, k, "int8"), n * k)
     wms = device_ms(_cycled(lambda cs: ql.widen_codes(cs[0], k, torch.bfloat16), codes_list))

@@ -12,7 +12,9 @@ weights. Held:
   same tensors;
 - ``quantized_dot`` and the port's ``quantized_linear`` (on CPU tensors the
   plain versions of both kernel routes) against the JAX ``quantized_dot`` to
-  1e-5 (f32 sums in another order);
+  1e-5 (f32 sums in another order), its routing by ``ROW_THRESHOLD``, and
+  ``quantized_matmul_split_plain`` (the tensor-core Q1's split of K, merged
+  in split order) within one rounding step of the output type;
 - quantized-model logits below 2e-5 and greedy ``generate`` ids equal for
   the three methods, and int8 continuous-batching ids equal to the JAX
   engine's;
@@ -25,6 +27,7 @@ weights. Held:
 The JAX references run as the JAX package's own tests run them on the CPU.
 """
 
+import functools
 import json
 import sys
 from pathlib import Path
@@ -158,8 +161,11 @@ def test_codes_and_scales_bitwise_equal_jax(method):
 @pytest.mark.parametrize("rows", [3, 40], ids=["q1_rows", "q2_rows"])
 @pytest.mark.parametrize("method", list(METHODS))
 def test_quantized_dot_matches_jax(method, rows):
-    """The plain product and the port's ``quantized_linear`` (3 rows take Q1's
-    route, 40 take Q2's) against the JAX ``quantized_dot``."""
+    """The plain product, the port's ``quantized_linear`` and one kernel
+    route's plain version (3 rows: Q1's, ``quantized_matmul``; 40 rows: Q2's,
+    the widened codes through ``_widened_matmul``) against the JAX
+    ``quantized_dot``. Which route ``quantized_linear`` takes at a row count
+    is held by test_quantized_linear_routes_by_row_threshold."""
     jax_cfg, port_cfg = METHODS[method]
     w = _weights(2)
     x = np.random.default_rng(3).standard_normal((rows, w.shape[0])).astype(np.float32)
@@ -174,7 +180,97 @@ def test_quantized_dot_matches_jax(method, rows):
     with torch.no_grad():
         _close(pql.quantized_linear(xt, pcodes, pscale, in_features=w.shape[0]), ref,
                tol=DOT_TOL)
-    assert (rows <= pql.ROW_THRESHOLD) == (rows == 3)
+        route = pql.quantized_matmul if rows == 3 else pql._widened_matmul
+        _close(route(xt, pcodes, pscale, w.shape[0]), ref, tol=DOT_TOL)
+
+
+# (K, K values per split) by method: 1024 divides K = 4096, 1536 leaves a
+# shorter last split; 256 and 1024 leave 8 values of K = 4104 (int4's tail
+# past the last whole chunk) to a last split; 4352 is one split
+SPLIT_CASES = {"int8": (4096, (1024, 1536, 4352)), "fp8": (4096, (1024, 1536, 4352)),
+               "int4": (4104, (256, 1024, 4352))}
+SPLIT_ROWS = (1, 3, 8, 16)
+# one rounding step of the output type, as chip_smoke.py's GRAD_ULP hold:
+# |port - jax| <= u |jax| + u/2 rms(jax). Both sides sum exact products in f32
+# (in another order) and round once; in f32 the order alone differs (the rms
+# term covers outputs that are small through cancellation).
+SPLIT_ULP = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
+
+
+@functools.lru_cache(maxsize=None)
+def _split_codes(method):
+    """The port's codes and scale of a seeded [24, K] weight, the same codes
+    in the JAX layout, and x [16, K] (numpy f32)."""
+    k, _ = SPLIT_CASES[method]
+    rng = np.random.default_rng(4)
+    w = rng.standard_normal((24, k)).astype(np.float32)
+    x = rng.standard_normal((SPLIT_ROWS[-1], k)).astype(np.float32)
+    pcodes, pscale = port.quantizers.get_quantizer(METHODS[method][1]()).quantize_tensor(
+        "w", torch.from_numpy(w))
+    jcodes = _as_bits(pcodes).numpy().T
+    if method == "fp8":
+        jcodes = jcodes.view(ml_dtypes.float8_e4m3fn)
+    elif method == "int4":
+        jcodes = jwo.unpack_int4_codes(jnp.asarray(jcodes))
+    return pcodes, pscale, jnp.asarray(jcodes), x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("method", list(METHODS))
+def test_split_plain_matches_jax(method, dtype):
+    """``quantized_matmul_split_plain`` (the tensor-core Q1's split of K and
+    its merge in split order) against the JAX ``quantized_dot`` on the same
+    codes and activations, at 1, 3, 8 and 16 rows and the splits of
+    SPLIT_CASES, each output within one rounding step of the output type of
+    JAX's (SPLIT_ULP)."""
+    jdtype = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16,
+              torch.float16: jnp.float16}[dtype]
+    pcodes, pscale, jcodes, x = _split_codes(method)
+    k, splits = SPLIT_CASES[method]
+    jx = jnp.asarray(x).astype(jdtype)
+    ref = np.asarray(jwo.quantized_dot(jx, jcodes, jnp.asarray(pscale.numpy()), jdtype)
+                     .astype(jnp.float32))
+    xt = torch.from_numpy(np.asarray(jx.astype(jnp.float32))).to(dtype)
+    for split in splits:
+        for rows in SPLIT_ROWS:
+            got = pql.quantized_matmul_split_plain(xt[:rows], pcodes, pscale, k, split)
+            assert got.dtype == dtype and got.shape == (rows, 24)
+            want = ref[:rows]
+            err = np.abs(got.float().numpy() - want)
+            bound = SPLIT_ULP[dtype] * (np.abs(want) + 0.5 * np.sqrt(np.square(want).mean()))
+            assert (err <= bound).all(), (k, split, rows, float((err / bound).max()))
+
+
+def test_quantized_linear_routes_by_row_threshold(monkeypatch):
+    """``quantized_linear`` takes Q1 (``quantized_matmul``) up to ROW_THRESHOLD
+    rows (f32: F32_ROW_THRESHOLD) and Q2's route above, and ``split_size`` cuts K into whole chunks,
+    as many splits as keep the blocks within TARGET_BLOCKS."""
+    routes = []
+    q1, q2 = pql.quantized_matmul, pql._widened_matmul
+    monkeypatch.setattr(pql, "quantized_matmul",
+                        lambda *a, **kw: routes.append("q1") or q1(*a, **kw))
+    monkeypatch.setattr(pql, "_widened_matmul",
+                        lambda *a, **kw: routes.append("q2") or q2(*a, **kw))
+    pcodes, pscale = port.quantizers.get_quantizer(port.Int8WeightOnlyConfig()).quantize_tensor(
+        "w", torch.from_numpy(_weights(5).T.copy()))
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (pql.ROW_THRESHOLD + 1, 96)).astype(np.float32)).to(torch.bfloat16)
+    with torch.no_grad():
+        for rows in (pql.ROW_THRESHOLD, pql.ROW_THRESHOLD + 1):
+            y = pql.quantized_linear(x[:rows], pcodes, pscale, in_features=96)
+            assert torch.equal(y, pwo.quantized_dot(x[:rows], pcodes, pscale, torch.bfloat16))
+        # f32 activations take the CUDA-core Q1, whose threshold is its own
+        for rows in (pql.F32_ROW_THRESHOLD, pql.F32_ROW_THRESHOLD + 1):
+            pql.quantized_linear(x[:rows].float(), pcodes, pscale, in_features=96)
+    assert routes == ["q1", "q2", "q1", "q2"]
+    assert pql.ROW_THRESHOLD <= pql.MAX_TC_ROWS
+    # the splits of the four Llama-3-8B projection shapes (the sweep's fastest)
+    # and of int4's K = 4104
+    for (n, k), splits in {(14336, 4096): 1, (4096, 14336): 4, (4096, 4096): 4,
+                           (1024, 4096): 16, (512, 4104): 17}.items():
+        split = pql.split_size(n, k)
+        assert split % pql.CHUNK == 0 and -(-k // split) == splits, (n, k, split)
 
 
 # -------------------------------------------------------- quantized model

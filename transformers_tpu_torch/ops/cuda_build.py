@@ -49,27 +49,30 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to (named by a hash of what goes in)."""
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+def library_path(name: str, defines: tuple = ()) -> Path:
+    """Where ``csrc/<name>.cu`` builds to (named by a hash of what goes in);
+    ``defines``: extra ``-D`` flags of a sweep's variant of its constants."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS + tuple(defines)).encode())
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def build(names=KERNELS) -> None:
-    """Compile the named kernels that are not built yet, one ``nvcc`` each,
-    all started together. ``nvcc``'s register and shared-memory report is
-    kept beside each library as ``.log``. Raises with the compiler's output
-    when a build fails."""
+def build(names=KERNELS, variants: tuple = ((),)) -> None:
+    """Compile the named kernels that are not built yet, one ``nvcc`` for each
+    name and variant (a tuple of ``-D`` flags; the default: none), all
+    started together. ``nvcc``'s register and shared-memory report is kept
+    beside each library as ``.log``. Raises with the compiler's output when
+    a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
-    for name in names:
-        out = library_path(name)
+    for name, defines in ((n, tuple(d)) for n in names for d in variants):
+        out = library_path(name, defines)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []
