@@ -70,7 +70,28 @@ Phases, in order; any failure exits non-zero:
     check; launch counts checked against the engine's own count of prefill
     chunks and decode steps; a few finished requests teacher-forced through
     the plain path;
-(f) (run after (d), while its model is alive) weight-only quantization: the
+(g) (run after (d), on its model) the other generation routes. Beam search:
+    rows 0 and 4 of phase (c)'s prompts, 4 beams (8 cache rows), 32 new
+    tokens, 2 returned, through ``generate(num_beams=4)``, its step captured
+    as a CUDA graph; the graph path (under the sync check) against the
+    uncaptured step loop, sequences and scores bitwise, launches exact (K1
+    once per layer, K2 once per layer per step run), once without EOS and
+    once with ``early_stopping=True`` and an EOS from the first run's best
+    beam; the scores held to the returned sequences teacher-forced through
+    the plain path and float32; prefill ms, ms per beam step, capture ms,
+    memory held, a profile, and the cache reorder's device ms. Assisted
+    decoding at batch 1 (prompt 128, 64 new tokens) with a draft of the
+    Llama-3.2-1B geometry (16 layers, head_dim 64, tied, llama3 rope), prompt
+    lookup, the target as its own draft, and a sampled run: launches exact
+    from each model's forwards by route, the acceptance rate, ms per new
+    token against greedy graph ``generate``, the share of tokens equal to
+    greedy. At 4 layers of each geometry in float32: the card's beam search
+    equals the port's CPU run (sequences, scores within 1e-4), and the draft,
+    prompt-lookup and self-assisted outputs equal greedy ``generate``'s bit
+    for bit (the self-assisted run accepting every proposal). Watermarking
+    at the full vocabulary: green-list masks and SynthID g-values equal the
+    CPU's, one SynthID step within 1e-5;
+(f) (run after (g), while (c)'s model is alive) weight-only quantization: the
     32-layer model's weights quantized to int8 on the card, the JAX bench's
     serving leg: ``generate`` at batch 16 (prompt 128 left-padded by PADS
     twice over, 32 new tokens, greedy), graph against the uncaptured step
@@ -1559,6 +1580,16 @@ def _median_ms(run, reps: int = 3) -> float:
     return sorted(_timed(run) for _ in range(reps))[reps // 2]
 
 
+def generate_inputs(seed: int, vocab: int) -> tuple:
+    """Phase (c)'s BATCH prompts of PROMPT tokens from ``seed``, row r
+    left-padded by PADS[r] slots: (ids, mask)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    ids = torch.randint(1, vocab, (BATCH, PROMPT), generator=gen, device="cuda")
+    mask = (torch.arange(PROMPT, device="cuda")[None, :]
+            >= torch.tensor(PADS, device="cuda")[:, None]).to(torch.int32)
+    return ids.masked_fill(mask == 0, 0), mask
+
+
 def check_generate(model, seed: int, card: str) -> dict:
     """Phase (c): greedy generate with the decode step replayed from its CUDA
     graph, against the uncaptured step loop (``_generate(graph=False)``) on the
@@ -1569,11 +1600,7 @@ def check_generate(model, seed: int, card: str) -> dict:
     token) share the 32-token program and nothing is captured twice."""
     cfg = model.config
     layers = cfg.num_hidden_layers
-    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
-    ids = torch.randint(1, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device="cuda")
-    mask = (torch.arange(PROMPT, device="cuda")[None, :]
-            >= torch.tensor(PADS, device="cuda")[:, None]).to(torch.int32)
-    ids = ids.masked_fill(mask == 0, 0)
+    ids, mask = generate_inputs(seed, cfg.vocab_size)
     kw = dict(attention_mask=mask, prompt_pad_multiple=PROMPT, decode_pad_multiple=NEW)
 
     def graph(**extra):
@@ -1802,13 +1829,13 @@ def plain_quantized():
         module.quantized_linear = real
 
 
-def plain_and_f32_logits(model, batches, quant=None) -> list:
+def plain_and_f32_logits(model, batches, quant=None, all_positions: bool = False) -> list:
     """For each (ids, mask, positions) batch: the logits of every position
     through the plain path (eager attention, no cache, no kernel; quantized
     Linears through the plain ``quantized_dot``) of ``model``, and the last
-    position's logits of the same model in float32 (the reference; a model
-    quantized with ``quant`` keeps its codes and scales and computes the
-    quantized product in f32)."""
+    position's logits (every position's with ``all_positions``) of the same
+    model in float32 (the reference; a model quantized with ``quant`` keeps
+    its codes and scales and computes the quantized product in f32)."""
     from transformers_tpu_torch import LlamaForCausalLM, quantize_params
 
     out = []
@@ -1826,8 +1853,9 @@ def plain_and_f32_logits(model, batches, quant=None) -> list:
         ref_model.load_state_dict(model.state_dict())
         ref_model.config.attn_implementation = "eager"
         for item, (ids, mask, pos) in zip(out, batches):
-            item.append(ref_model(ids, attention_mask=mask, position_ids=pos,
-                                  logits_to_keep=1).logits[:, -1])
+            logits = ref_model(ids, attention_mask=mask, position_ids=pos,
+                               logits_to_keep=0 if all_positions else 1).logits
+            item.append(logits if all_positions else logits[:, -1])
         ref_model.config.attn_implementation = None
         del ref_model
         torch.cuda.empty_cache()
@@ -2035,6 +2063,433 @@ def teacher_force_cb(model, engine, prompts, generated) -> None:
     hold_to_plain("cb teacher-force", torch.cat(kernel), plain, ref,
                   f"requests {picks}; greedy tokens = plain argmax at {agree:.3f} of generated "
                   f"positions")
+
+
+# --------------------------------------------------------------------- (g)
+# generation routes: beam search on phase (c)'s model; assisted decoding with a
+# draft of the Llama-3.2-1B geometry (meta-llama/Llama-3.2-1B config.json)
+BEAM_ROWS = (0, 4)  # phase (c)'s prompts with 0 and 40 pad slots
+BEAMS, BEAM_RETURN = 4, 2
+SMALL_LAYERS = 4  # the float32 holds: the card against the CPU, assisted against greedy
+SMALL_BEAM_NEW = 8  # the CPU runs the 4-layer full-width model: few steps
+ASSIST_NEW, ASSIST_GAMMA, LOOKUP_TOKENS, SMALL_ASSIST_NEW = 64, 5, 10, 32
+DRAFT_GEOMETRY = dict(vocab_size=128256, hidden_size=2048, intermediate_size=8192,
+                      num_hidden_layers=16, num_attention_heads=32, num_key_value_heads=8,
+                      head_dim=64, tie_word_embeddings=True, rms_norm_eps=1e-5,
+                      rope_theta=500000.0, max_position_embeddings=131072,
+                      rope_scaling={"rope_type": "llama3", "factor": 32.0, "low_freq_factor": 1.0,
+                                    "high_freq_factor": 4.0,
+                                    "original_max_position_embeddings": 8192})
+
+
+def build_llama(geometry: dict, layers: int, dtype, seed: int, device="cuda"):
+    """A model of ``geometry`` cut to ``layers``, random weights from ``seed``
+    (uninitialised on the CPU: a CPU copy takes the card model's weights)."""
+    from transformers_tpu_torch import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(**{"max_position_embeddings": PROMPT + ASSIST_NEW, **geometry,
+                         "num_hidden_layers": layers},
+                      bos_token_id=None, eos_token_id=None, pad_token_id=0)
+    model = LlamaForCausalLM(cfg, dtype=dtype, device=device)
+    return model.init_weights(seed) if device == "cuda" else model
+
+
+def beam_fn(model, new: int, eos=(), early_stopping=False, graph=None):
+    from transformers_tpu_torch.generation.beam_search import build_beam_search_fn
+
+    return build_beam_search_fn(model, bucket=PROMPT, total_len=PROMPT + new, max_new=new,
+                                num_beams=BEAMS, eos_ids=tuple(eos), pad_id=0,
+                                length_penalty=1.0, early_stopping=early_stopping,
+                                num_return_sequences=BEAM_RETURN, graph=graph)
+
+
+def beam_lengths(seqs, eos, t_end: int) -> torch.Tensor:
+    """Generated tokens of each returned hypothesis [B * R]: through its first
+    EOS, else the search's final length ``t_end`` (a running beam)."""
+    gen = seqs.reshape(-1, seqs.shape[-1])[:, PROMPT:]
+    hit = torch.isin(gen, torch.tensor(list(eos) or [-1], device=gen.device))
+    return torch.where(hit.any(1), hit.int().argmax(1) + 1, t_end)
+
+
+def teacher_forced_scores(logits, flat, lengths) -> tuple:
+    """(length-normalized sums of the generated tokens' log-probabilities [N],
+    those log-probabilities [N, NEW], 0 past each row's length)."""
+    new = flat.shape[1] - PROMPT
+    logp = torch.log_softmax(logits[:, PROMPT - 1:-1].float(), dim=-1)
+    tok = logp.gather(-1, flat[:, PROMPT:, None])[..., 0]
+    live = torch.arange(new, device=flat.device)[None, :] < lengths[:, None]
+    tok = torch.where(live, tok, 0.0)
+    return tok.sum(1) / lengths.float(), tok
+
+
+def hold_beam_scores(model, runs, mask) -> None:
+    """The returned scores (length penalty 1.0) against the returned sequences
+    teacher-forced through the plain bf16 path and the same model in float32:
+    |beam - f32| must be at most twice the plain path's own distance from
+    float32, summed over the generated tokens (sum |plain - f32| / n per
+    row). A search that reordered the wrong cache rows scores its tokens
+    against another beam's context: off by whole units of log-probability."""
+    batches, meta = [], []
+    for label, seqs, scores, lengths in runs:
+        flat = seqs.reshape(-1, seqs.shape[-1])
+        full = torch.cat([mask.repeat_interleave(BEAM_RETURN, 0),
+                          (torch.arange(flat.shape[1] - PROMPT, device="cuda")[None, :]
+                           < lengths[:, None]).to(torch.int32)], dim=1)
+        batches.append((flat, full, (full.cumsum(-1) - 1).clamp_min(0)))
+        meta.append((label, flat, scores.reshape(-1), lengths))
+    for (plain, ref), (label, flat, scores, lengths) in zip(
+            plain_and_f32_logits(model, batches, all_positions=True), meta):
+        plain_s, plain_tok = teacher_forced_scores(plain, flat, lengths)
+        ref_s, ref_tok = teacher_forced_scores(ref, flat, lengths)
+        err_beam = float((scores - ref_s).abs().max())
+        err_plain = float((plain_s - ref_s).abs().max())
+        bound = float(((plain_tok - ref_tok).abs().sum(1) / lengths.float()).max())
+        print(f"[beam] {label}: scores {[round(float(x), 5) for x in scores]}, teacher-forced "
+              f"f32 {[round(float(x), 5) for x in ref_s]}; |beam - f32| {err_beam:.5f}, |plain - "
+              f"f32| {err_plain:.5f}, plain's summed per-token distance {bound:.5f} (the hold: "
+              f"|beam - f32| <= 2x that)")
+        if not bool(torch.isfinite(scores).all()) or err_beam > 2 * bound:
+            raise AssertionError(f"beam search {label}: scores disagree with the teacher-forced "
+                                 f"sequences")
+
+
+def reorder_profile(program, card: str) -> None:
+    """Device time of one cache reorder at the program's shape, from the
+    profiler over 10 calls, against its bytes (each buffer read and written;
+    the gathered copy in between doubles the traffic)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    idx = torch.arange(program.batch * program.num_beams, device="cuda").flip(0)
+    with torch.inference_mode():
+        program.cache.reorder_(idx)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                program.cache.reorder_(idx)
+            torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / 10
+    nbytes = sum(t.numel() * t.element_size() for t in program.cache.keys + program.cache.values)
+    if busy == 0:
+        print("[beam] the profiler recorded no device time: the reorder's device ms not measured")
+        return
+    print(f"[beam] cache reorder ({program.batch * program.num_beams} rows, {nbytes / 1e9:.4f} GB "
+          f"of cache): {busy:.4f} ms of device time per step (profiler, 10 calls; "
+          f"{4 * nbytes / busy / 1e6:.0f} GB/s over the 4x bytes a gather and a copy back move) "
+          f"({card})")
+
+
+def check_beam_search(model, seed: int, card: str) -> dict:
+    """Phase (g), beam search on the 32-layer model: rows BEAM_ROWS of phase (c)'s
+    prompts, BEAMS beams (8 cache rows), NEW new tokens, BEAM_RETURN returned,
+    length penalty 1.0; a first run with early_stopping False and no EOS, a
+    second with early_stopping True and an EOS taken from the first run's
+    best beam at step 3. Each: the signature's first call through
+    ``generate`` (prefill, one step for real, the capture, replays), then
+    the graph path (under ``no_host_sync``) against the uncaptured step loop:
+    sequences and scores bitwise, launches exact (K1 once per layer, K2 once
+    per layer per step run); then both runs' scores held to the teacher-forced
+    sequences. Returns the first graph run's launches."""
+    from transformers_tpu_torch.generation.beam_search import BeamSearch
+
+    layers = model.config.num_hidden_layers
+    ids, mask = generate_inputs(seed, model.config.vocab_size)
+    ids, mask = ids[list(BEAM_ROWS)], mask[list(BEAM_ROWS)]
+    total = PROMPT + NEW
+    held_runs, counts0, eos = [], None, ()
+    for label, stop in (("early_stopping False, no EOS", False), ("early_stopping True", True)):
+        if stop:
+            eos = (int(held_runs[0][1][0, 0, PROMPT + 3]),)
+            label += f", EOS {eos[0]} (the first run's best beam at step 3)"
+        gkw = dict(attention_mask=mask, prompt_pad_multiple=PROMPT, max_new_tokens=NEW,
+                   num_beams=BEAMS, num_return_sequences=BEAM_RETURN, length_penalty=1.0,
+                   early_stopping=stop, eos_token_id=list(eos))
+        model._decode_program = None
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        alloc0 = torch.cuda.memory_allocated()
+        first = model.generate(ids, **gkw)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        program = model._decode_program
+        if not isinstance(program, BeamSearch) or first.shape != (2 * BEAM_RETURN, total):
+            raise AssertionError(f"beam search {label}: generate took another route")
+        held = torch.cuda.memory_allocated() - alloc0 - first.numel() * first.element_size()
+        runs = {}
+        for name, graph in (("graph", True), ("uncaptured", False)):
+            fn = beam_fn(model, NEW, eos, stop, graph=graph)
+            _reset_counts()
+            if graph:
+                with no_host_sync():
+                    seqs, scores = fn(ids, mask)
+            else:
+                seqs, scores = fn(ids, mask)
+            torch.cuda.synchronize()
+            counts = _read_counts()
+            expected = _expected(flash_fwd=layers, fused_decode=layers * program.steps_run)
+            if counts != expected:
+                raise AssertionError(f"beam search {label} {name}: launches {counts}, expected "
+                                     f"{expected}")
+            runs[name] = seqs, scores, counts, program.steps_run, int(program.t)
+        (seqs, scores, counts, steps, t_end), other = runs["graph"], runs["uncaptured"]
+        same = (torch.equal(seqs, other[0]), torch.equal(scores, other[1]),
+                (steps, t_end) == other[3:], torch.equal(first, seqs.reshape(-1, total)))
+        finished = int(program.has_finished.sum())
+        print(f"[beam] {label}: graph == uncaptured step loop (sequences, scores, steps and "
+              f"length), generate == the function: {same}; {steps} steps run, the search's "
+              f"length {t_end}, {finished} of {2 * BEAMS} finished hypotheses; launches "
+              f"{ {k: v for k, v in counts.items() if v} } for both ({layers} layers, 1 prefill "
+              f"at {2 * BEAMS} rows)")
+        if not all(same) or not torch.equal(seqs[:, :, :PROMPT], ids[:, None].expand_as(
+                seqs[:, :, :PROMPT])) or int(seqs.max()) >= model.config.vocab_size:
+            raise AssertionError(f"beam search {label}: graph and step loop differ")
+        if not stop and steps != NEW:
+            raise AssertionError("beam search without EOS stopped early")
+        if stop and finished == 0:
+            raise AssertionError("beam search: the EOS finished no hypothesis")
+        held_runs.append((label, seqs, scores, beam_lengths(seqs, eos, t_end)))
+        if stop:
+            continue
+        counts0 = counts
+        cache_bytes = sum(t.numel() * t.element_size()
+                          for t in program.cache.keys + program.cache.values)
+        with torch.inference_mode():
+            prefill = _median_ms(lambda: program.prefill(model, ids, mask))
+            whole = _median_ms(lambda: (program.prefill(model, ids, mask),
+                                        program.advance(model, NEW, True)))
+            eager = _median_ms(lambda: (program.prefill(model, ids, mask),
+                                        program.advance(model, NEW, False)))
+        print(f"[beam] graph: B={len(BEAM_ROWS)} x {BEAMS} beams, prompt {PROMPT}, {NEW} new, "
+              f"bf16, {layers} layers: prefill {prefill:.2f} ms, {(whole - prefill) / NEW:.3f} "
+              f"ms per beam step (replayed; uncaptured {(eager - prefill) / NEW:.3f}), capture "
+              f"{program.graph.capture_ms:.2f} ms (host clock); the program holds "
+              f"{held / 1e9:.4f} GB (KV cache {cache_bytes / 1e9:.4f} GB, logprobs "
+              f"{program.logprobs.numel() * 4 / 1e6:.2f} MB) (medians of 3) ({card})")
+        profile_run("beam search (graph)", lambda: beam_fn(model, NEW, graph=True)(ids, mask),
+                    whole, card)
+        reorder_profile(program, card)
+    hold_beam_scores(model, held_runs, mask)
+    return counts0
+
+
+def check_beam_card_vs_cpu(seed: int, card: str):
+    """SMALL_LAYERS of the same width in float32: the card's beam search (graph)
+    against the port's CPU run of the same weights, SMALL_BEAM_NEW new tokens:
+    sequences equal, scores within 1e-4. Returns the card model."""
+    small = build_llama(GEOMETRY, SMALL_LAYERS, torch.float32, seed)
+    ids, mask = generate_inputs(seed, small.config.vocab_size)
+    ids, mask = ids[list(BEAM_ROWS)], mask[list(BEAM_ROWS)]
+    card_seqs, card_scores = beam_fn(small, SMALL_BEAM_NEW)(ids, mask)
+    cpu = build_llama(GEOMETRY, SMALL_LAYERS, torch.float32, seed, device="cpu")
+    cpu.load_state_dict(small.state_dict())
+    t0 = time.perf_counter()
+    cpu_seqs, cpu_scores = beam_fn(cpu, SMALL_BEAM_NEW)(ids.cpu(), mask.cpu())
+    cpu_s = time.perf_counter() - t0
+    del cpu
+    gc.collect()
+    err = float((card_scores.cpu() - cpu_scores).abs().max())
+    same = torch.equal(card_seqs.cpu(), cpu_seqs)
+    print(f"[beam] {SMALL_LAYERS} layers, float32, {SMALL_BEAM_NEW} new: the card's sequences == "
+          f"the CPU's: {same}; max |score card - CPU| {err:.2e} (<= 1e-4); CPU run "
+          f"{cpu_s:.1f} s ({card})")
+    if not same or err > 1e-4:
+        raise AssertionError("beam search: the card's result differs from the CPU's")
+    return small
+
+
+class ForwardRoutes:
+    """Counts each model's forwards by the attention route they take: the
+    static prefill (cache position 0, more than one token: K1), one token (K2),
+    or a wider window at a later slot (the unfused cached attention).
+    ``models``: role -> model."""
+
+    def __init__(self, models: dict):
+        self.models = models
+        self.seen = {}
+        for role, m in models.items():
+            real = m.forward
+
+            def counted(*args, _real=real, _role=role, **kw):
+                width = kw["input_ids"].shape[1]
+                start = kw.get("cache_position", 0)
+                route = ("prefill" if isinstance(start, int) and start == 0 and width > 1
+                         else "step" if width == 1 else "window")
+                self.seen[f"{_role} {route}"] = self.seen.get(f"{_role} {route}", 0) + 1
+                return _real(*args, **kw)
+
+            m.forward = counted
+
+    def expected(self) -> dict:
+        flash = fused = 0
+        for role, m in self.models.items():
+            layers = m.config.num_hidden_layers
+            flash += layers * self.seen.get(f"{role} prefill", 0)
+            fused += layers * self.seen.get(f"{role} step", 0)
+        return _expected(flash_fwd=flash, fused_decode=fused)
+
+    def close(self) -> None:
+        for m in self.models.values():
+            del m.forward
+
+
+@contextlib.contextmanager
+def acceptance():
+    """(accepted, proposed) of every verify round, from the candidate
+    generators' ``observe`` hook."""
+    from transformers_tpu_torch.generation import candidate_generator
+
+    rounds = []
+    base = candidate_generator._CandidateGenerator
+    real = base.observe
+    base.observe = lambda self, n_accepted, n_proposed: rounds.append((n_accepted, n_proposed))
+    try:
+        yield rounds
+    finally:
+        base.observe = real
+
+
+def assisted_runs(target, draft, prompt, lookup_prompt, new: int, seed: int) -> dict:
+    """name: (prompt, generate kwargs) of the assisted runs."""
+    return {
+        "draft": (prompt, dict(assistant_model=draft, num_assistant_tokens=ASSIST_GAMMA)),
+        "prompt lookup": (lookup_prompt, dict(prompt_lookup_num_tokens=LOOKUP_TOKENS)),
+        "self-assisted": (prompt, dict(assistant_model=target, num_assistant_tokens=ASSIST_GAMMA)),
+        "draft, sampled": (prompt, dict(
+            assistant_model=draft, num_assistant_tokens=ASSIST_GAMMA, do_sample=True,
+            generator=torch.Generator(device="cuda").manual_seed(seed + 9))),
+    }
+
+
+def check_assisted(model, seed: int, card: str) -> dict:
+    """Phase (g), assisted decoding at batch 1 (phase (c)'s first prompt, 128
+    tokens; the prompt-lookup run on one whose second 64 tokens repeat its
+    first 64), ASSIST_NEW new tokens, target the 32-layer model, draft the
+    Llama-3.2-1B geometry (16 layers, head_dim 64, tied embeddings) in bf16:
+    launches exact per run (K1 once per layer per prefill, K2 once per layer
+    per one-token forward, of the target and the draft), the acceptance rate,
+    ms per new token against greedy graph ``generate`` at batch 1 in the same
+    call, and the share of tokens equal to greedy (reported: bf16 near-ties
+    can flip an argmax between K2 and the unfused verify). Returns the draft
+    run's launches."""
+    draft = build_llama(DRAFT_GEOMETRY, DRAFT_GEOMETRY["num_hidden_layers"], torch.bfloat16,
+                        seed + 7)
+    ids, _ = generate_inputs(seed, model.config.vocab_size)
+    prompt = ids[:1]
+    lookup = torch.cat([prompt[:, :PROMPT // 2]] * 2, dim=1)
+    gkw = dict(prompt_pad_multiple=PROMPT, max_new_tokens=ASSIST_NEW)
+    greedy = {id(p): model.generate(p, **gkw) for p in (prompt, lookup)}
+    greedy_ms = _median_ms(lambda: model.generate(prompt, **gkw))
+    print(f"[assisted] greedy graph generate, batch 1, prompt {PROMPT}, {ASSIST_NEW} new, "
+          f"{model.config.num_hidden_layers} layers bf16: {greedy_ms / ASSIST_NEW:.3f} ms per new "
+          f"token (median of 3) ({card})")
+    counts_draft = None
+    for name, (p, kw) in assisted_runs(model, draft, prompt, lookup, ASSIST_NEW, seed).items():
+        assistant = kw.get("assistant_model")
+        routes = ForwardRoutes({"target": model} if assistant in (None, model)
+                               else {"target": model, "draft": assistant})
+        _reset_counts()
+        try:
+            with acceptance() as rounds:
+                t0 = time.perf_counter()
+                out = model.generate(p, **gkw, **kw)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            routes.close()
+        counts, expected = _read_counts(), routes.expected()
+        n_new = out.shape[1] - PROMPT
+        ref = greedy[id(p)][:, PROMPT:PROMPT + n_new]
+        equal = float((out[:, PROMPT:] == ref).float().mean())
+        accepted, proposed = sum(a for a, _ in rounds), sum(n for _, n in rounds)
+        print(f"[assisted] {name}: {n_new} new tokens in {ms:.1f} ms, {ms / n_new:.3f} ms per new "
+              f"token ({ms / n_new / (greedy_ms / ASSIST_NEW):.2f}x greedy graph generate); "
+              f"{len(rounds)} rounds, {accepted} of {proposed} proposals accepted "
+              f"({accepted / max(proposed, 1):.3f}); {equal:.3f} of the tokens equal greedy "
+              f"generate's; forwards by route {routes.seen}; launches "
+              f"{ {k: v for k, v in counts.items() if v} } ({card})")
+        if counts != expected or n_new != ASSIST_NEW or not torch.equal(out[:, :PROMPT], p) \
+                or int(out.max()) >= model.config.vocab_size:
+            raise AssertionError(f"assisted {name}: launches {counts}, expected {expected}, or a "
+                                 f"malformed output")
+        if name == "draft":
+            counts_draft = counts
+    del draft
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts_draft
+
+
+def check_assisted_small(small, seed: int, card: str) -> None:
+    """SMALL_LAYERS of each geometry in float32: the draft, prompt-lookup and
+    self-assisted outputs equal greedy ``generate``'s bit for bit, and the
+    self-assisted run accepts every proposal."""
+    draft = build_llama(DRAFT_GEOMETRY, SMALL_LAYERS, torch.float32, seed + 7)
+    ids, _ = generate_inputs(seed, small.config.vocab_size)
+    prompt = ids[:1]
+    lookup = torch.cat([prompt[:, :PROMPT // 2]] * 2, dim=1)
+    gkw = dict(prompt_pad_multiple=PROMPT, max_new_tokens=SMALL_ASSIST_NEW)
+    greedy = {id(p): small.generate(p, **gkw) for p in (prompt, lookup)}
+    runs = assisted_runs(small, draft, prompt, lookup, SMALL_ASSIST_NEW, seed)
+    for name in ("draft", "prompt lookup", "self-assisted"):
+        p, kw = runs[name]
+        with acceptance() as rounds:
+            out = small.generate(p, **gkw, **kw)
+        accepted, proposed = sum(a for a, _ in rounds), sum(n for _, n in rounds)
+        same = torch.equal(out, greedy[id(p)])
+        print(f"[assisted] {SMALL_LAYERS} layers, float32, {name}: == greedy generate bit for "
+              f"bit: {same}; {accepted} of {proposed} proposals accepted ({card})")
+        if not same or (name == "self-assisted" and accepted != proposed):
+            raise AssertionError(f"assisted {name}: differs from greedy generate")
+    del draft
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_watermark(seed: int, card: str) -> None:
+    """The green-list mask at the full vocabulary for 8 previous tokens (up to
+    2**32 - 1), SynthID g-values on a [2, 160] sequence, and one SynthID
+    processor step over [2, 128256] scores: the card against the CPU."""
+    from transformers_tpu_torch.generation.watermarking import (
+        SynthIDTextWatermarkLogitsProcessor, WatermarkLogitsProcessor)
+
+    vocab = GEOMETRY["vocab_size"]
+    prev = torch.tensor([0, 1, 2, vocab - 1, 2**31 - 1, 2**31, 3_000_000_000, 2**32 - 1])
+    green = WatermarkLogitsProcessor(vocab)
+    mask_same = torch.equal(green.greenlist_mask(prev.cuda()).cpu(), green.greenlist_mask(prev))
+    synthid = dict(ngram_len=5, keys=[654, 400, 836, 123, 340, 443, 597, 160],
+                   sampling_table_size=2**16, sampling_table_seed=0, context_history_size=1024)
+    gen = torch.Generator().manual_seed(seed + 11)
+    ids = torch.randint(0, vocab, (2, 160), generator=gen)
+    scores = torch.randn((2, vocab), generator=gen)
+    on_card = SynthIDTextWatermarkLogitsProcessor(**synthid, device="cuda")
+    on_cpu = SynthIDTextWatermarkLogitsProcessor(**synthid)
+    g_same = torch.equal(on_card.compute_g_values(ids.cuda()).cpu(), on_cpu.compute_g_values(ids))
+    err = max_err(on_card(ids.cuda(), scores.cuda()).cpu(), on_cpu(ids, scores))
+    print(f"[watermark] green-list mask ({len(prev)} previous tokens x {vocab}) card == CPU: "
+          f"{mask_same}; SynthID g-values [2, 160] card == CPU: {g_same}; one SynthID step "
+          f"over [2, {vocab}]: max |card - CPU| {err:.2e} (<= 1e-5) ({card})")
+    if not (mask_same and g_same) or err > 1e-5:
+        raise AssertionError("watermarking: the card differs from the CPU")
+
+
+def check_generation_routes(model, seed: int, card: str) -> tuple:
+    """Phase (g): beam search and assisted decoding on phase (c)'s model, their
+    float32 holds at SMALL_LAYERS, and watermarking. Returns the beam and
+    assisted paths' launches."""
+    beam = check_beam_search(model, seed, card)
+    assisted = check_assisted(model, seed, card)
+    model._decode_program = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = check_beam_card_vs_cpu(seed, card)
+    check_assisted_small(small, seed, card)
+    del small
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_watermark(seed, card)
+    return beam, assisted
 
 
 # --------------------------------------------------------------------- (f)
@@ -2617,6 +3072,8 @@ def main() -> int:
     lap("phase (c), load and generate")
     paths["continuous_batching"], cb_rates = check_cb(model, args.seed, card)
     lap("phase (d), continuous batching")
+    paths["beam_search"], paths["assisted"] = check_generation_routes(model, args.seed, card)
+    lap("phase (g), generation routes")
     paths["quantized_generate"], qmodel, qout, qmask = check_quantized_generate(
         model, args.seed, card)
     del model

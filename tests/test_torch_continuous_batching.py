@@ -30,6 +30,7 @@ from transformers_tpu_torch.generation.continuous_batching import (
 from transformers_tpu_torch.generation.continuous_batching.sampling import gumbel_noise
 from transformers_tpu_torch.models.llama import modeling_llama
 from transformers_tpu_torch.ops import attention
+from torch_port_testing import one_torch_thread  # noqa: F401
 
 CONFIG = dict(vocab_size=256, hidden_size=128, intermediate_size=256, num_hidden_layers=2,
               num_attention_heads=4, num_key_value_heads=2, head_dim=128,

@@ -39,6 +39,7 @@ from transformers_tpu_torch.ops.decode_attention import (
     decode_split_plain,
     decode_supported,
 )
+from torch_port_testing import one_torch_thread  # noqa: F401
 
 F32_TOL = 2e-5
 SPLIT_F32_TOL = 1e-5

@@ -24,6 +24,7 @@ from transformers_tpu.ops.pallas import flash_attention as jax_fa
 from transformers_tpu_torch.ops import flash_attention as port_fa
 from transformers_tpu_torch.ops.fused_decode import fused_decode_attention
 from transformers_tpu_torch.ops.paged_attention import paged_decode_attention
+from torch_port_testing import one_torch_thread  # noqa: F401
 
 TOL = 2e-4
 # name: (b, sq, skv, h, kvh, d, window, cap, kv holes of row 1)

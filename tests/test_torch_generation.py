@@ -37,6 +37,7 @@ from transformers_tpu_torch.generation import logits_process as port_lp  # noqa:
 from transformers_tpu_torch.generation import stopping_criteria as port_sc  # noqa: E402
 from transformers_tpu_torch.generation import streamers as port_streamers  # noqa: E402
 from transformers_tpu_torch.ops import cuda_build  # noqa: E402
+from torch_port_testing import one_torch_thread  # noqa: E402,F401
 
 TOL = 1e-6
 B, T, V = 3, 24, 64

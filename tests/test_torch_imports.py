@@ -20,6 +20,7 @@ import pytest
 import torch
 
 import transformers_tpu_torch as port
+from torch_port_testing import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 MODULES = sorted(["transformers_tpu_torch"] + [

@@ -27,6 +27,7 @@ import transformers_tpu_torch as port
 from transformers_tpu.generation import logits_process as jax_lp
 from transformers_tpu_torch.core.safetensors import load_file, save_file
 from transformers_tpu_torch.generation import logits_process as port_lp
+from torch_port_testing import one_torch_thread  # noqa: F401
 
 TOL = 2e-5
 BASE = dict(vocab_size=256, hidden_size=128, intermediate_size=256, num_hidden_layers=2,
@@ -44,30 +45,35 @@ VARIANTS = {
 }
 
 
-def _numpy_params(jax_model, seed):
-    """Weights from a numpy seed in the JAX param layout: projections ~N(0, 0.1)
-    (logits of std ~1, so greedy choices are not near-ties), norm scales
-    around 1."""
+def _numpy_params(jax_model, seed, std=0.1):
+    """Weights from a numpy seed in the JAX param layout: projections ~N(0, std)
+    (at 0.1, logits of std ~1, so greedy choices are not near-ties), norm
+    scales around 1."""
     rng = np.random.default_rng(seed)
     spec = jax_model.init_abstract()
 
     def draw(path, s):
         if "norm" in jax.tree_util.keystr(path):
             return jnp.asarray(1.0 + 0.1 * rng.standard_normal(s.shape), jnp.float32)
-        return jnp.asarray(0.1 * rng.standard_normal(s.shape), jnp.float32)
+        return jnp.asarray(std * rng.standard_normal(s.shape), jnp.float32)
 
     return jax.tree_util.tree_map_with_path(draw, spec)
 
 
-def _build(variant, seed=0):
-    kw = dict(BASE, **VARIANTS[variant])
-    jax_model = ttpu.LlamaForCausalLM(ttpu.LlamaConfig(**kw), dtype=jnp.float32)
-    params = _numpy_params(jax_model, seed)
-    model = port.LlamaForCausalLM(port.LlamaConfig(**kw), dtype=torch.float32, device="cpu")
+def build_pair(config: dict, seed=0, std=0.1):
+    """(JAX model, its params from ``seed``, the port's model with the same
+    weights), both float32, the port's on the CPU."""
+    jax_model = ttpu.LlamaForCausalLM(ttpu.LlamaConfig(**config), dtype=jnp.float32)
+    params = _numpy_params(jax_model, seed, std)
+    model = port.LlamaForCausalLM(port.LlamaConfig(**config), dtype=torch.float32, device="cpu")
     missing, unexpected = model.load_state_dict(
         port.params_from_jax(jax.tree.map(np.asarray, params)), strict=False)
     assert not missing and not unexpected, (missing, unexpected)
     return jax_model, params, model
+
+
+def _build(variant, seed=0):
+    return build_pair(dict(BASE, **VARIANTS[variant]), seed)
 
 
 @pytest.fixture(scope="module", params=list(VARIANTS))

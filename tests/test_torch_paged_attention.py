@@ -48,6 +48,7 @@ from transformers_tpu_torch.ops.paged_attention import (
     paged_decode_plain,
     paged_decode_split_plain,
 )
+from torch_port_testing import one_torch_thread  # noqa: F401
 
 F32_TOL = 2e-5
 SPLIT_F32_TOL = 1e-5

@@ -57,6 +57,7 @@ from test_prequantized_checkpoints import (  # noqa: E402
     pack_gptq_scalar,
 )
 from test_torch_llama import jax_forward  # noqa: E402
+from torch_port_testing import one_torch_thread  # noqa: E402,F401
 
 TOL = 2e-5
 DOT_TOL = 1e-5

@@ -29,6 +29,7 @@ from transformers_tpu.training_args import TrainingArguments as JaxArgs
 from transformers_tpu_torch import optimization as port_opt
 from transformers_tpu_torch.data import default_data_collator
 from transformers_tpu_torch.training_args import ParallelismConfig
+from torch_port_testing import one_torch_thread  # noqa: F401
 
 CONFIG = dict(vocab_size=128, hidden_size=128, intermediate_size=256, num_hidden_layers=2,
               num_attention_heads=2, num_key_value_heads=1, head_dim=64,

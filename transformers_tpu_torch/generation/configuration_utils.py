@@ -113,6 +113,14 @@ class GenerationConfig:
     def copy(self) -> "GenerationConfig":
         return GenerationConfig(**self.to_dict())
 
+    # Mode derivation (reference configuration_utils.py:531 get_generation_mode)
+    def get_generation_mode(self, assistant_model=None) -> str:
+        if assistant_model is not None:
+            return "assisted_generation"
+        if self.num_beams and self.num_beams > 1:
+            return "beam_sample" if self.do_sample else "beam_search"
+        return "sample" if self.do_sample else "greedy_search"
+
     # Validation (reference configuration_utils.py:644): raise on outright
     # invalid values; warn once on flag combinations the selected mode will
     # silently ignore — hub checkpoints carry unsupported knobs all the time.

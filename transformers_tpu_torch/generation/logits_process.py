@@ -24,8 +24,8 @@ Where the JAX processors build one-hots over the vocabulary
 scatter into a [B, V + 1] mask instead: column V takes the entries that
 mark nothing.
 
-Not ported: the encoder, Hamming (beam), Whisper, codebook and Bark
-processors, which wait for the model families they belong to.
+Not ported: the encoder, Whisper, codebook and Bark processors, which wait
+for the model families they belong to.
 """
 
 from __future__ import annotations
@@ -453,6 +453,30 @@ class UnbatchedClassifierFreeGuidanceLogitsProcessor:
         log_uncond = torch.log_softmax(self.get_unconditional_logits(state), dim=-1)
         log_cond = torch.log_softmax(logits, dim=-1)
         return log_uncond + self.scale * (log_cond - log_uncond)
+
+
+class HammingDiversityLogitsProcessor:
+    """Group beam search's diversity penalty (reference
+    HammingDiversityLogitsProcessor): subtract ``diversity_penalty`` times
+    each token's count among the tokens the previous beam groups chose at
+    this step, ``state["current_tokens"]`` (ids outside the vocabulary count
+    nowhere, as in the JAX one-hot)."""
+
+    def __init__(self, diversity_penalty: float, num_beams: int, num_beam_groups: int):
+        self.penalty = float(diversity_penalty)
+        self.num_beams = num_beams
+        self.num_beam_groups = num_beam_groups
+
+    def __call__(self, logits, state):
+        current = state.get("current_tokens") if isinstance(state, dict) else None
+        if current is None or current.numel() == 0:
+            return logits
+        vocab = logits.shape[-1]
+        current = current.reshape(-1).long()
+        inside = (current >= 0) & (current < vocab)
+        freq = torch.zeros(vocab, dtype=logits.dtype, device=logits.device).index_add_(
+            0, torch.where(inside, current, 0), inside.to(logits.dtype))
+        return logits - self.penalty * freq[None, :]
 
 
 class PrefixConstrainedLogitsProcessor:

@@ -22,14 +22,22 @@ then only the loop's bound). The host reads ``finished`` back every
 ``EOS_CHECK_STEPS`` steps, and only when there are EOS ids: a finished row
 writes pad, so the ids equal those of a loop that stops at once.
 
-A streamer, ``stopping_criteria`` or ``stop_strings`` take the streaming
-route (``_generate_streaming``), which runs the same step and reads every
-step back, since a streamer or a host criterion sees each token.
+Routes, in the JAX package's order (its utils.py:190-236):
+
+1. ``assistant_model`` or ``prompt_lookup_num_tokens``: assisted
+   (speculative) decoding at batch 1 (``candidate_generator.py``);
+2. a streamer, ``stopping_criteria`` or ``stop_strings``: the streaming
+   route (``_generate_streaming``), which runs the same step as the static
+   route and reads every step back, since a streamer or a host criterion
+   sees each token; taken even with ``num_beams > 1``, as in JAX;
+3. ``num_beams > 1``: beam search (``beam_search.py``), its step captured
+   as a CUDA graph like the static route's;
+4. the static route.
 
 ``generate_batch`` and ``init_continuous_batching`` serve requests through
 the continuous-batching engine over paged KV (``continuous_batching/``).
 
-Not ported yet: beam search, assisted decoding, watermarking and seq2seq.
+Not ported yet: seq2seq, which waits for an encoder-decoder family.
 """
 
 from __future__ import annotations
@@ -235,25 +243,36 @@ class GenerationMixin:
                  generation_config: Optional[GenerationConfig] = None,
                  generator: Optional[torch.Generator] = None, cache_dtype=None, streamer=None,
                  stopping_criteria=None, stop_strings=None, tokenizer=None,
-                 **kwargs) -> torch.Tensor:
+                 assistant_model=None, prompt_lookup_num_tokens: Optional[int] = None,
+                 num_assistant_tokens: int = 5, **kwargs) -> torch.Tensor:
         """Reference generation/utils.py:2250. Returns [B, bucket + max_new]
         token ids: the left-padded prompt, the generated tokens, and pad after
         EOS; on the streaming route (a ``streamer``, ``stopping_criteria`` or
-        ``stop_strings`` with a ``tokenizer``), cut after the last step run.
-        ``generator`` drives sampling (``do_sample=True``); unseeded when not
-        given. On the card the decode step runs as replays of a captured CUDA
-        graph; a failed capture raises. The model's decode program (cache,
+        ``stop_strings`` with a ``tokenizer``), cut after the last step run;
+        with ``num_beams > 1``, the ``num_return_sequences`` best hypotheses
+        of each row, [B * R, bucket + max_new_cap]; with ``assistant_model``
+        (a draft model, ``num_assistant_tokens`` proposals a round) or
+        ``prompt_lookup_num_tokens``, [1, S + n]: the prompt without its pads
+        and the tokens up to the first EOS. ``generator`` drives sampling
+        (``do_sample=True``; the assisted route's numpy draws are seeded with
+        its ``initial_seed()``, 0 without one); unseeded when not given. On
+        the card the decode and beam steps run as replays of captured CUDA
+        graphs; a failed capture raises. The model's decode program (cache,
         buffers, graph) serves one call at a time."""
         return self._generate(input_ids, graph=self.device.type == "cuda",
                               attention_mask=attention_mask, generation_config=generation_config,
                               generator=generator, cache_dtype=cache_dtype, streamer=streamer,
                               stopping_criteria=stopping_criteria, stop_strings=stop_strings,
-                              tokenizer=tokenizer, **kwargs)
+                              tokenizer=tokenizer, assistant_model=assistant_model,
+                              prompt_lookup_num_tokens=prompt_lookup_num_tokens,
+                              num_assistant_tokens=num_assistant_tokens, **kwargs)
 
     @torch.inference_mode()
     def _generate(self, input_ids, *, graph: bool, attention_mask=None, generation_config=None,
                   generator=None, cache_dtype=None, streamer=None, stopping_criteria=None,
-                  stop_strings=None, tokenizer=None, **kwargs) -> torch.Tensor:
+                  stop_strings=None, tokenizer=None, assistant_model=None,
+                  prompt_lookup_num_tokens=None, num_assistant_tokens=5,
+                  **kwargs) -> torch.Tensor:
         """``generate`` with the decode step replayed from a CUDA graph
         (``graph``) or run as a function (the CPU, and the card's uncaptured
         reference)."""
@@ -263,8 +282,6 @@ class GenerationMixin:
         if unused:
             logger.warning(f"generate() ignoring unknown kwargs: {sorted(unused)}")
         gen.validate()
-        if gen.num_beams and gen.num_beams > 1:
-            raise NotImplementedError("beam search is not ported yet")
 
         dev = self.device
         input_ids = torch.as_tensor(input_ids, device=dev).to(torch.int64)
@@ -303,8 +320,43 @@ class GenerationMixin:
         if do_sample and generator is None:
             generator = torch.Generator(device=dev)
             generator.seed()
-        processors = self._get_logits_processors(gen, eos_ids, max_new)
         cache_dtype = cache_dtype or self.dtype
+
+        if assistant_model is not None or prompt_lookup_num_tokens is not None:
+            from .candidate_generator import assisted_generate
+
+            if b != 1:
+                raise ValueError("assisted decoding supports batch size 1 (reference parity)")
+            # the host loop runs on the prompt without its pads
+            raw = input_ids[0][attention_mask[0].bool()][None, :]
+            out = assisted_generate(
+                self, assistant_model, raw, max_new_tokens=max_new,
+                num_assistant_tokens=num_assistant_tokens,
+                eos_token_id=list(eos_ids) if eos_ids else None,
+                max_len=pad_to_multiple(raw.shape[1] + max_new + num_assistant_tokens + 2, 64),
+                do_sample=do_sample, temperature=float(gen.temperature or 1.0),
+                seed=generator.initial_seed() & 0x7FFFFFFF if generator is not None else 0,
+                prompt_lookup_num_tokens=prompt_lookup_num_tokens)
+            return torch.from_numpy(out).to(dev)
+
+        streaming = streamer is not None or stopping_criteria is not None \
+            or stop_strings is not None
+        if not streaming and gen.num_beams and gen.num_beams > 1:
+            from .beam_search import build_beam_search_fn
+
+            # the JAX beam route builds model.init_cache: always the static cache
+            if gen.cache_implementation == "quantized":
+                raise ValueError("beam search runs over the static cache only; "
+                                 "cache_implementation='quantized' is not supported there")
+            seqs, _ = build_beam_search_fn(
+                self, bucket=bucket, total_len=total_len, max_new=max_new,
+                num_beams=int(gen.num_beams), eos_ids=eos_ids, pad_id=pad_id,
+                length_penalty=float(gen.length_penalty), early_stopping=gen.early_stopping,
+                cache_dtype=cache_dtype, num_return_sequences=int(gen.num_return_sequences),
+                graph=graph)(input_ids, attention_mask)
+            return seqs.reshape(-1, total_len)
+
+        processors = self._get_logits_processors(gen, eos_ids, max_new)
         # "quantized" builds the int8 cache, any other accepted value the static one
         cache_impl = gen.cache_implementation or "static"
         signature = (b, bucket, total_len, do_sample, eos_ids, pad_id,
@@ -319,8 +371,7 @@ class GenerationMixin:
         program = self._decode_program
         try:
             program.prefill(self, input_ids, attention_mask, generator)
-            if streamer is not None or stopping_criteria is not None \
-                    or stop_strings is not None:
+            if streaming:
                 return self._generate_streaming(
                     program, input_ids, max_new=max_new, generator=generator, graph=graph,
                     streamer=streamer, stopping_criteria=stopping_criteria,
