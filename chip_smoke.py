@@ -70,7 +70,27 @@ Phases, in order; any failure exits non-zero:
     check; launch counts checked against the engine's own count of prefill
     chunks and decode steps; a few finished requests teacher-forced through
     the plain path;
-(g) (run after (d), on its model) the other generation routes. Beam search:
+(h) (run after (d), on its model) serving: the port's ``AutoTokenizer`` from the
+    repo's ``tests/fixtures/bpe48k`` (48k byte-level BPE, Llama-3 split; the
+    model keeps its 128256-token vocabulary, ids from 48006 decode to nothing)
+    and the port's OpenAI-compatible server (``ServeEngine`` + ``OpenAIServer``,
+    in this process, on 127.0.0.1 and a free port) over phase (d)'s engine at 16
+    steps per sync. 12 prompts of 90-500 tokens cut from mixed text (English,
+    code, CJK, figures, whitespace runs) at ``--seed``; ``generate_batch`` on
+    their prompt ids gives the expected 64 greedy ids each; then 6
+    ``/v1/completions`` (4 streamed), 4 ``/v1/chat/completions`` (2 streamed;
+    the fixture has no chat template, so the fallback prompt) and 2
+    ``/v1/responses`` (1 streamed) are sent at once from client threads. The
+    manager's intake is held until all 12 are in and hands them over in
+    ``generate_batch``'s order, so the engine runs the same schedule. Every
+    text and usage must equal the expected, every stream's deltas add up to
+    its text, and K1, K6 and its merge launch as the engine's prefill chunks
+    and decode steps say; then a stream closed after its 4th delta must be
+    cancelled with its pages returned. Prints served tokens/s beside
+    ``generate_batch``'s, time to first delta and between deltas at the
+    client, and the tokenizer's encode rate through the C++ BPE and the plain
+    Python merge (host);
+(g) (run after (h), on its model) the other generation routes. Beam search:
     rows 0 and 4 of phase (c)'s prompts, 4 beams (8 cache rows), 32 new
     tokens, 2 returned, through ``generate(num_beams=4)``, its step captured
     as a CUDA graph; the graph path (under the sync check) against the
@@ -2065,6 +2085,361 @@ def teacher_force_cb(model, engine, prompts, generated) -> None:
                   f"positions")
 
 
+# --------------------------------------------------------------------- (h)
+# serving: the repo's tokenizer fixture (48k byte-level BPE, Llama-3 split)
+# and phase (d)'s engine behind the port's HTTP server, in this process
+SERVE_TOKENIZER = "tests/fixtures/bpe48k"
+SERVE_NEW = 64
+SERVE_LENGTHS = (90, 500)  # prompt tokens, as phase (d)'s
+# (endpoint, streamed) of the 12 requests sent at once
+SERVE_REQUESTS = ([("completions", False)] * 2 + [("completions", True)] * 4
+                  + [("chat", False)] * 2 + [("chat", True)] * 2
+                  + [("responses", False), ("responses", True)])
+SERVE_TEXT = """\
+The river rises in the hills above the town and runs south for ninety miles before it \
+meets the sea. In spring the snow melts and the water climbs the stone banks; by late \
+summer it is shallow enough to cross on foot, and the children of the valley do.
+
+def merge_ranges(ranges):
+    out = []
+    for first, last in sorted(ranges):
+        if out and first <= out[-1][1] + 1:
+            out[-1] = (out[-1][0], max(out[-1][1], last))
+        else:
+            out.append((first, last))
+    return out
+
+東京の朝は早い。駅には六時前から人が集まり、電車は数分おきに到着する。北京的秋天很短，\
+树叶在十月底就落光了。서울의 지하철은 깨끗하고 빠르다。
+
+Invoice 2024-117: 3 units at 1,250.00 each = 3,750.00; tax 7.5% = 281.25; total \
+4,031.25. Order ids 000417, 918273645 and 31415926535 ship on 12/09.
+Column\tseparated\t\tvalues\t\t\tand   runs   of    spaces     between      words.
+
+
+Three blank lines above, two spaces at the end of this line.  
+"""
+
+
+class IntakeGate:
+    """Stands in for the CB manager's intake queue: holds the first ``n``
+    requests until all are in, then hands them out in ``order`` (prompt ids ->
+    rank), so the engine runs generate_batch's schedule (bf16 GEMMs of other
+    batch shapes round differently, phase (d)); later requests pass straight
+    through."""
+
+    def __init__(self, n: int, order: dict):
+        import threading
+
+        self.n, self.order, self.items = n, order, []
+        self.open = False
+        self.lock = threading.Lock()
+
+    def put(self, req) -> None:
+        with self.lock:
+            self.items.append(req)
+            if not self.open and len(self.items) == self.n:
+                self.items.sort(key=lambda r: self.order[tuple(r.prompt_ids)])
+                self.open = True
+
+    def get_nowait(self):
+        import queue
+
+        with self.lock:
+            if not self.open or not self.items:
+                raise queue.Empty
+            return self.items.pop(0)
+
+
+def serve_prompts(tok, seed: int) -> list:
+    """len(SERVE_REQUESTS) texts cut from SERVE_TEXT (repeated) to 90-500
+    tokens of the port's tokenizer, at offsets and lengths from ``seed``."""
+    ids = tok.encode(SERVE_TEXT * 12)
+    rng = np.random.default_rng(seed + 7)
+    texts = []
+    for _ in SERVE_REQUESTS:
+        n = int(rng.integers(SERVE_LENGTHS[0], SERVE_LENGTHS[1] + 1))
+        start = int(rng.integers(0, len(ids) - n))
+        texts.append(tok.decode(ids[start:start + n]))
+    return texts
+
+
+def _serve_body(kind: str, stream: bool, text: str, new: int) -> tuple:
+    if kind == "completions":
+        return "/v1/completions", {"prompt": text, "max_tokens": new, "temperature": 0,
+                                   "stream": stream, "stream_options": {"include_usage": True}}
+    if kind == "chat":
+        return "/v1/chat/completions", {"messages": [{"role": "user", "content": text}],
+                                        "max_tokens": new, "temperature": 0, "stream": stream,
+                                        "stream_options": {"include_usage": True}}
+    return "/v1/responses", {"input": text, "max_output_tokens": new, "temperature": 0,
+                             "stream": stream}
+
+
+def serve_call(url: str, kind: str, stream: bool, text: str, new: int) -> dict:
+    """One request through urllib: its text, usage, deltas and the client's
+    clock (sent, each delta's arrival, done)."""
+    import urllib.request
+
+    route, body = _serve_body(kind, stream, text, new)
+    req = urllib.request.Request(url + route, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    out = {"kind": kind, "stream": stream, "sent": time.perf_counter(), "deltas": [],
+           "at": []}
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        if not stream:
+            obj = json.loads(resp.read())
+            if kind == "responses":
+                out["text"] = obj["output"][0]["content"][0]["text"]
+                out["usage"] = (obj["usage"]["input_tokens"], obj["usage"]["output_tokens"])
+            else:
+                c = obj["choices"][0]
+                out["text"] = c["text"] if kind == "completions" else c["message"]["content"]
+                out["usage"] = (obj["usage"]["prompt_tokens"], obj["usage"]["completion_tokens"])
+        else:
+            for raw in resp:
+                line = raw.decode().rstrip("\n")
+                if not line.startswith("data: ") or line == "data: [DONE]":
+                    continue
+                ev = json.loads(line[6:])
+                if kind == "responses":
+                    if ev["type"] == "response.output_text.delta":
+                        out["deltas"].append(ev["delta"])
+                        out["at"].append(time.perf_counter())
+                    elif ev["type"] == "response.completed":
+                        r = ev["response"]
+                        out["text"] = r["output"][0]["content"][0]["text"]
+                        out["usage"] = (r["usage"]["input_tokens"], r["usage"]["output_tokens"])
+                elif ev["choices"]:
+                    c = ev["choices"][0]
+                    d = c["text"] if kind == "completions" else c["delta"].get("content", "")
+                    if d:
+                        out["deltas"].append(d)
+                        out["at"].append(time.perf_counter())
+                else:
+                    out["usage"] = (ev["usage"]["prompt_tokens"], ev["usage"]["completion_tokens"])
+            if kind != "responses":
+                out["text"] = "".join(out["deltas"])
+    out["done"] = time.perf_counter()
+    return out
+
+
+def check_cancel_on_close(url: str, engine, tok, card: str) -> None:
+    """A streamed request (400 new tokens) whose client closes after its 4th
+    delta: the manager must report it cancelled and the pages come back."""
+    import http.client
+
+    cb = engine.manager.engine
+    free = cb.bm.num_free_blocks
+    host, port = url.split("//")[1].split(":")
+    conn = http.client.HTTPConnection(host, int(port), timeout=60)
+    conn.request("POST", "/v1/completions", headers={"Content-Type": "application/json"},
+                 body=json.dumps({"prompt": SERVE_TEXT[:400], "max_tokens": 400,
+                                  "temperature": 0, "stream": True}))
+    resp = conn.getresponse()
+    deltas, rid = 0, None
+    while deltas < 4:
+        line = resp.fp.readline().decode()
+        if not line:
+            raise AssertionError("phase (h): the stream ended before its 4th delta")
+        if line.startswith("data: {"):
+            ev = json.loads(line[6:])
+            rid = ev["id"]
+            deltas += bool(ev["choices"][0]["text"])
+    closed = time.perf_counter()
+    resp.close()
+    conn.close()
+    while time.perf_counter() - closed < 10:
+        if (rid in engine.manager.cancelled and not cb.scheduler.active
+                and not cb.scheduler.waiting and cb.bm.num_free_blocks == free):
+            break
+        time.sleep(0.01)
+    took = time.perf_counter() - closed
+    ok = rid in engine.manager.cancelled and cb.bm.num_free_blocks == free
+    print(f"[serve] stream closed after its 4th delta: cancelled by the manager {ok} after "
+          f"{took * 1e3:.1f} ms, free pages {cb.bm.num_free_blocks} of {free} before ({card})")
+    if not ok:
+        raise AssertionError("phase (h): a closed stream was not cancelled, or kept its pages")
+
+
+def encode_rates(card: str) -> None:
+    """The tokenizer's encode rate on the host: the C++ BPE against the plain
+    Python merge loop, each from an empty word cache, on the same text (SERVE_TEXT
+    and the port's Python sources, 200,000 characters); and how much of it the
+    pre-tokenizer's split takes."""
+    from pathlib import Path
+
+    import transformers_tpu_torch
+    from transformers_tpu_torch.tokenization import TokenizerEngine
+
+    root = Path(transformers_tpu_torch.__file__).parent
+    text = (SERVE_TEXT + "".join(p.read_text() for p in sorted(root.rglob("*.py"))))[:200_000]
+    rates, ids = {}, {}
+    for route, native_bpe in (("C++ BPE", True), ("Python merge", False)):
+        eng = TokenizerEngine.from_file(f"{SERVE_TOKENIZER}/tokenizer.json", native_bpe=native_bpe)
+        eng.encode("warm up: build and load the merge table")
+        eng.model._cache.clear()
+        t0 = time.perf_counter()
+        ids[route] = eng.encode(text)["input_ids"]
+        rates[route] = len(ids[route]) / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    words = eng.pre_tokenizer.pre_tokenize(text)
+    split_s = time.perf_counter() - t0
+    if ids["C++ BPE"] != ids["Python merge"]:
+        raise AssertionError("phase (h): the C++ BPE and the Python merge loop disagree")
+    n = len(ids["C++ BPE"])
+    print(f"[serve] tokenizer encode on the host ({len(text)} chars, {n} tokens, {len(words)} "
+          f"words of which {len(set(words))} distinct; ids equal): C++ BPE "
+          f"{rates['C++ BPE']:.0f} tokens/s, plain Python merge {rates['Python merge']:.0f} "
+          f"tokens/s; the pre-tokenizer's split takes {split_s * 1e3:.1f} ms of the C++ route's "
+          f"{n / rates['C++ BPE'] * 1e3:.1f} ms (host CPU beside {card})")
+
+
+def check_serving(model, seed: int, card: str) -> dict:
+    """Phase (h): the OpenAI-compatible server over continuous batching on
+    phase (d)'s model. generate_batch first gives the expected ids; then 12
+    requests (6 completions, 4 chats, 2 responses; 7 streamed) are sent at
+    once from client threads, their texts and usage held to the expected,
+    each stream's deltas to the whole text, the launches to the engine's
+    counts; then a stream closed early must be cancelled. Returns the served
+    run's launch counts."""
+    import threading
+    import urllib.request
+
+    from transformers_tpu_torch import AutoTokenizer
+    from transformers_tpu_torch.cli.serving import OpenAIServer, ServeEngine
+
+    layers = model.config.num_hidden_layers
+    engine_kw = dict(CB_ENGINE, steps_per_sync=16)
+    tok = AutoTokenizer.from_pretrained(SERVE_TOKENIZER)
+    texts = serve_prompts(tok, seed)
+    engine = ServeEngine(model, tok, model_name="llama-3-8b-geometry", **engine_kw)
+    server = OpenAIServer(engine, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        prompts = [tok.encode(t) if kind == "completions"
+                   else engine.chat_prompt_ids([{"role": "user", "content": t}])
+                   for t, (kind, _) in zip(texts, SERVE_REQUESTS)]
+        # the second call is timed: each builds a fresh engine and captures its
+        # graphs, as the server's engine does, and it finds cuBLAS warm
+        expected = model.generate_batch(prompts, max_new_tokens=SERVE_NEW, **engine_kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = model.generate_batch(prompts, max_new_tokens=SERVE_NEW, **engine_kw)
+        torch.cuda.synchronize()
+        batch_s = time.perf_counter() - t0
+        if any(len(g) != SERVE_NEW for g in expected) or again != expected:
+            raise AssertionError("phase (h): generate_batch did not return the same 64 ids a "
+                                 "prompt twice")
+        with urllib.request.urlopen(server.url + "/health", timeout=60) as r:
+            health = json.loads(r.read())
+        with urllib.request.urlopen(server.url + "/v1/models", timeout=60) as r:
+            models = [m["id"] for m in json.loads(r.read())["data"]]
+        if health != {"status": "ok"} or models != ["llama-3-8b-geometry"]:
+            raise AssertionError(f"phase (h): /health {health}, /v1/models {models}")
+
+        engine.manager._in = IntakeGate(len(prompts), {tuple(p): i for i, p in enumerate(prompts)})
+        cb = engine.manager.engine
+        steps = {"n": 0, "in": 0.0, "first": None, "last": None}
+        step = cb.step
+
+        def timed_step():
+            # the host clock inside the manager's engine steps: the same steps
+            # as generate_batch's, which are all its loop does
+            t = time.perf_counter()
+            try:
+                return step()
+            finally:
+                steps["last"] = time.perf_counter()
+                steps["first"] = steps["first"] or t
+                steps["n"] += 1
+                steps["in"] += steps["last"] - t
+
+        cb.step = timed_step
+        runner = cb.runner
+        names = ("prefill_chunks", "single_token_chunks", "decode_steps")
+        before = {n: getattr(runner, n) for n in names}
+        _reset_counts()
+        results = [None] * len(prompts)
+        barrier = threading.Barrier(len(prompts))
+
+        def client(i):
+            kind, stream = SERVE_REQUESTS[i]
+            barrier.wait()
+            try:
+                results[i] = serve_call(server.url, kind, stream, texts[i], SERVE_NEW)
+            except Exception as exc:  # reported below, as a failed request
+                results[i] = {"error": repr(exc)}
+
+        clients = [threading.Thread(target=client, args=(i,)) for i in range(len(prompts))]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=600)
+        torch.cuda.synchronize()
+        del cb.step
+        counts = _read_counts()
+        ran = {n: getattr(runner, n) - before[n] for n in names}
+        bad = [i for i, r in enumerate(results) if r is None or "error" in r]
+        if bad:
+            raise AssertionError(f"phase (h): requests {bad} failed: "
+                                 f"{[results[i] for i in bad]}")
+        paged = layers * (ran["decode_steps"] + ran["single_token_chunks"])
+        want = _expected(flash_fwd=layers * ran["prefill_chunks"], paged_decode=paged,
+                         paged_decode_combine=paged)
+        print(f"[serve] launches {counts}, expected {want} ({layers} layers, "
+              f"{ran['prefill_chunks']} prefill chunks, {ran['single_token_chunks']} one-token "
+              f"chunks, {ran['decode_steps']} decode steps)")
+        if counts != want:
+            raise AssertionError("phase (h): the served path did not go through the kernels "
+                                 "as required")
+        for i, (r, p, g) in enumerate(zip(results, prompts, expected)):
+            text = tok.decode(g, skip_special_tokens=True)
+            if r["text"] != text or r["usage"] != (len(p), SERVE_NEW):
+                raise AssertionError(
+                    f"phase (h): request {i} ({r['kind']}, streamed {r['stream']}) answered "
+                    f"{r['text']!r} with usage {r['usage']}; generate_batch gives {text!r}, "
+                    f"usage {(len(p), SERVE_NEW)}")
+            if r["stream"] and "".join(r["deltas"]) != text:
+                raise AssertionError(f"phase (h): request {i}'s deltas do not add up to its text")
+        streamed = [r for r in results if r["stream"]]
+        if any(len(r["deltas"]) < 2 or r["at"][0] >= r["at"][-1] for r in streamed):
+            raise AssertionError("phase (h): a stream arrived in one piece at its end")
+        first = min(r["sent"] for r in results)
+        wall = max(r["done"] for r in results) - first
+        n_tok = len(prompts) * SERVE_NEW
+        ttft = np.array([r["at"][0] - r["sent"] for r in streamed]) * 1e3
+        gaps = np.concatenate([np.diff(r["at"]) for r in streamed]) * 1e3
+        print(f"[serve] {len(prompts)} requests at once (6 completions, 4 chats, 2 responses; "
+              f"{len(streamed)} streamed), prompts {min(map(len, prompts))}-"
+              f"{max(map(len, prompts))} tokens, {SERVE_NEW} new each, greedy, bf16, {layers} "
+              f"layers: every text and usage == generate_batch's, every stream's deltas == its "
+              f"text ({card})")
+        print(f"[serve] served {n_tok / wall:.1f} generated tokens/s (wall "
+              f"{wall * 1e3:.1f} ms from the first request sent to the last answer) against "
+              f"generate_batch {n_tok / batch_s:.1f} tokens/s ({batch_s * 1e3:.1f} ms) on the "
+              f"same prompt ids and engine settings; time to first delta p50 "
+              f"{np.percentile(ttft, 50):.1f} ms, p90 {np.percentile(ttft, 90):.1f} ms; between "
+              f"deltas p50 {np.percentile(gaps, 50):.1f} ms (a delta carries up to 16 tokens: "
+              f"one host sync per 16 decode steps) ({card})")
+        span = steps["last"] - steps["first"]
+        print(f"[serve] the manager ran the burst in {steps['n']} engine steps over {span * 1e3:.1f} "
+              f"ms: {steps['in'] * 1e3:.1f} ms inside them ({steps['in'] * 1e3 / steps['n']:.2f} ms "
+              f"a step), {(span - steps['in']) * 1e3:.1f} ms between them; generate_batch's loop "
+              f"runs the same steps in {batch_s * 1e3:.1f} ms ({batch_s * 1e3 / steps['n']:.2f} ms "
+              f"a step); the other {len(prompts) * 2} threads of this interpreter (12 clients, 12 "
+              f"handlers) share its GIL with the manager ({card})")
+        check_cancel_on_close(server.url, engine, tok, card)
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.close()
+        thread.join(timeout=30)
+    encode_rates(card)
+    return counts
+
+
 # --------------------------------------------------------------------- (g)
 # generation routes: beam search on phase (c)'s model; assisted decoding with a
 # draft of the Llama-3.2-1B geometry (meta-llama/Llama-3.2-1B config.json)
@@ -3072,6 +3447,8 @@ def main() -> int:
     lap("phase (c), load and generate")
     paths["continuous_batching"], cb_rates = check_cb(model, args.seed, card)
     lap("phase (d), continuous batching")
+    paths["serving"] = check_serving(model, args.seed, card)
+    lap("phase (h), serving")
     paths["beam_search"], paths["assisted"] = check_generation_routes(model, args.seed, card)
     lap("phase (g), generation routes")
     paths["quantized_generate"], qmodel, qout, qmask = check_quantized_generate(

@@ -1,13 +1,16 @@
 """The PyTorch port stands alone: importing any of its modules loads no JAX
-and nothing of the JAX package, and its entry points run on the CUDA card
-unless told otherwise.
+and nothing of the JAX package, nor the ``regex``, ``aiohttp`` or ``jinja2``
+packages that the JAX package's tokenizer and server use, and its entry
+points run on the CUDA card unless told otherwise.
 
 One fresh interpreter (this test process has already imported both
 packages) imports every module of the port in turn and records, after each,
 which forbidden modules have been loaded; each module is then its own test
 case. The port's name begins with ``transformers_tpu``, so the JAX package is
 matched by its exact name or its ``transformers_tpu.`` prefix, never by a
-bare string prefix.
+bare string prefix. A second interpreter, in which those packages cannot be
+imported at all, loads the tokenizer and the server modules and encodes and
+decodes text; ``jinja2`` loads only when a chat template is applied.
 """
 
 import json
@@ -30,9 +33,9 @@ _CHILD = r"""
 import importlib, json, sys
 
 def forbidden():
+    roots = ("jax", "jaxlib", "transformers_tpu", "regex", "aiohttp", "jinja2")
     return sorted(m for m in sys.modules
-                  if m in ("jax", "jaxlib", "transformers_tpu")
-                  or m.startswith(("jax.", "jaxlib.", "transformers_tpu.")))
+                  if m in roots or m.startswith(tuple(r + "." for r in roots)))
 
 report = {}
 for name in json.loads(sys.argv[1]):
@@ -116,3 +119,34 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(entry, tmp_path, 
             port.AutoModelForCausalLM.from_pretrained(tmp_path)
         else:
             port.AutoModelForCausalLM.from_config(config)
+
+
+_BLOCKED = r"""
+import json, sys
+for name in ("jax", "jaxlib", "transformers_tpu", "regex", "aiohttp"):
+    sys.modules[name] = None  # any import of them raises
+import transformers_tpu_torch.cli.serving, transformers_tpu_torch.cli.chat
+import transformers_tpu_torch.native
+from transformers_tpu_torch import AutoTokenizer
+
+tok = AutoTokenizer.from_pretrained("tests/fixtures/bpe48k")
+tok.chat_template = "{% for m in messages %}{{ m['content'] }}{% endfor %}"
+ids = tok.encode(sys.argv[1])
+report = {"ids": ids, "text": tok.decode(ids), "native": tok.engine.model.uses_native,
+          "jinja2_before": "jinja2" in sys.modules}
+report["chat"] = tok.apply_chat_template([{"role": "user", "content": "hi"}], tokenize=False)
+report["jinja2_after"] = "jinja2" in sys.modules
+print(json.dumps(report))
+"""
+
+
+def test_tokenizer_and_server_need_no_regex_aiohttp_or_jax():
+    text = "Tokenizer\x1c test: caf\u00e9 \u4e2d\u6587 \U0001f680 it's 123"
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED, text], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    tok = port.AutoTokenizer.from_pretrained(REPO / "tests" / "fixtures" / "bpe48k")
+    assert report["ids"] == tok.encode(text) and report["text"] == text
+    assert report["native"] and not report["jinja2_before"]
+    assert report["chat"] == "hi" and report["jinja2_after"]

@@ -13,6 +13,7 @@ from .models.auto import AutoConfig, AutoModelForCausalLM
 from .models.llama import LlamaConfig, LlamaForCausalLM
 from .quantizers import (Fp8WeightOnlyConfig, Int4WeightOnlyConfig, Int8WeightOnlyConfig,
                          QuantizationConfig, quantize_params)
+from .tokenization import AutoTokenizer, BatchEncoding, PreTrainedTokenizer
 from .trainer import Trainer
 from .trainer_callback import TrainerCallback
 from .training_args import TrainingArguments

@@ -15,6 +15,7 @@ The engine loop each step:
 
 from __future__ import annotations
 
+import collections
 import logging
 import queue
 import threading
@@ -244,6 +245,8 @@ class ContinuousBatchingManager:
         self._thread: Optional[threading.Thread] = None
         self._lock = threading.Lock()
         self._error: Optional[str] = None
+        # ids of the latest requests cancelled while still live
+        self.cancelled: collections.deque = collections.deque(maxlen=256)
 
     def start(self):
         if self._thread is not None:
@@ -287,6 +290,8 @@ class ContinuousBatchingManager:
                     except queue.Empty:
                         break
                     ev = self.engine.cancel_request(rid)
+                    if ev is not None:
+                        self.cancelled.append(rid)
                     with self._lock:
                         q = self._outs.pop(rid, None)
                     if q is not None:

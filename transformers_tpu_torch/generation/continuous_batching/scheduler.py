@@ -5,9 +5,12 @@ Port of ``transformers_tpu/generation/continuous_batching/scheduler.py``
 FIFOScheduler, :380 PrefillFirstScheduler, chunked prefill + token budget
 :122-208). Host-side logic only; device work happens in ModelRunner.
 
-One difference from the JAX scheduler: a prompt whose every token is already
+Two differences from the JAX scheduler: a prompt whose every token is already
 in the prefix cache would leave nothing to prefill and never produce its
-first token, so the prefix match stops one token short of the cached ids.
+first token, so the prefix match stops one token short of the cached ids;
+and a request whose context exceeds ``max_blocks_per_seq`` stays in
+``waiting`` as FAILED, where the engine's step reports it, instead of being
+dropped unreported (its submitter would wait forever).
 """
 
 from __future__ import annotations
@@ -104,8 +107,7 @@ class FIFOScheduler:
         if needed_blocks > self.max_blocks_per_seq:
             req.status = RequestStatus.FAILED
             req.error = f"context {total} exceeds max {self.max_blocks_per_seq * self.block_size}"
-            self.waiting.pop(0)
-            return None
+            return None  # left in ``waiting``: the engine's step reports it and drops it
         # the last token is always prefilled: its logits give the first token
         shared, matched = self.bm.match_prefix(req.cache_ids[:-1])
         fresh = self.bm.allocate(needed_blocks - len(shared))
