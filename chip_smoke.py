@@ -16,7 +16,7 @@ Phases, in order; any failure exits non-zero:
     library call that computes the same function (a yardstick only: the port
     never calls it), beside the least time the card could take; then hold
     them on the cases of the reference's tests/ops files in float32, float16
-    and bf16, at head_dim 64, 128 and 256. The fused decode (K2, split-KV)
+    and bf16, at head_dim 64, 96, 128 and 256. The fused decode (K2, split-KV)
     is also held on a long context (S = 4096, pos = 4000) relative to the
     outputs' scale too, run twice (bitwise-equal outputs required), timed
     with idle splits (pos 300 of 4096 slots against 320), and replayed from
@@ -44,7 +44,12 @@ Phases, in order; any failure exits non-zero:
     beside its bound, ``torch._weight_int8pack_mm`` (the library yardstick),
     bf16 ``F.linear`` and the plain versions, each weight read from device
     memory, and Q1 and Q2's route are swept over 1-128 rows (the sweep that
-    set ``ROW_THRESHOLD``);
+    set ``ROW_THRESHOLD``); then K1, K4/K5, K2 and K6 at head_dim 96 in the
+    three storage types, and K1, K2 and K6 held (absolutely and relative to
+    the output's scale) and timed beside their bounds and SDPA at phase (i)'s
+    shapes: Gemma-3-12B's prefill (4 x 1536 slots, 16 query heads over 8 kv
+    heads, head_dim 256, window 1024 and none), decode step and CB decode
+    with the window, and Phi-3-mini's (head_dim 96);
 (c) the static-cache path at the Llama-3-8B geometry in bf16 with random
     weights from ``--seed``: a full-width, 2-layer checkpoint written with the
     port's safetensors writer and read back by ``from_pretrained``; then
@@ -125,6 +130,25 @@ Phases, in order; any failure exits non-zero:
     prefill chunk; then 4 layers of the same width with int4 and fp8
     weights (graph against step loop, logits held) and with int8 weights
     over the int8 KV cache (``cache_implementation="quantized"``);
+(i) (run after (f), when no other model is held) the Llama-skeleton families.
+    Gemma-3-12B's text decoder at full width and depth (the text_config of
+    google/gemma-3-12b-it: 48 layers, 40 of them sliding with a 1024-slot
+    window and the local rope table, head_dim 256, tied 262208-token
+    vocabulary; bf16, random weights from ``--seed``, ~23.5 GB): a 2-layer
+    checkpoint round trip through ``AutoModelForCausalLM`` (no ``lm_head`` in
+    the file); static generate at batch 4 over 1536-slot prompts left-padded
+    by 0/64/128/256 (every row's context past the window), 32 new tokens,
+    greedy, graph against the uncaptured step loop bitwise under the sync
+    check, K1 48 per prefill and K2 48 per step, timed and profiled; CB with 8
+    requests of 1100-2000 tokens at 16 steps per sync, a graph engine and an
+    uncaptured one (each warmed first, as in (d)) giving equal tokens,
+    launches exact, the graph engine profiled; the generated tokens
+    teacher-forced against a float32 run (the bf16 model moved off the card
+    first). Then Mistral-7B, Qwen2.5-7B, Qwen3-8B, Phi-3-mini (head_dim 96),
+    Gemma-7B and Gemma-2-9B at 4 layers of their published widths: static
+    generate at batch 4, prompt 128, 16 new tokens, graph against step loop
+    bitwise, launches exact by route (K2 never for Gemma-2, whose softcap
+    keeps decode on the plain path), logits teacher-forced;
 (e) training at the same width, depth cut to 4 layers (f32 weights, bf16
     compute, random from ``--seed``), after (c)/(d)'s model is freed: layer 0's
     q/k/v gradients and the loss of one row through the kernel path held
@@ -205,6 +229,8 @@ FLASH_OPS_CASES = {  # name: (b, sq, skv, h, kvh, d, left pads, window, cap)
     "logit_cap": (1, 128, 128, 2, 2, 64, None, None, 30.0),
     "gqa_d128": (2, 128, 128, 4, 2, 128, None, None, None),
     "d256_padded_window": (2, 96, 160, 4, 1, 256, (17, 0), 40, None),
+    "d96_causal": (2, 128, 128, 4, 2, 96, None, None, None),
+    "d96_padded_window_cap": (2, 100, 300, 8, 2, 96, (0, 37), 64, 30.0),
 }
 # The cases of test_flash_bwd_kernel_parity (GQA, kv holes, window 37, softcap
 # 30) and test_flash_grad_matches_eager; the backward also runs FLASH_OPS_CASES.
@@ -228,6 +254,8 @@ DECODE_OPS_CASES = {  # name: (b, h, kvh, d, s, pos, starts, hole fraction)
     "d256_gqa_8": (2, 8, 1, 256, 80, 79, [3, 0], 0.05),
     "d64_gqa_2": (2, 4, 2, 64, 96, 95, [0, 40], 0),
     "d256_gqa_4": (2, 8, 2, 256, 100, 99, [0, 33], 0.05),
+    "d96_gqa_1": (3, 4, 4, 96, 64, 41, [0, 9, 40], 0),
+    "d96_gqa_8": (2, 16, 2, 96, 600, 580, [0, 3], 0.05),
 }
 # K7: the cases of tests/ops/test_decode_attention.py, plus GQA 1 and 8,
 # head_dim 64 and 256 and a row whose end lies before its start
@@ -260,6 +288,8 @@ PAGED_OPS_CASES = {  # name: (n, h, kvh, d, block size, ctx_lens, window)
     "d64_gqa_8": (3, 16, 2, 64, 16, (40, 1, 77), None),
     "d256_gqa_2": (3, 4, 2, 256, 32, (100, 33, 1), 40),
     "d256_gqa_8": (2, 8, 1, 256, 16, (64, 130), None),
+    "d96_gqa_8": (3, 16, 2, 96, 32, (40, 1, 317), None),
+    "d96_gqa_4_window": (3, 8, 2, 96, 16, (100, 48, 700), 40),
 }
 
 
@@ -406,27 +436,56 @@ def _flash_inputs(gen, *, b=8, sq=128, skv=128, h=32, kvh=8, d=128, pads=None,
     return q, k, v, qpos.contiguous(), valid
 
 
-def _flash_errors(q, k, v, qpos, valid, **kw) -> tuple[float, float]:
+def _flash_errors(q, k, v, qpos, valid, **kw) -> tuple[float, float, float]:
     """Max abs error of the kernel's output and logsumexp against the plain
-    version's; raises if the two disagree on which rows see no slot."""
+    version's, and the output's worst ``grad_ratio`` at q's GRAD_ULP (a hold
+    relative to the output's scale; on the tensor-core route, bf16 and f16 at
+    head_dim <= 128, with the spread its rounded probabilities allow);
+    raises if the two disagree on which rows see no slot."""
     from transformers_tpu_torch.ops.flash_attention import (flash_attention,
                                                             flash_attention_plain)
 
     out, lse = flash_attention(q, k, v, q_positions=qpos, kv_valid=valid, return_lse=True, **kw)
     ref, ref_lse = flash_attention_plain(q, k, v, qpos, valid, **kw)
+    spread = None
+    if q.dtype != torch.float32 and q.shape[-1] <= 128:
+        spread = flash_attention_plain(q.float(), k.float(), v.float().abs(), qpos, valid,
+                                       **kw)[0]
     torch.cuda.synchronize()
     fin = torch.isfinite(ref_lse)
     if not torch.equal(fin, torch.isfinite(lse)):
         raise AssertionError("flash: fully masked rows differ")
-    return max_err(out, ref), max_err(lse[fin], ref_lse[fin])
+    return (max_err(out, ref), max_err(lse[fin], ref_lse[fin]),
+            grad_ratio(out, ref, GRAD_ULP[q.dtype], spread))
 
 
-def check_flash(gen) -> dict:
+def flash_timed(q, k, v, qpos, valid, window=None) -> dict:
+    """K1, its plain version and SDPA (the mask as a boolean tensor) timed on
+    these inputs (causal, the window if given), beside the least time the
+    card could take."""
     import torch.nn.functional as F
 
     from transformers_tpu_torch.ops.flash_attention import (flash_attention,
                                                             flash_attention_plain)
 
+    b, s, h, d = q.shape
+    kw = dict(scale=d ** -0.5, is_causal=True, sliding_window=window)
+    ms = device_ms(lambda: flash_attention(q, k, v, q_positions=qpos, kv_valid=valid, **kw))
+    plain_ms = device_ms(lambda: flash_attention_plain(q, k, v, qpos, valid, **kw))
+    slots = torch.arange(s, device="cuda")
+    mask = (valid != 0)[:, None, :] & (slots[None, None, :] <= qpos[:, :, None])
+    if window:
+        mask &= slots[None, None, :] > qpos[:, :, None] - window
+    qt, kt, vt, m4 = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), mask[:, None]
+    library_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=m4, scale=kw["scale"], enable_gqa=True))
+    nbytes = (q.numel() * 2 + k.numel() + v.numel()) * 2 + b * h * s * 4 \
+        + (qpos.numel() + valid.numel()) * 4  # q, k, v and out; lse; mask data
+    bms, by = bound_ms(nbytes, 4.0 * d * h * int(mask.sum()))
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms)
+
+
+def check_flash(gen) -> dict:
     cases = {
         "causal": dict(),
         "left_padded": dict(pads=PADS),
@@ -437,7 +496,7 @@ def check_flash(gen) -> dict:
         q, k, v, qpos, valid = _flash_inputs(gen, pads=c.get("pads"))
         kw = dict(scale=q.shape[-1] ** -0.5, is_causal=True,
                   sliding_window=c.get("window"), logit_cap=c.get("cap"))
-        err, lse_err = _flash_errors(q, k, v, qpos, valid, **kw)
+        err, lse_err, _ = _flash_errors(q, k, v, qpos, valid, **kw)
         ok = err <= KERNEL_ATOL and lse_err <= LSE_ATOL
         print(f"[flash] {name}: max_abs_err out {err:.3e} (tol {KERNEL_ATOL}) "
               f"lse {lse_err:.3e} (tol {LSE_ATOL})")
@@ -447,24 +506,13 @@ def check_flash(gen) -> dict:
             continue
         # the main path's case: time it
         b, s, h, d = q.shape
-        ms = device_ms(lambda: flash_attention(q, k, v, q_positions=qpos, kv_valid=valid, **kw))
-        plain_ms = device_ms(lambda: flash_attention_plain(q, k, v, qpos, valid, **kw))
-        slots = torch.arange(s, device="cuda")
-        mask = (valid != 0)[:, None, :] & (slots[None, None, :] <= qpos[:, :, None])
-        qt, kt, vt, m4 = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), mask[:, None]
-        library_ms = device_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=m4, scale=kw["scale"], enable_gqa=True))
-        visible = int(mask.sum())
-        nbytes = (q.numel() * 2 + k.numel() + v.numel()) * 2 + b * h * s * 4 \
-            + (qpos.numel() + valid.numel()) * 4  # q, k, v and out; lse; mask data
-        bms, by = bound_ms(nbytes, 4.0 * d * h * visible)
         result = dict(name="flash_fwd", route="cuda",
                       source="transformers_tpu_torch/csrc/flash_fwd.cu",
                       replaces="transformers_tpu/ops/pallas/flash_attention.py:190",
-                      max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                      library_ms=library_ms)
-        print(f"[flash] B={b} S={s} H={h} KVH={k.shape[2]} D={d}: {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+                      max_abs_err=err, **flash_timed(q, k, v, qpos, valid))
+        print(f"[flash] B={b} S={s} H={h} KVH={k.shape[2]} D={d}: {result['ms']:.4f} ms, plain "
+              f"{result['plain_ms']:.4f} ms, sdpa {result['library_ms']:.4f} ms, bound "
+              f"{result['bound_ms']:.4f} ms ({result['bound_by']})")
     return result
 
 
@@ -500,12 +548,20 @@ def host_us(fn, calls: int = 320) -> float:
     return best
 
 
-def grad_ratio(a: torch.Tensor, ref: torch.Tensor, u: float) -> float:
+def grad_ratio(a: torch.Tensor, ref: torch.Tensor, u: float, spread=None) -> float:
     """Largest |a - ref| / (u * |ref| + u/2 * rms(ref)) over the elements: at
-    most 1 where ``a`` holds ``ref`` to GRAD_ULP's bound."""
+    most 1 where ``a`` holds ``ref`` to GRAD_ULP's bound. ``spread`` (per
+    element, f32) adds u/2 * spread to each element's bound: for attention
+    whose kernel rounds each probability once to the storage type (K1's
+    tensor-core route, as the Pallas kernel's ``p.astype(v.dtype)``), the
+    mean of |v| under the probabilities, by which that rounding (at most u/2
+    of each p) can move an output."""
     a, ref = a.float(), ref.float()
     rms = ref.square().mean().sqrt()
-    return float(((a - ref).abs() / (u * ref.abs() + 0.5 * u * rms).clamp_min(1e-30)).max())
+    bound = u * ref.abs() + 0.5 * u * rms
+    if spread is not None:
+        bound = bound + 0.5 * u * spread
+    return float(((a - ref).abs() / bound.clamp_min(1e-30)).max())
 
 
 def _bwd_errors(q, k, v, qpos, valid, do, **kw) -> tuple[dict, dict]:
@@ -578,7 +634,7 @@ def check_flash_bwd(gen, seed: int) -> tuple:
         do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
         kw = dict(scale=q.shape[-1] ** -0.5, is_causal=True, sliding_window=window,
                   logit_cap=cap)
-        fwd_err, lse_err = _flash_errors(q, k, v, qpos, valid, **kw)
+        fwd_err, lse_err, _ = _flash_errors(q, k, v, qpos, valid, **kw)
         print(f"[flash] training shape, {name}: max_abs_err out {fwd_err:.3e} (tol "
               f"{KERNEL_ATOL}) lse {lse_err:.3e} (tol {LSE_ATOL})")
         if fwd_err > KERNEL_ATOL or lse_err > LSE_ATOL:
@@ -698,6 +754,38 @@ def _decode_run(fn, args, pos, scale):
     return out, kc, vc
 
 
+def decode_timed(args, pos: int) -> dict:
+    """K2 (pos a tensor on the card, as the main path passes it), its plain
+    version and SDPA over the cache (no rope, no cache write) timed on
+    ``_decode_inputs``' ``args``, beside the least time the card could take."""
+    import torch.nn.functional as F
+
+    from transformers_tpu_torch.ops.fused_decode import fused_decode_attention, fused_decode_plain
+
+    q, kn, vn, cos, sin, kc, vc, start, valid = args
+    b, _, h, d = q.shape
+    kvh, s = kc.shape[1], kc.shape[2]
+    scale = d ** -0.5
+    pos_t = torch.full((1,), pos, dtype=torch.int32, device="cuda")
+    ms = device_ms(lambda: fused_decode_attention(q, kn, vn, cos, sin, kc, vc, pos_t, start,
+                                                  valid, scale=scale))
+    kc2, vc2 = kc.clone(), vc.clone()
+    plain_ms = device_ms(lambda: fused_decode_plain(q, kn, vn, cos, sin, kc2, vc2, pos, start,
+                                                    valid, scale=scale))
+    slots = torch.arange(s, device="cuda")[None, :]
+    live = ((slots >= start[:, None].long()) & (slots < pos) & (valid != 0)) | (slots == pos)
+    qt, m4 = q.transpose(1, 2), live[:, None, None, :]
+    library_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        qt, kc, vc, attn_mask=m4, scale=scale, enable_gqa=True))
+    n_live = int(live.sum()) - b  # cache slots read; the new column comes in registers
+    nbytes = (n_live * kvh * d * 2 * 2                      # K and V of live slots
+              + (q.numel() * 2 + kn.numel() + vn.numel() + cos.numel() + sin.numel()) * 2
+              + 2 * b * kvh * d * 2                         # cache write at slot pos
+              + valid.numel() * 4 + start.numel() * 4)     # q and out; the rest of the inputs
+    bms, by = bound_ms(nbytes, 4.0 * d * h * (n_live + b))
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms)
+
+
 def check_decode_graph_pos(gen) -> None:
     """K2 reads pos from the card: one call captured in a CUDA graph with pos
     a device tensor, the tensor set to two other slots, the graph replayed;
@@ -750,8 +838,6 @@ def check_decode(gen, seed: int) -> dict:
     graph-replay check of pos on the card. The dead spans, the starts past
     pos and the idle-split timing draw from their own generator, so that the
     other checks' inputs stay as they were before those cases existed."""
-    import torch.nn.functional as F
-
     from transformers_tpu_torch.ops.fused_decode import (SPLIT_SLOTS, fused_decode_attention,
                                                          fused_decode_plain,
                                                          fused_decode_split_plain)
@@ -803,25 +889,7 @@ def check_decode(gen, seed: int) -> dict:
             continue
         b, _, h, d = q.shape
         kvh, s = kc.shape[1], kc.shape[2]
-        pos_t = torch.full((1,), pos, dtype=torch.int32, device="cuda")
-        ms = device_ms(lambda: fused_decode_attention(q, kn, vn, cos, sin, kc, vc, pos_t, start,
-                                                      valid, scale=scale))
-        kc2, vc2 = kc.clone(), vc.clone()
-        plain_ms = device_ms(lambda: fused_decode_plain(q, kn, vn, cos, sin, kc2, vc2, pos,
-                                                        start, valid, scale=scale))
-        slots = torch.arange(s, device="cuda")[None, :]
-        live = ((slots >= start[:, None].long()) & (slots < pos) & (valid != 0)) | (slots == pos)
-        qt = q.transpose(1, 2)
-        m4 = live[:, None, None, :]
-        library_ms = device_ms(lambda: F.scaled_dot_product_attention(
-            qt, kc, vc, attn_mask=m4, scale=scale, enable_gqa=True))
-        n_live = int(live.sum()) - b  # cache slots read; the new column comes in registers
-        nbytes = (n_live * kvh * d * 2 * 2                      # K and V of live slots
-                  + (q.numel() + kn.numel() + vn.numel() + cos.numel() + sin.numel()
-                     + out.numel()) * 2
-                  + 2 * b * kvh * d * 2                         # cache write at slot pos
-                  + valid.numel() * 4 + start.numel() * 4)
-        bms, by = bound_ms(nbytes, 4.0 * d * h * (n_live + b))
+        timed = decode_timed(args, pos)
         # the grid is sized from S: what idle splits cost, at pos 300 of 4096 and of 320 slots
         idle = {}
         for s_idle in (4096, 320):
@@ -832,13 +900,13 @@ def check_decode(gen, seed: int) -> dict:
         result = dict(name="fused_decode", route="cuda",
                       source="transformers_tpu_torch/csrc/fused_decode.cu",
                       replaces="transformers_tpu/ops/pallas/fused_decode.py:326",
-                      max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                      library_ms=library_ms, split_slots=SPLIT_SLOTS,
+                      max_abs_err=err, **timed, split_slots=SPLIT_SLOTS,
                       ms_pos300_s4096=idle[4096], ms_pos300_s320=idle[320])
-        print(f"[decode] B={b} S={s} H={h} KVH={kvh} D={d} pos={pos}: {ms:.4f} ms (split "
-              f"{SPLIT_SLOTS} slots, pos on the card), plain {plain_ms:.4f} ms, sdpa "
-              f"{library_ms:.4f} ms, bound {bms:.4f} ms ({by}); at pos 300: {idle[4096]:.4f} ms "
-              f"with S = 4096, {idle[320]:.4f} ms with S = 320")
+        print(f"[decode] B={b} S={s} H={h} KVH={kvh} D={d} pos={pos}: {timed['ms']:.4f} ms "
+              f"(split {SPLIT_SLOTS} slots, pos on the card), plain {timed['plain_ms']:.4f} ms, "
+              f"sdpa {timed['library_ms']:.4f} ms, bound {timed['bound_ms']:.4f} ms "
+              f"({timed['bound_by']}); at pos 300: {idle[4096]:.4f} ms with S = 4096, "
+              f"{idle[320]:.4f} ms with S = 320")
     check_decode_graph_pos(extra_gen)
     return result
 
@@ -987,6 +1055,38 @@ def _paged_error(q, k_pool, v_pool, tables, ctx, window) -> tuple[float, float]:
     return max_err(out, ref), grad_ratio(out, ref, GRAD_ULP[q.dtype])
 
 
+def paged_timed(q, k_pool, v_pool, tables, ctx, window=None) -> dict:
+    """K6 (with its merge), its plain version and SDPA over the same pages
+    gathered contiguous beforehand, timed on these inputs, beside the least
+    time the card could take."""
+    import torch.nn.functional as F
+
+    from transformers_tpu_torch.ops.paged_attention import (paged_decode_attention,
+                                                            paged_decode_plain)
+
+    n, _, h, d = q.shape
+    kvh, bs = k_pool.shape[1], k_pool.shape[2]
+    kw = dict(scale=d ** -0.5, sliding_window=window)
+    ms = device_ms(lambda: paged_decode_attention(q, k_pool, v_pool, tables, ctx, **kw))
+    plain_ms = device_ms(lambda: paged_decode_plain(q, k_pool, v_pool, tables, ctx, **kw))
+    s = tables.shape[1] * bs
+    kc = k_pool[tables.long()].permute(0, 2, 1, 3, 4).reshape(n, kvh, s, d).contiguous()
+    vc = v_pool[tables.long()].permute(0, 2, 1, 3, 4).reshape(n, kvh, s, d).contiguous()
+    slots = torch.arange(s, device="cuda")[None, :]
+    live = slots < ctx[:, None]
+    if window:
+        live &= slots >= ctx[:, None] - window
+    qt, m4 = q.transpose(1, 2), live[:, None, None, :]
+    library_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        qt, kc, vc, attn_mask=m4, scale=kw["scale"], enable_gqa=True))
+    n_live = int(live.sum())
+    nbytes = (n_live * kvh * d * 2 * 2                  # K and V of live slots
+              + 2 * q.numel() * 2                       # q and out
+              + tables.numel() * 4 + ctx.numel() * 4)
+    bms, by = bound_ms(nbytes, 4.0 * d * h * n_live)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms)
+
+
 def check_paged(gen, seed: int) -> list:
     """K6 at the CB path's shapes: 8 rows, 32 query heads over 8 kv heads,
     head_dim 128, pages of 32 slots, bf16, ragged contexts of 64-576 slots,
@@ -999,13 +1099,10 @@ def check_paged(gen, seed: int) -> list:
     a call; its merge kernel is held to
     the plain merge on the plain partials and timed. Returns the entries of
     both kernels."""
-    import torch.nn.functional as F
-
     from transformers_tpu_torch.ops.paged_attention import (paged_decode_attention,
                                                             paged_decode_combine,
                                                             paged_decode_merge_plain,
                                                             paged_decode_partials_plain,
-                                                            paged_decode_plain,
                                                             paged_decode_split_plain, split_size)
 
     ctx_lens = torch.randint(64, 577, (BATCH,), generator=gen, device="cuda").tolist()
@@ -1042,36 +1139,20 @@ def check_paged(gen, seed: int) -> list:
             raise AssertionError("paged decode kernel: two runs on the same inputs differ")
         if split_err > KERNEL_ATOL:
             raise AssertionError("paged decode kernel disagrees with the split plain version")
-        ms = device_ms(lambda: paged_decode_attention(q, k_pool, v_pool, tables, ctx,
-                                                      scale=scale))
+        timed = paged_timed(q, k_pool, v_pool, tables, ctx)
         # the CB decode loop is host-bound: K6's wrapper costs the host this much a layer
         wrapper_us = host_us(lambda: paged_decode_attention(q, k_pool, v_pool, tables, ctx,
                                                             scale=scale))
-        plain_ms = device_ms(lambda: paged_decode_plain(q, k_pool, v_pool, tables, ctx,
-                                                        scale=scale))
-        # yardstick: SDPA over the same pages already gathered contiguous
-        s = tables.shape[1] * bs
-        kc = k_pool[tables.long()].permute(0, 2, 1, 3, 4).reshape(n, kvh, s, d).contiguous()
-        vc = v_pool[tables.long()].permute(0, 2, 1, 3, 4).reshape(n, kvh, s, d).contiguous()
-        live = torch.arange(s, device="cuda")[None, :] < ctx[:, None]
-        qt, m4 = q.transpose(1, 2), live[:, None, None, :]
-        library_ms = device_ms(lambda: F.scaled_dot_product_attention(
-            qt, kc, vc, attn_mask=m4, scale=scale, enable_gqa=True))
-        n_live = sum(lens)
-        nbytes = (n_live * kvh * d * 2 * 2                  # K and V of live slots
-                  + 2 * q.numel() * 2                       # q and out
-                  + tables.numel() * 4 + ctx.numel() * 4)
-        bms, by = bound_ms(nbytes, 4.0 * d * h * n_live)
         results.append(dict(name="paged_decode", route="cuda",
                             source="transformers_tpu_torch/csrc/paged_decode.cu",
                             replaces="transformers_tpu/ops/pallas/paged_attention.py:216",
-                            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                            library_ms=library_ms, split_slots=split, host_us=wrapper_us,
+                            max_abs_err=err, **timed, split_slots=split, host_us=wrapper_us,
                             library="SDPA over the pages gathered contiguous beforehand"))
-        print(f"[paged] N={n} H={h} KVH={kvh} D={d} BS={bs} live slots {n_live}: {ms:.4f} ms "
-              f"(split {split} slots, with the merge kernel), plain {plain_ms:.4f} ms, sdpa (pages "
-              f"pre-gathered) {library_ms:.4f} ms, bound {bms:.4f} ms ({by}); the wrapper "
-              f"costs the host {wrapper_us:.1f} us a call")
+        print(f"[paged] N={n} H={h} KVH={kvh} D={d} BS={bs} live slots {sum(lens)}: "
+              f"{timed['ms']:.4f} ms (split {split} slots, with the merge kernel), plain "
+              f"{timed['plain_ms']:.4f} ms, sdpa (pages pre-gathered) {timed['library_ms']:.4f} "
+              f"ms, bound {timed['bound_ms']:.4f} ms ({timed['bound_by']}); the wrapper costs "
+              f"the host {wrapper_us:.1f} us a call")
 
         # the merge kernel alone, on the plain partials of the same inputs
         ml, acc = paged_decode_partials_plain(q, k_pool, v_pool, tables, ctx, scale=scale,
@@ -1111,10 +1192,11 @@ def check_paged(gen, seed: int) -> list:
 def check_reference_cases(gen) -> None:
     """Each kernel against its plain version on the reference's tests/ops
     cases, in float32, float16 and bf16: every build of the kernels (three
-    storage types by head_dim 64, 128, 256, and for paged decode by query-head
-    group of up to 4 and up to 8) runs at least once. The flash backward runs
-    the forward's cases and those of the reference's backward tests, on the
-    kernel forward's output and logsumexp."""
+    storage types by head_dim 64, 96, 128 and 256 (K7: 64, 128, 256), and
+    for the decode kernels by query-head group of up to 4 and up to 8) runs
+    at least once. The flash backward runs the forward's cases and those of
+    the reference's backward tests, on the kernel forward's output and
+    logsumexp."""
     from transformers_tpu_torch.ops.fused_decode import (fused_decode_attention,
                                                          fused_decode_plain)
 
@@ -1123,8 +1205,8 @@ def check_reference_cases(gen) -> None:
         for name, (b, sq, skv, h, kvh, d, pads, window, cap) in FLASH_OPS_CASES.items():
             q, k, v, qpos, valid = _flash_inputs(gen, b=b, sq=sq, skv=skv, h=h, kvh=kvh, d=d,
                                                  pads=pads, dtype=dtype)
-            err, lse_err = _flash_errors(q, k, v, qpos, valid, scale=d ** -0.5,
-                                         sliding_window=window, logit_cap=cap)
+            err, lse_err, _ = _flash_errors(q, k, v, qpos, valid, scale=d ** -0.5,
+                                            sliding_window=window, logit_cap=cap)
             if err > tol or lse_err > LSE_ATOL:
                 raise AssertionError(f"flash kernel disagrees with its plain version: {name} "
                                      f"{dtype}: out {err:.3e} lse {lse_err:.3e}")
@@ -1173,7 +1255,8 @@ def check_reference_cases(gen) -> None:
                                      f"{name} {dtype}: {err:.3e}")
             worst[("static_decode", dtype)] = max(worst.get(("static_decode", dtype), 0.0), err)
     n_bwd = len(FLASH_OPS_CASES) + len(FLASH_BWD_CASES)
-    n_cases = {"flash_fwd": len(FLASH_OPS_CASES), "fused_decode": len(DECODE_OPS_CASES),
+    n_cases = {"flash_fwd": len(FLASH_OPS_CASES),
+               "fused_decode": len(DECODE_OPS_CASES),
                "paged_decode": len(PAGED_OPS_CASES), "flash_bwd_dq": n_bwd,
                "static_decode": len(STATIC_DECODE_OPS_CASES),
                "flash_bwd_dkv": n_bwd}
@@ -1525,25 +1608,37 @@ def _timed(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def check_load_path(seed: int, card: str) -> None:
+def check_load_path(seed: int, card: str, model_type: str = "llama",
+                    geometry: dict = GEOMETRY) -> None:
     """Full width, depth cut to 2 layers: save with the port's safetensors
-    writer, read back with from_pretrained, and hold the weights and logits
-    to the model that was saved."""
-    from transformers_tpu_torch import AutoModelForCausalLM, LlamaConfig, LlamaForCausalLM
+    writer, read back with ``AutoModelForCausalLM.from_pretrained``, and hold
+    the weights and logits to the model that was saved. A model with tied
+    embeddings writes no ``lm_head``."""
+    from transformers_tpu_torch import AutoConfig, AutoModelForCausalLM
+    from transformers_tpu_torch.core.safetensors import SafetensorsFile
     from transformers_tpu_torch.ops import cuda_build
 
-    cfg = LlamaConfig(**dict(GEOMETRY, num_hidden_layers=2), dtype="bfloat16")
-    model = LlamaForCausalLM(cfg, dtype=torch.bfloat16, device="cuda").init_weights(seed)
+    cfg = AutoConfig.for_model_type(model_type, **dict(geometry, num_hidden_layers=2),
+                                    dtype="bfloat16")
+    model = AutoModelForCausalLM.from_config(cfg, dtype=torch.bfloat16,
+                                             device="cuda").init_weights(seed)
     ckpt = cuda_build.BUILD_DIR / "smoke_checkpoint"
     shutil.rmtree(ckpt, ignore_errors=True)
     try:
         save_ms = _timed(lambda: model.save_pretrained(ckpt))
         size = sum(f.stat().st_size for f in ckpt.iterdir())
+        with SafetensorsFile(str(ckpt / "model.safetensors")) as f:
+            has_head = "lm_head.weight" in f.keys()
         holder = {}
         load_ms = _timed(lambda: holder.update(m=AutoModelForCausalLM.from_pretrained(ckpt)))
         loaded = holder["m"]
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
+    if has_head == cfg.tie_word_embeddings:
+        raise AssertionError(f"lm_head in the file: {has_head}, tied embeddings: "
+                             f"{cfg.tie_word_embeddings}")
+    if type(loaded) is not type(model):
+        raise AssertionError(f"from_pretrained built {type(loaded).__name__}")
     report = loaded.load_report
     if report.missing_keys or report.unexpected_keys or report.mismatched_keys:
         raise AssertionError(f"load report not clean: {report}")
@@ -1557,7 +1652,8 @@ def check_load_path(seed: int, card: str) -> None:
         same = torch.equal(model(ids).logits, loaded(ids).logits)
     if not same:
         raise AssertionError("logits differ after the save/load round trip")
-    print(f"[load] 2-layer full-width checkpoint, {size / 1e9:.2f} GB: save {save_ms:.0f} ms, "
+    print(f"[load] {model_type}: 2-layer full-width checkpoint, {size / 1e9:.2f} GB (lm_head "
+          f"{'in the file' if has_head else 'absent: tied'}): save {save_ms:.0f} ms, "
           f"from_pretrained {load_ms:.0f} ms; weights and logits identical ({card})")
 
 
@@ -1600,13 +1696,13 @@ def _median_ms(run, reps: int = 3) -> float:
     return sorted(_timed(run) for _ in range(reps))[reps // 2]
 
 
-def generate_inputs(seed: int, vocab: int) -> tuple:
-    """Phase (c)'s BATCH prompts of PROMPT tokens from ``seed``, row r
-    left-padded by PADS[r] slots: (ids, mask)."""
+def generate_inputs(seed: int, vocab: int, prompt: int = PROMPT, pads=PADS) -> tuple:
+    """len(pads) prompts of ``prompt`` tokens from ``seed`` (phase (c)'s by
+    default), row r left-padded by pads[r] slots: (ids, mask)."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
-    ids = torch.randint(1, vocab, (BATCH, PROMPT), generator=gen, device="cuda")
-    mask = (torch.arange(PROMPT, device="cuda")[None, :]
-            >= torch.tensor(PADS, device="cuda")[:, None]).to(torch.int32)
+    ids = torch.randint(1, vocab, (len(pads), prompt), generator=gen, device="cuda")
+    mask = (torch.arange(prompt, device="cuda")[None, :]
+            >= torch.tensor(pads, device="cuda")[:, None]).to(torch.int32)
     return ids.masked_fill(mask == 0, 0), mask
 
 
@@ -1618,84 +1714,10 @@ def check_generate(model, seed: int, card: str) -> dict:
     greedy with processors, each graph against the step loop, bitwise. The
     calls use ``decode_pad_multiple=NEW``, so the prefill-only runs (1 new
     token) share the 32-token program and nothing is captured twice."""
-    cfg = model.config
-    layers = cfg.num_hidden_layers
-    ids, mask = generate_inputs(seed, cfg.vocab_size)
-    kw = dict(attention_mask=mask, prompt_pad_multiple=PROMPT, decode_pad_multiple=NEW)
-
-    def graph(**extra):
-        return model.generate(ids, **kw, **extra)
-
-    def eager(**extra):
-        return model._generate(ids, graph=False, **kw, **extra)
-
-    # the first call of the signature: prefill, one decode step run for real,
-    # the capture, then replays; what the program holds stays on the card
-    model._decode_program = None
-    gc.collect()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    alloc0, reserved0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
-    first = graph(max_new_tokens=NEW)
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    held = torch.cuda.memory_allocated() - alloc0 - first.numel() * first.element_size()
-    held_reserved = torch.cuda.memory_reserved() - reserved0
-    cache_bytes, buf_bytes = _program_bytes(model)
-    capture_ms = model._decode_program.graph.capture_ms
-    eager(max_new_tokens=NEW)  # warm-up of the step loop's own allocations
-
-    expected = _expected(flash_fwd=layers, fused_decode=layers * (NEW - 1))
-    runs = {}
-    for name, run in (("graph", graph), ("uncaptured", eager)):
-        _reset_counts()
-        if name == "graph":
-            with no_host_sync():
-                out = run(max_new_tokens=NEW)
-        else:
-            out = run(max_new_tokens=NEW)
-        torch.cuda.synchronize()
-        counts = _read_counts()
-        print(f"[generate] {name}: launches {counts}, expected {expected} ({layers} layers, "
-              f"1 prefill, {NEW - 1} decode steps)")
-        if counts != expected:
-            raise AssertionError(f"{name}: the main path did not go through the kernels as "
-                                 f"required")
-        runs[name] = (out, counts)
-    out, counts = runs["graph"]
-    if not torch.equal(out, runs["uncaptured"][0]) or not torch.equal(out, first):
-        raise AssertionError("generate: the graph's ids differ from the uncaptured step loop's")
-    if out.shape != (BATCH, PROMPT + NEW) or not torch.equal(out[:, :PROMPT], ids):
-        raise AssertionError(f"generate returned {tuple(out.shape)} or changed the prompt")
-    if int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
-        raise AssertionError("generated ids outside the vocabulary")
-    print(f"[generate] graph == uncaptured step loop, bitwise (greedy); the graph's replays ran "
-          f"under set_sync_debug_mode('error')")
-
-    timing = {}
-    for name, run in (("graph", graph), ("uncaptured", eager), ("uncaptured", eager),
-                      ("graph", graph)):
-        prefill = _median_ms(lambda: run(max_new_tokens=1))
-        total = _median_ms(lambda: run(max_new_tokens=NEW))
-        timing.setdefault(name, []).append((prefill, total))
-    for name, pairs in timing.items():
-        prefill = min(p for p, _ in pairs)
-        total = min(t for _, t in pairs)
-        decode_tok = (total - prefill) / (NEW - 1)
-        timing[name] = total
-        print(f"[generate] {name}: B={BATCH} prompt={PROMPT} new={NEW} bf16, 32 layers: prefill "
-              f"{prefill:.2f} ms, decode {decode_tok:.3f} ms/step, "
-              f"{BATCH * 1e3 / decode_tok:.1f} decode tokens/s, "
-              f"{BATCH * NEW * 1e3 / total:.1f} tokens/s over the whole generate "
-              f"(best of two medians of 3) ({card})")
-    print(f"[generate] graph: capture {capture_ms:.2f} ms (host clock, the first call of the "
-          f"signature); the program holds {held / 1e9:.4f} GB allocated (KV cache "
-          f"{cache_bytes / 1e9:.4f} GB, buffers {buf_bytes / 1e6:.3f} MB, the graph's own "
-          f"{(held - cache_bytes - buf_bytes) / 1e6:.3f} MB) and {held_reserved / 1e9:.4f} GB "
-          f"reserved ({card})")
-    profile_run("generate (graph)", lambda: graph(max_new_tokens=NEW), timing["graph"], card)
-    profile_run("generate (uncaptured step loop)", lambda: eager(max_new_tokens=NEW),
-                timing["uncaptured"], card)
+    ids, mask = generate_inputs(seed, model.config.vocab_size)
+    out, counts = generate_graph_vs_loop("generate", model, ids, mask, NEW, True, card,
+                                         timed=True)
+    graph, eager = _generate_runs(model, ids, mask, NEW)
 
     # the streaming route replays the same graph, with a host read of every step
     from transformers_tpu_torch.generation.streamers import BaseStreamer
@@ -1771,7 +1793,9 @@ def profile_run(label: str, run, wall_ms: float, card: str) -> list:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # device activity only: the host's op events would be most of the trace,
+    # and reading them back took over a minute for Gemma-3-12B's runs
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -1802,16 +1826,17 @@ def profile_run(label: str, run, wall_ms: float, card: str) -> list:
     return kernels
 
 
-def teacher_force(model, seq, prompt_mask, quant=None) -> None:
+def teacher_force(model, seq, prompt_mask, quant=None, prompt: int = PROMPT,
+                  label: str = "teacher-force", release: bool = False) -> None:
     """The generated sequence through the kernel path (prefill of all but the
     last token, then one decode step) and through the plain path (eager
     attention, no cache, no kernel), against the same model in float32 as
     the reference. The kernel path must be no further from float32 than twice
     the plain bf16 path is: both are bf16 through 32 layers, and they round
     at different places (f32 rope in the decode kernel, f32 probabilities in
-    both kernels)."""
+    both kernels). ``release``: see ``plain_and_f32_logits``."""
     b, total = seq.shape
-    mask = torch.cat([prompt_mask, torch.ones((b, total - PROMPT), dtype=torch.int32,
+    mask = torch.cat([prompt_mask, torch.ones((b, total - prompt), dtype=torch.int32,
                                               device="cuda")], dim=1)
     pos = (mask.cumsum(-1) - 1).clamp_min(0)
     with torch.inference_mode():
@@ -1820,10 +1845,11 @@ def teacher_force(model, seq, prompt_mask, quant=None) -> None:
               cache_position=0, logits_to_keep=1)
         kernel = model(seq[:, -1:], attention_mask=mask, position_ids=pos[:, -1:],
                        past_key_values=cache, cache_position=total - 1).logits[:, -1].float()
-    [(plain_all, ref)] = plain_and_f32_logits(model, [(seq, mask, pos)], quant)
+        del cache
+    [(plain_all, ref)] = plain_and_f32_logits(model, [(seq, mask, pos)], quant, release=release)
     plain = plain_all[:, -1].float()
-    agree = float((plain_all[:, PROMPT - 1:-1].argmax(-1) == seq[:, PROMPT:]).float().mean())
-    hold_to_plain("teacher-force", kernel, plain, ref,
+    agree = float((plain_all[:, prompt - 1:-1].argmax(-1) == seq[:, prompt:]).float().mean())
+    hold_to_plain(label, kernel, plain, ref,
                   f"greedy tokens = plain argmax at {agree:.3f} of generated positions")
 
 
@@ -1849,14 +1875,18 @@ def plain_quantized():
         module.quantized_linear = real
 
 
-def plain_and_f32_logits(model, batches, quant=None, all_positions: bool = False) -> list:
+def plain_and_f32_logits(model, batches, quant=None, all_positions: bool = False,
+                         release: bool = False) -> list:
     """For each (ids, mask, positions) batch: the logits of every position
     through the plain path (eager attention, no cache, no kernel; quantized
     Linears through the plain ``quantized_dot``) of ``model``, and the last
     position's logits (every position's with ``all_positions``) of the same
     model in float32 (the reference; a model quantized with ``quant`` keeps
-    its codes and scales and computes the quantized product in f32)."""
-    from transformers_tpu_torch import LlamaForCausalLM, quantize_params
+    its codes and scales and computes the quantized product in f32). With
+    ``release``, for a model too large to sit beside its float32 copy on the
+    card: ``model`` moves to the host (its decode program dropped) before the
+    copy is built, and the caller frees it."""
+    from transformers_tpu_torch import quantize_params
 
     out = []
     with torch.inference_mode(), plain_quantized():
@@ -1867,7 +1897,12 @@ def plain_and_f32_logits(model, batches, quant=None, all_positions: bool = False
         model.config.attn_implementation = None
         if any(_read_counts().values()):
             raise AssertionError("the plain path launched a kernel")
-        ref_model = LlamaForCausalLM(model.config, dtype=torch.float32, device="cuda")
+        if release:
+            model._decode_program = None
+            model.to("cpu")
+            gc.collect()
+            torch.cuda.empty_cache()
+        ref_model = type(model)(model.config, dtype=torch.float32, device="cuda")
         if quant is not None:
             quantize_params(ref_model, quant)  # the layout; the codes come from ``model``
         ref_model.load_state_dict(model.state_dict())
@@ -1913,18 +1948,18 @@ def cb_prompts(seed: int, vocab: int) -> list:
     return prompts
 
 
-def cb_engine(model, steps_per_sync: int, graph: bool):
-    """A fresh engine; ``graph`` False makes its runner run each decode step
-    uncaptured (the reference the graphs are held to)."""
+def cb_engine(model, steps_per_sync: int, graph: bool, settings: dict = CB_ENGINE):
+    """A fresh engine with ``settings``; ``graph`` False makes its runner run
+    each decode step uncaptured (the reference the graphs are held to)."""
     from transformers_tpu_torch.generation.continuous_batching import ContinuousBatchingEngine
 
-    engine = ContinuousBatchingEngine(model, steps_per_sync=steps_per_sync, **CB_ENGINE)
+    engine = ContinuousBatchingEngine(model, steps_per_sync=steps_per_sync, **settings)
     engine.runner._capture = graph
     return engine
 
 
-def run_cb(engine, prompts, tag: str, strict: bool = False):
-    """Serve ``prompts`` (CB_NEW new tokens each, greedy) through ``engine``.
+def run_cb(engine, prompts, tag: str, strict: bool = False, new: int = CB_NEW):
+    """Serve ``prompts`` (``new`` new tokens each, greedy) through ``engine``.
     Returns the generated ids per request, the wall ms, the host-clock ms and
     device decode steps of the engine steps that ran decode and no prefill
     (each such step ends in a host read), and the runner's counts of this run.
@@ -1933,7 +1968,7 @@ def run_cb(engine, prompts, tag: str, strict: bool = False):
 
     for i, p in enumerate(prompts):
         engine.add_request(RequestState(request_id=f"{tag}{i}", prompt_ids=p,
-                                        max_new_tokens=CB_NEW))
+                                        max_new_tokens=new))
     runner = engine.runner
     names = ("prefill_chunks", "single_token_chunks", "decode_steps", "prefill_tokens")
     before = {n: getattr(runner, n) for n in names}
@@ -1986,73 +2021,86 @@ def shifted(prompts, vocab: int, by: int) -> list:
     return [[(t - 1 + by) % (vocab - 1) + 1 for t in p] for p in prompts]
 
 
+def cb_graph_vs_uncaptured(label: str, model, prompts, steps: int, card: str,
+                           new: int = CB_NEW, settings: dict = CB_ENGINE) -> dict:
+    """At ``steps`` steps per sync, an engine whose decode steps replay
+    captured graphs and one that runs them uncaptured. Each engine first
+    serves the prompts shifted by one token id (its graphs are captured and
+    cuBLAS warmed there, on the same schedule), then the measured prompts;
+    the graph engine's decode calls run under ``no_host_sync``. Tokens of the
+    two engines must be equal for every request in both runs, launch counts
+    exact (K1 once per layer per prefill chunk, K6 and its merge once per
+    layer per decode step). Returns the graph engine's run: its engine,
+    generated ids, launch counts, wall ms and ms per device decode step."""
+    layers, vocab = model.config.num_hidden_layers, model.config.vocab_size
+    runs = {}
+    for graph in (True, False):
+        name = "graph" if graph else "uncaptured"
+        engine = cb_engine(model, steps, graph, settings)
+        warm = run_cb(engine, shifted(prompts, vocab, 1), "warm", new=new)[0]
+        _reset_counts()
+        generated, wall, decode_ms, decode_steps, r = run_cb(engine, prompts, "r",
+                                                             strict=graph, new=new)
+        counts = _read_counts()
+        paged = layers * (r["decode_steps"] + r["single_token_chunks"])
+        expected = _expected(flash_fwd=layers * r["prefill_chunks"], paged_decode=paged,
+                             paged_decode_combine=paged)
+        print(f"[{label}] {name}, steps_per_sync={steps}: launches {counts}, expected "
+              f"{expected} ({layers} layers, {r['prefill_chunks']} prefill chunks, "
+              f"{r['single_token_chunks']} one-token chunks, {r['decode_steps']} decode steps)")
+        if counts != expected:
+            raise AssertionError(f"{label}: the CB path did not go through the kernels as "
+                                 f"required")
+        if any(len(g) != new or min(g) < 0 or max(g) >= vocab for g in generated):
+            raise AssertionError(f"{label}: a request did not return {new} ids inside the "
+                                 f"vocabulary")
+        cached = sum(len(p) for p in prompts) - r["prefill_tokens"]
+        step_ms = decode_ms / max(decode_steps, 1)
+        print(f"[{label}] {name}, steps_per_sync={steps}: {len(prompts)} requests, prompts "
+              f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens ({cached} served from "
+              f"the prefix cache), {new} new tokens each, bf16, {layers} layers: wall "
+              f"{wall:.2f} ms, {len(prompts) * new * 1e3 / wall:.1f} generated tokens/s, decode "
+              f"{step_ms:.3f} ms per device step over {decode_steps} steps of decode-only engine "
+              f"steps; {len(engine.runner._programs)} decode programs; warmed first ({card})")
+        runs[name] = dict(engine=engine, warm=warm, generated=generated, counts=counts,
+                          wall=wall, step_ms=step_ms)
+    graph, eager = runs["graph"], runs.pop("uncaptured")
+    same = graph["generated"] == eager["generated"] and graph["warm"] == eager["warm"]
+    print(f"[{label}] steps_per_sync={steps}: graph engine's tokens == uncaptured engine's for "
+          f"every request, in the warm-up (where each graph's first call runs the step for "
+          f"real and captures it) and the measured run: {same}")
+    if not same:
+        raise AssertionError(f"{label}: the graph engine's tokens differ from the uncaptured "
+                             f"one's")
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    return graph
+
+
 def check_cb(model, seed: int, card: str) -> tuple:
     """Phase (d): continuous batching at full width on the 32-layer model, at
-    one sync per step and one per 16, each with an engine whose decode steps
-    replay captured graphs and one that runs them uncaptured. Each engine
-    first serves the prompts shifted by one token id (its graphs are captured
-    and cuBLAS warmed there, on the same schedule), then the measured prompts;
-    the graph engines' decode calls run under ``no_host_sync``. Tokens of the
-    two engines must be equal for every request, launch counts exact. Returns
-    the launches at one sync per step and the graph engines' (generated
-    tokens/s, ms per device decode step) by steps per sync."""
-    layers = model.config.num_hidden_layers
-    vocab = model.config.vocab_size
-    prompts = cb_prompts(seed, vocab)
-    outputs, warm, counts_by_sync, engines, walls, rates = {}, {}, {}, {}, {}, {}
-    for steps in (1, 16):
-        for graph in (True, False):
-            name = "graph" if graph else "uncaptured"
-            engine = cb_engine(model, steps, graph)
-            warm[(steps, name)] = run_cb(engine, shifted(prompts, vocab, 1), "warm")[0]
-            _reset_counts()
-            generated, wall, decode_ms, decode_steps, r = run_cb(engine, prompts, "r",
-                                                                 strict=graph)
-            counts = _read_counts()
-            paged = layers * (r["decode_steps"] + r["single_token_chunks"])
-            expected = _expected(flash_fwd=layers * r["prefill_chunks"], paged_decode=paged,
-                                 paged_decode_combine=paged)
-            print(f"[cb] {name}, steps_per_sync={steps}: launches {counts}, expected {expected} "
-                  f"({layers} layers, {r['prefill_chunks']} prefill chunks, "
-                  f"{r['single_token_chunks']} one-token chunks, {r['decode_steps']} decode "
-                  f"steps)")
-            if counts != expected:
-                raise AssertionError("the CB path did not go through the kernels as required")
-            if any(len(g) != CB_NEW or min(g) < 0 or max(g) >= vocab for g in generated):
-                raise AssertionError(f"a request did not return {CB_NEW} ids inside the "
-                                     f"vocabulary")
-            cached = sum(len(p) for p in prompts) - r["prefill_tokens"]
-            print(f"[cb] {name}, steps_per_sync={steps}: {CB_REQUESTS} requests, prompts "
-                  f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens ({cached} served "
-                  f"from the prefix cache), {CB_NEW} new tokens each, bf16, {layers} layers: wall "
-                  f"{wall:.2f} ms, {CB_REQUESTS * CB_NEW * 1e3 / wall:.1f} generated tokens/s, "
-                  f"decode {decode_ms / max(decode_steps, 1):.3f} ms per device step over "
-                  f"{decode_steps} steps of decode-only engine steps; "
-                  f"{len(engine.runner._programs)} decode programs ({card})")
-            outputs[(steps, name)], engines[(steps, name)] = generated, engine
-            walls[(steps, name)] = wall
-            if graph:
-                counts_by_sync[steps] = counts
-                rates[steps] = (CB_REQUESTS * CB_NEW * 1e3 / wall,
-                                decode_ms / max(decode_steps, 1))
-        same = (outputs[(steps, "graph")] == outputs[(steps, "uncaptured")]
-                and warm[(steps, "graph")] == warm[(steps, "uncaptured")])
-        print(f"[cb] steps_per_sync={steps}: graph engine's tokens == uncaptured engine's for "
-              f"every request, in the warm-up (where each graph's first call runs the step for "
-              f"real and captures it) and the measured run: {same}")
-        if not same:
-            raise AssertionError("CB: the graph engine's tokens differ from the uncaptured one's")
-    same = sum(a == b for x, y in zip(outputs[(1, "graph")], outputs[(16, "graph")])
+    one sync per step and one per 16, each graph engine held to an
+    uncaptured one (``cb_graph_vs_uncaptured``). Returns the launches at one
+    sync per step and the graph engines' (generated tokens/s, ms per device
+    decode step) by steps per sync."""
+    prompts = cb_prompts(seed, model.config.vocab_size)
+    runs = {steps: cb_graph_vs_uncaptured("cb", model, prompts, steps, card)
+            for steps in (1, 16)}
+    same = sum(a == b for x, y in zip(runs[1]["generated"], runs[16]["generated"])
                for a, b in zip(x, y))
     print(f"[cb] steps_per_sync 1 vs 16: {same} of {CB_REQUESTS * CB_NEW} generated tokens "
           f"equal (bf16 GEMMs of other batch shapes round differently; random weights give "
           f"near-ties)")
     # the graph engine only, to keep the run well inside its time limit
+    engine = runs[16]["engine"]
     profile_run("continuous batching, 16 steps per sync (graph)",
-                lambda: run_cb(engines[(16, "graph")], shifted(prompts, vocab, 2), "prof"),
-                walls[(16, "graph")], card)
-    teacher_force_cb(model, engines[(16, "graph")], prompts, outputs[(16, "graph")])
-    return counts_by_sync[1], rates
+                lambda: run_cb(engine, shifted(prompts, model.config.vocab_size, 2), "prof"),
+                runs[16]["wall"], card)
+    teacher_force_cb(model, engine, prompts, runs[16]["generated"])
+    rates = {steps: (CB_REQUESTS * CB_NEW * 1e3 / r["wall"], r["step_ms"])
+             for steps, r in runs.items()}
+    return runs[1]["counts"], rates
 
 
 def teacher_force_cb(model, engine, prompts, generated) -> None:
@@ -2457,15 +2505,17 @@ DRAFT_GEOMETRY = dict(vocab_size=128256, hidden_size=2048, intermediate_size=819
                                     "original_max_position_embeddings": 8192})
 
 
-def build_llama(geometry: dict, layers: int, dtype, seed: int, device="cuda"):
-    """A model of ``geometry`` cut to ``layers``, random weights from ``seed``
-    (uninitialised on the CPU: a CPU copy takes the card model's weights)."""
-    from transformers_tpu_torch import LlamaConfig, LlamaForCausalLM
+def build_decoder(geometry: dict, layers: int, dtype, seed: int, device="cuda",
+                  model_type: str = "llama"):
+    """A ``model_type`` model of ``geometry`` cut to ``layers``, random weights
+    from ``seed`` (uninitialised on the CPU: a CPU copy takes the card model's
+    weights)."""
+    from transformers_tpu_torch import AutoConfig, AutoModelForCausalLM
 
-    cfg = LlamaConfig(**{"max_position_embeddings": PROMPT + ASSIST_NEW, **geometry,
-                         "num_hidden_layers": layers},
-                      bos_token_id=None, eos_token_id=None, pad_token_id=0)
-    model = LlamaForCausalLM(cfg, dtype=dtype, device=device)
+    cfg = AutoConfig.for_model_type(model_type, **{
+        "max_position_embeddings": PROMPT + ASSIST_NEW, **geometry, "num_hidden_layers": layers},
+        bos_token_id=None, eos_token_id=None, pad_token_id=0)
+    model = AutoModelForCausalLM.from_config(cfg, dtype=dtype, device=device)
     return model.init_weights(seed) if device == "cuda" else model
 
 
@@ -2653,11 +2703,11 @@ def check_beam_card_vs_cpu(seed: int, card: str):
     """SMALL_LAYERS of the same width in float32: the card's beam search (graph)
     against the port's CPU run of the same weights, SMALL_BEAM_NEW new tokens:
     sequences equal, scores within 1e-4. Returns the card model."""
-    small = build_llama(GEOMETRY, SMALL_LAYERS, torch.float32, seed)
+    small = build_decoder(GEOMETRY, SMALL_LAYERS, torch.float32, seed)
     ids, mask = generate_inputs(seed, small.config.vocab_size)
     ids, mask = ids[list(BEAM_ROWS)], mask[list(BEAM_ROWS)]
     card_seqs, card_scores = beam_fn(small, SMALL_BEAM_NEW)(ids, mask)
-    cpu = build_llama(GEOMETRY, SMALL_LAYERS, torch.float32, seed, device="cpu")
+    cpu = build_decoder(GEOMETRY, SMALL_LAYERS, torch.float32, seed, device="cpu")
     cpu.load_state_dict(small.state_dict())
     t0 = time.perf_counter()
     cpu_seqs, cpu_scores = beam_fn(cpu, SMALL_BEAM_NEW)(ids.cpu(), mask.cpu())
@@ -2748,7 +2798,7 @@ def check_assisted(model, seed: int, card: str) -> dict:
     call, and the share of tokens equal to greedy (reported: bf16 near-ties
     can flip an argmax between K2 and the unfused verify). Returns the draft
     run's launches."""
-    draft = build_llama(DRAFT_GEOMETRY, DRAFT_GEOMETRY["num_hidden_layers"], torch.bfloat16,
+    draft = build_decoder(DRAFT_GEOMETRY, DRAFT_GEOMETRY["num_hidden_layers"], torch.bfloat16,
                         seed + 7)
     ids, _ = generate_inputs(seed, model.config.vocab_size)
     prompt = ids[:1]
@@ -2800,7 +2850,7 @@ def check_assisted_small(small, seed: int, card: str) -> None:
     """SMALL_LAYERS of each geometry in float32: the draft, prompt-lookup and
     self-assisted outputs equal greedy ``generate``'s bit for bit, and the
     self-assisted run accepts every proposal."""
-    draft = build_llama(DRAFT_GEOMETRY, SMALL_LAYERS, torch.float32, seed + 7)
+    draft = build_decoder(DRAFT_GEOMETRY, SMALL_LAYERS, torch.float32, seed + 7)
     ids, _ = generate_inputs(seed, small.config.vocab_size)
     prompt = ids[:1]
     lookup = torch.cat([prompt[:, :PROMPT // 2]] * 2, dim=1)
@@ -2948,8 +2998,11 @@ class WeightCopyWatch:
             yield
 
 
-def _generate_runs(model, ids, mask):
-    kw = dict(attention_mask=mask, prompt_pad_multiple=PROMPT, decode_pad_multiple=NEW)
+def _generate_runs(model, ids, mask, new: int = NEW):
+    """(graph, eager): ``generate`` on ``ids`` with its decode step replayed
+    from the captured graph, and the uncaptured step loop; one program for
+    ``new`` tokens, which the prefill-only timing runs share."""
+    kw = dict(attention_mask=mask, prompt_pad_multiple=ids.shape[1], decode_pad_multiple=new)
 
     def graph(**extra):
         return model.generate(ids, **kw, **extra)
@@ -2960,7 +3013,7 @@ def _generate_runs(model, ids, mask):
     return graph, eager
 
 
-def _first_call(model, graph, watch=None) -> dict:
+def _first_call(model, graph, watch=None, new: int = NEW) -> dict:
     """The signature's first call (prefill, one step for real, the capture,
     replays), with each decode step run under ``watch``; what the program holds
     afterwards."""
@@ -2970,7 +3023,7 @@ def _first_call(model, graph, watch=None) -> dict:
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    alloc0 = torch.cuda.memory_allocated()
+    alloc0, reserved0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
     step = StaticDecode.step
     if watch is not None:
         def watched(self, *args):
@@ -2978,7 +3031,7 @@ def _first_call(model, graph, watch=None) -> dict:
                 return step(self, *args)
         StaticDecode.step = watched
     try:
-        first = graph(max_new_tokens=NEW)
+        first = graph(max_new_tokens=new)
     finally:
         StaticDecode.step = step
     torch.cuda.synchronize()
@@ -2986,11 +3039,13 @@ def _first_call(model, graph, watch=None) -> dict:
     held = torch.cuda.memory_allocated() - alloc0 - first.numel() * first.element_size()
     cache_bytes, buf_bytes = _program_bytes(model)
     return dict(first=first, held=held, cache=cache_bytes, bufs=buf_bytes,
+                reserved=torch.cuda.memory_reserved() - reserved0,
                 capture_ms=model._decode_program.graph.capture_ms,
                 replay=dict(model._decode_program.graph.launches))
 
 
-def _graph_vs_step_loop(label, model, graph, eager, expected, **extra) -> tuple:
+def _graph_vs_step_loop(label, model, graph, eager, expected, new: int = NEW,
+                        **extra) -> tuple:
     """The graph path (under ``no_host_sync``) and the uncaptured step loop on
     the same inputs: ids bitwise equal, launch counts exact for both. Returns
     the graph path's ids and its launch counts, read just after its run."""
@@ -2999,9 +3054,9 @@ def _graph_vs_step_loop(label, model, graph, eager, expected, **extra) -> tuple:
         _reset_counts()
         if name == "graph":
             with no_host_sync():
-                out = run(max_new_tokens=NEW, **extra)
+                out = run(max_new_tokens=new, **extra)
         else:
-            out = run(max_new_tokens=NEW, **extra)
+            out = run(max_new_tokens=new, **extra)
         torch.cuda.synchronize()
         counts = _read_counts()
         if counts != expected:
@@ -3012,8 +3067,54 @@ def _graph_vs_step_loop(label, model, graph, eager, expected, **extra) -> tuple:
     out, counts = runs["graph"]
     if int(out.min()) < 0 or int(out.max()) >= model.config.vocab_size:
         raise AssertionError(f"{label}: generated ids outside the vocabulary")
-    print(f"[quantized generate] {label}: graph == uncaptured step loop, bitwise (greedy, the "
-          f"graph's replays under set_sync_debug_mode('error')); launches {expected} for both")
+    print(f"[generate] {label}: graph == uncaptured step loop, bitwise (greedy, the graph's "
+          f"replays under set_sync_debug_mode('error')); launches {expected} for both")
+    return out, counts
+
+
+def generate_graph_vs_loop(label: str, model, ids, mask, new: int, decode_kernel: bool,
+                           card: str, timed: bool = False) -> tuple:
+    """Greedy ``generate``, graph against the uncaptured step loop
+    (``_graph_vs_step_loop``; K1 once per layer per prefill, K2 once per layer
+    per decode step, or never where ``decode_kernel`` is False), the
+    signature's first call equal to both. With ``timed``: prefill ms, decode
+    ms/step and tokens/s of both paths in turns, the graph's idle share,
+    capture ms and the memory its program holds, and a profile of each path.
+    Returns (ids, the graph run's launch counts)."""
+    layers, (b, prompt) = model.config.num_hidden_layers, ids.shape
+    graph, eager = _generate_runs(model, ids, mask, new)
+    first = _first_call(model, graph, new=new)
+    expected = _expected(flash_fwd=layers,
+                         fused_decode=layers * (new - 1) if decode_kernel else 0)
+    out, counts = _graph_vs_step_loop(label, model, graph, eager, expected, new=new)
+    if not torch.equal(out, first["first"]) or out.shape != (b, prompt + new) \
+            or not torch.equal(out[:, :prompt], ids):
+        raise AssertionError(f"{label}: the first call's ids differ, or the prompt changed")
+    if not timed:
+        return out, counts
+    timing = {}
+    for name, run in (("graph", graph), ("uncaptured", eager), ("uncaptured", eager),
+                      ("graph", graph)):
+        prefill = _median_ms(lambda: run(max_new_tokens=1))
+        total = _median_ms(lambda: run(max_new_tokens=new))
+        timing.setdefault(name, []).append((prefill, total))
+    for name, pairs in timing.items():
+        prefill = min(p for p, _ in pairs)
+        total = min(t for _, t in pairs)
+        decode_tok = (total - prefill) / (new - 1)
+        timing[name] = total
+        print(f"[{label}] {name}: B={b} prompt={prompt} new={new} bf16, {layers} layers: "
+              f"prefill {prefill:.2f} ms, decode {decode_tok:.3f} ms/step, "
+              f"{b * 1e3 / decode_tok:.1f} decode tokens/s, {b * new * 1e3 / total:.1f} "
+              f"tokens/s over the whole generate (best of two medians of 3) ({card})")
+    own = first["held"] - first["cache"] - first["bufs"]
+    print(f"[{label}] graph: capture {first['capture_ms']:.2f} ms (host clock, the first call of "
+          f"the signature); the program holds {first['held'] / 1e9:.4f} GB allocated (KV cache "
+          f"{first['cache'] / 1e9:.4f} GB, buffers {first['bufs'] / 1e6:.3f} MB, the graph's own "
+          f"{own / 1e6:.3f} MB) and {first['reserved'] / 1e9:.4f} GB reserved ({card})")
+    profile_run(f"{label} (graph)", lambda: graph(max_new_tokens=new), timing["graph"], card)
+    profile_run(f"{label} (uncaptured step loop)", lambda: eager(max_new_tokens=new),
+                timing["uncaptured"], card)
     return out, counts
 
 
@@ -3409,6 +3510,238 @@ def check_train(seed: int, card: str) -> dict:
     return counts
 
 
+# --------------------------------------------------------------------- (i)
+# The Llama-skeleton families. Gemma-3-12B's text decoder at full width and
+# depth: the text_config of google/gemma-3-12b-it's config.json.
+GEMMA3_12B = dict(vocab_size=262208, hidden_size=3840, intermediate_size=15360,
+                  num_hidden_layers=48, num_attention_heads=16, num_key_value_heads=8,
+                  head_dim=256, query_pre_attn_scalar=256, sliding_window=1024,
+                  sliding_window_pattern=6, rope_theta=1_000_000.0,
+                  rope_scaling={"rope_type": "linear", "factor": 8.0},
+                  rope_local_base_freq=10_000.0, rms_norm_eps=1e-6, tie_word_embeddings=True,
+                  hidden_activation="gelu_pytorch_tanh", max_position_embeddings=131072)
+# static generate: 4 rows of 1536 slots, left-padded so that every row's
+# context passes the 1024-slot window; continuous batching: 8 requests
+G3_PROMPT, G3_NEW, G3_PADS = 1536, 32, (0, 64, 128, 256)
+G3_CB_REQUESTS, G3_CB_NEW, G3_CB_LENS = 8, 32, (1100, 2000)
+G3_CB_ENGINE = dict(block_size=32, max_batch=8, token_budget=512, num_blocks=520,
+                    max_context=2048)
+# the other families: 4 layers at the published widths of these configs
+FAMILY_LAYERS, FAMILY_PROMPT, FAMILY_NEW = 4, 128, 16
+FAMILY_PADS = (0, 5, 31, 64)
+FAMILY_GEOMETRIES = {  # model_type: (source config, geometry)
+    "mistral": ("mistralai/Mistral-7B-v0.1", dict(
+        vocab_size=32000, hidden_size=4096, intermediate_size=14336, num_hidden_layers=32,
+        num_attention_heads=32, num_key_value_heads=8, rms_norm_eps=1e-5, rope_theta=10000.0,
+        sliding_window=4096, max_position_embeddings=32768, tie_word_embeddings=False)),
+    "qwen2": ("Qwen/Qwen2.5-7B", dict(
+        vocab_size=152064, hidden_size=3584, intermediate_size=18944, num_hidden_layers=28,
+        num_attention_heads=28, num_key_value_heads=4, rms_norm_eps=1e-6,
+        rope_theta=1_000_000.0, max_position_embeddings=131072, use_sliding_window=False,
+        sliding_window=131072, max_window_layers=28, tie_word_embeddings=False)),
+    "qwen3": ("Qwen/Qwen3-8B", dict(
+        vocab_size=151936, hidden_size=4096, intermediate_size=12288, num_hidden_layers=36,
+        num_attention_heads=32, num_key_value_heads=8, head_dim=128, rms_norm_eps=1e-6,
+        rope_theta=1_000_000.0, max_position_embeddings=40960, tie_word_embeddings=False)),
+    "phi3": ("microsoft/Phi-3-mini-4k-instruct", dict(
+        vocab_size=32064, hidden_size=3072, intermediate_size=8192, num_hidden_layers=32,
+        num_attention_heads=32, num_key_value_heads=32, rms_norm_eps=1e-5, rope_theta=10000.0,
+        max_position_embeddings=4096, original_max_position_embeddings=4096,
+        sliding_window=2047, tie_word_embeddings=False)),
+    "gemma": ("google/gemma-7b", dict(
+        vocab_size=256000, hidden_size=3072, intermediate_size=24576, num_hidden_layers=28,
+        num_attention_heads=16, num_key_value_heads=16, head_dim=256, rms_norm_eps=1e-6,
+        rope_theta=10000.0, hidden_activation="gelu_pytorch_tanh",
+        max_position_embeddings=8192, tie_word_embeddings=True)),
+    "gemma2": ("google/gemma-2-9b", dict(
+        vocab_size=256000, hidden_size=3584, intermediate_size=14336, num_hidden_layers=42,
+        num_attention_heads=16, num_key_value_heads=8, head_dim=256, query_pre_attn_scalar=256,
+        sliding_window=4096, final_logit_softcapping=30.0, attn_logit_softcapping=50.0,
+        rms_norm_eps=1e-6, rope_theta=10000.0, hidden_activation="gelu_pytorch_tanh",
+        max_position_embeddings=8192, tie_word_embeddings=True)),
+}
+# the families' shapes at which phase (b) holds and times K1, K2 and K6
+FAMILY_KERNEL_SHAPES = {
+    # K1: (b, s, h, kvh, d, left pads, window)
+    "flash_fwd": {
+        "gemma3_12b_prefill_window_1024": (len(G3_PADS), G3_PROMPT, 16, 8, 256, G3_PADS, 1024),
+        "gemma3_12b_prefill_global": (len(G3_PADS), G3_PROMPT, 16, 8, 256, G3_PADS, None),
+        "phi3_mini_prefill": (len(FAMILY_PADS), FAMILY_PROMPT, 32, 32, 96, FAMILY_PADS, 2047),
+    },
+    # K2: (b, h, kvh, d, s, pos, starts, window)
+    "fused_decode": {
+        "gemma3_12b_decode_window_1024": (len(G3_PADS), 16, 8, 256, G3_PROMPT + G3_NEW,
+                                          G3_PROMPT + G3_NEW - 1, G3_PADS, 1024),
+        "phi3_mini_decode": (len(FAMILY_PADS), 32, 32, 96, FAMILY_PROMPT + FAMILY_NEW,
+                             FAMILY_PROMPT + FAMILY_NEW - 1, FAMILY_PADS, 2047),
+    },
+    # K6: (n, h, kvh, d, block size, context lengths (None: drawn in G3_CB_LENS), window)
+    "paged_decode": {
+        "gemma3_12b_cb_window_1024": (G3_CB_REQUESTS, 16, 8, 256, 32, None, 1024),
+        "phi3_mini_cb": (BATCH, 32, 32, 96, 32, (77, 140, 300, 511, 64, 96, 200, 576), 2047),
+    },
+}
+
+
+def _family_hold(kernel: str, err: float, ratio: float) -> None:
+    """At the families' long contexts an output is a mean of ~1000 values,
+    about as small as KERNEL_ATOL, so a dropped kv tile or split could pass
+    the absolute hold: each is held relative to its scale too (``grad_ratio``;
+    for K1 on the tensor-core route with its probabilities' spread)."""
+    if err > KERNEL_ATOL or ratio > 1.0:
+        raise AssertionError(f"{kernel} kernel disagrees with its plain version: max_abs_err "
+                             f"{err:.3e}, grad_ratio {ratio:.4f}")
+
+
+def _flash_at(gen, b, s, h, kvh, d, pads, window) -> dict:
+    """K1 held to its plain version and timed at one family shape, bf16."""
+    q, k, v, qpos, valid = _flash_inputs(gen, b=b, sq=s, skv=s, h=h, kvh=kvh, d=d, pads=pads)
+    err, lse_err, ratio = _flash_errors(q, k, v, qpos, valid, scale=d ** -0.5, is_causal=True,
+                                        sliding_window=window)
+    _family_hold("flash", err, ratio)
+    if lse_err > LSE_ATOL:
+        raise AssertionError(f"flash kernel's lse disagrees with its plain version: {lse_err:.3e}")
+    return dict(max_abs_err=err, grad_ratio=ratio, lse_err=lse_err,
+                **flash_timed(q, k, v, qpos, valid, window),
+                shape=f"B={b} S={s} H={h} KVH={kvh} D={d} window={window}")
+
+
+def _decode_at(gen, b, h, kvh, d, s, pos, starts, window) -> dict:
+    """K2 held to its plain version and timed at one family shape, bf16: the
+    window moves each row's first live slot up to pos + 1 - window, as a
+    sliding layer's step does."""
+    from transformers_tpu_torch.ops.fused_decode import fused_decode_attention, fused_decode_plain
+
+    starts = [max(p, pos + 1 - window) if window else p for p in starts]
+    args = _decode_inputs(gen, b=b, h=h, kvh=kvh, d=d, s=s, starts=starts)
+    out, kc_k, vc_k = _decode_run(fused_decode_attention, args, pos, d ** -0.5)
+    ref, kc_p, vc_p = _decode_run(fused_decode_plain, args, pos, d ** -0.5)
+    torch.cuda.synchronize()
+    err = max(max_err(out, ref), max_err(kc_k, kc_p), max_err(vc_k, vc_p))
+    ratio = grad_ratio(out, ref, GRAD_ULP[out.dtype])
+    _family_hold("fused decode", err, ratio)
+    return dict(max_abs_err=err, grad_ratio=ratio, **decode_timed(args, pos),
+                shape=f"B={b} S={s} H={h} KVH={kvh} D={d} pos={pos} window={window}")
+
+
+def _paged_at(gen, n, h, kvh, d, bs, ctx_lens, window) -> dict:
+    """K6 (with its merge) held to its plain version and timed at one family
+    shape, bf16."""
+    if ctx_lens is None:
+        ctx_lens = torch.randint(G3_CB_LENS[0], G3_CB_LENS[1] + 1, (n,), generator=gen,
+                                 device="cuda").tolist()
+    q, k_pool, v_pool, tables, ctx = _paged_inputs(gen, n=n, h=h, kvh=kvh, d=d, bs=bs,
+                                                   ctx_lens=ctx_lens)
+    err, ratio = _paged_error(q, k_pool, v_pool, tables, ctx, window)
+    _family_hold("paged decode", err, ratio)
+    return dict(max_abs_err=err, grad_ratio=ratio,
+                **paged_timed(q, k_pool, v_pool, tables, ctx, window),
+                shape=f"N={n} H={h} KVH={kvh} D={d} BS={bs} window={window} ctx {ctx_lens}")
+
+
+def check_family_kernels(seed: int) -> dict:
+    """Phase (b) at the families' shapes: K1 at Gemma-3-12B's prefill (4 rows
+    of 1536 slots, 16 query heads over 8 kv heads, head_dim 256, window 1024
+    and none) and Phi-3-mini's (head_dim 96); K2 at their decode steps with
+    the window; K6 at Gemma-3-12B's continuous batching (8 rows of 1100-2000
+    slots, window 1024) and at Phi-3-mini's head_dim. Each held to its plain
+    version, absolutely and relative to the output's scale, and timed beside
+    its bound and SDPA. Returns {kernel: {shape name: entry}}. Draws from
+    its own generator, so the other checks' inputs stay as they were."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 12)
+    run = {"flash_fwd": _flash_at, "fused_decode": _decode_at, "paged_decode": _paged_at}
+    results = {}
+    for kernel, shapes in FAMILY_KERNEL_SHAPES.items():
+        for name, shape in shapes.items():
+            e = run[kernel](gen, *shape)
+            results.setdefault(kernel, {})[name] = e
+            print(f"[family shapes] {kernel} {name} ({e['shape']}): max_abs_err "
+                  f"{e['max_abs_err']:.3e} (tol {KERNEL_ATOL}), grad_ratio "
+                  f"{e['grad_ratio']:.4f} at u = 2^-7 (at most 1), {e['ms']:.4f} ms, plain "
+                  f"{e['plain_ms']:.4f} ms, sdpa {e['library_ms']:.4f} ms, bound "
+                  f"{e['bound_ms']:.4f} ms ({e['bound_by']})")
+    return results
+
+
+def g3_cb_prompts(seed: int, vocab: int) -> list:
+    rng = np.random.default_rng(seed + 14)
+    return [[int(t) for t in rng.integers(1, vocab, size=int(rng.integers(G3_CB_LENS[0],
+                                                                           G3_CB_LENS[1] + 1)))]
+            for _ in range(G3_CB_REQUESTS)]
+
+
+def check_gemma3_cb(model, seed: int, card: str) -> dict:
+    """Gemma-3-12B through continuous batching at 16 steps per sync, the
+    graph engine held to an uncaptured one (``cb_graph_vs_uncaptured``) and
+    profiled on a third run. Returns the graph engine's counts."""
+    vocab = model.config.vocab_size
+    prompts = g3_cb_prompts(seed, vocab)
+    run = cb_graph_vs_uncaptured("gemma3 cb", model, prompts, 16, card, new=G3_CB_NEW,
+                                 settings=G3_CB_ENGINE)
+    profile_run("gemma3 continuous batching, 16 steps per sync (graph)",
+                lambda: run_cb(run["engine"], shifted(prompts, vocab, 2), "prof",
+                               new=G3_CB_NEW), run["wall"], card)
+    return run["counts"]
+
+
+def check_gemma3(seed: int, card: str) -> dict:
+    """Phase (i), part 1: Gemma-3-12B's text decoder at full width and depth
+    (bf16, random weights from ``seed``, about 23.5 GB): the 2-layer
+    checkpoint round trip, static generate (graph against step loop, timed,
+    profiled), continuous batching, then the generated tokens teacher-forced
+    (the model is freed there). Returns the paths' launch counts."""
+    check_load_path(seed, card, "gemma3_text", GEMMA3_12B)
+    model = build_decoder(GEMMA3_12B, GEMMA3_12B["num_hidden_layers"], torch.bfloat16, seed,
+                          model_type="gemma3_text")
+    sliding = sum(t == "sliding_attention" for t in model.config.layer_types)
+    print(f"[gemma3] {GEMMA3_12B['num_hidden_layers']} layers, {sliding} of them sliding "
+          f"(window {GEMMA3_12B['sliding_window']}, local rope), "
+          f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B parameters in bf16")
+    ids, mask = generate_inputs(seed, model.config.vocab_size, G3_PROMPT, G3_PADS)
+    out, counts = generate_graph_vs_loop("gemma3", model, ids, mask, G3_NEW, True, card,
+                                         timed=True)
+    paths = {"gemma3_12b_generate": counts}
+    model._decode_program = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["gemma3_12b_continuous_batching"] = check_gemma3_cb(model, seed, card)
+    teacher_force(model, out, mask, prompt=G3_PROMPT, label="gemma3 teacher-force",
+                  release=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def check_families(seed: int, card: str) -> dict:
+    """Phase (i), part 2: each other family at 4 layers of its published
+    width (bf16, random weights): static generate at batch 4, prompt 128, 16
+    new tokens, graph against step loop bitwise with exact launches (K2 never
+    for Gemma2, whose softcap keeps decode on the plain path), then the
+    tokens teacher-forced. Returns each family's launch counts."""
+    paths = {}
+    for model_type, (source, geometry) in FAMILY_GEOMETRIES.items():
+        t0 = time.perf_counter()
+        model = build_decoder(geometry, FAMILY_LAYERS, torch.bfloat16, seed,
+                              model_type=model_type)
+        ids, mask = generate_inputs(seed, model.config.vocab_size, FAMILY_PROMPT, FAMILY_PADS)
+        head_dim = model.model.layers[0].self_attn.head_dim
+        out, counts = generate_graph_vs_loop(
+            model_type, model, ids, mask, FAMILY_NEW,
+            decode_kernel=getattr(model.config, "attn_logit_softcapping", None) is None,
+            card=card)
+        teacher_force(model, out, mask, prompt=FAMILY_PROMPT,
+                      label=f"{model_type} teacher-force")
+        paths[f"{model_type}_generate"] = counts
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[families] {model_type} ({source}, {FAMILY_LAYERS} of "
+              f"{geometry['num_hidden_layers']} layers, head_dim {head_dim}): "
+              f"{time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3434,10 +3767,14 @@ def main() -> int:
     _reset_counts()
     kernels = [check_flash(gen), check_decode(gen, args.seed), *check_paged(gen, args.seed),
                check_static_decode(gen, args.seed)]
+    family = check_family_kernels(args.seed)
     bwd, k1_train = check_flash_bwd(gen, args.seed)
     kernels[0].update(k1_train)
     kernels += bwd
     check_reference_cases(gen)
+    for entry in kernels:  # the families' shapes (phase i) beside each kernel's main one
+        if entry["name"] in family:
+            entry["at_family_shapes"] = family[entry["name"]]
     kernels += check_quantized_linear(gen)
     phase_b = _read_counts()  # K7 serves no path: its launches are phase (b)'s checks
     lap("phase (b), kernel holds")
@@ -3464,6 +3801,10 @@ def main() -> int:
     for method, counts in check_quantized_small(args.seed, card).items():
         paths[f"quantized_{method}_small"] = counts
     lap("phase (f), quantized weights and KV cache")
+    paths.update(check_gemma3(args.seed, card))
+    lap("phase (i), Gemma-3-12B")
+    paths.update(check_families(args.seed, card))
+    lap("phase (i), the other families at 4 layers")
     paths["train"] = check_train(args.seed, card)
     lap("phase (e), training")
     serves = {"paged_decode": "continuous_batching", "paged_decode_combine": "continuous_batching",

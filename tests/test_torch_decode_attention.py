@@ -56,6 +56,7 @@ CASES = {
     "gqa_8": (2, 256, 16, 2, 128, (0, 31), (256, 140), 64, "float32", 4),
     "head_dim_64": (2, 256, 8, 2, 64, (10, 0), (250, 33), None, "float32", 5),
     "head_dim_256": (2, 128, 4, 1, 256, (0, 17), (128, 90), 40, "float32", 6),
+    "head_dim_96": (2, 128, 8, 2, 96, (0, 17), (128, 90), 40, "float32", 9),
     "end_before_start": (2, 512, 8, 2, 128, (300, 7), (200, 411), None, "float32", 7),
     "bf16": (2, 256, 8, 2, 128, (0, 40), (256, 180), None, "bfloat16", 8),
 }

@@ -33,6 +33,7 @@ CASES = {
     "gqa_holes_window_37": (2, 128, 192, 4, 2, 64, 37, None, 23),
     "gqa_holes_cap_30": (2, 128, 192, 4, 2, 64, None, 30.0, 23),
     "grad_matches_eager": (1, 64, 64, 2, 2, 64, None, None, 0),
+    "head_dim_96_window_37": (2, 128, 192, 4, 2, 96, 37, None, 23),
 }
 BWD_CASES = ["gqa_holes", "gqa_holes_window_37", "gqa_holes_cap_30"]
 

@@ -45,16 +45,17 @@ VARIANTS = {
 }
 
 
-def _numpy_params(jax_model, seed, std=0.1):
+def _numpy_params(jax_model, seed, std=0.1, norm_centre=1.0):
     """Weights from a numpy seed in the JAX param layout: projections ~N(0, std)
     (at 0.1, logits of std ~1, so greedy choices are not near-ties), norm
-    scales around 1."""
+    weights around ``norm_centre`` (0 for a norm that computes ``x * (1 +
+    weight)``, so that its scale too is around 1)."""
     rng = np.random.default_rng(seed)
     spec = jax_model.init_abstract()
 
     def draw(path, s):
         if "norm" in jax.tree_util.keystr(path):
-            return jnp.asarray(1.0 + 0.1 * rng.standard_normal(s.shape), jnp.float32)
+            return jnp.asarray(norm_centre + 0.1 * rng.standard_normal(s.shape), jnp.float32)
         return jnp.asarray(std * rng.standard_normal(s.shape), jnp.float32)
 
     return jax.tree_util.tree_map_with_path(draw, spec)

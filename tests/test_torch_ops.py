@@ -77,6 +77,9 @@ FLASH_CASES = {
     "sliding_window": (1, 256, 256, 2, 2, 64, torch.float32, None, 64, None),
     "logit_cap": (1, 128, 128, 2, 2, 64, torch.float32, None, None, 30.0),
     "bf16_gqa": (2, 128, 128, 4, 2, 128, torch.bfloat16, None, None, None),
+    # not in the reference file: Phi-3's head_dim 96, and Gemma's 256 under a window
+    "d96_padded": (2, 64, 96, 4, 2, 96, torch.float32, (5, 0), None, None),
+    "d256_window": (2, 48, 80, 4, 2, 256, torch.float32, (0, 9), 24, None),
 }
 
 
@@ -132,6 +135,9 @@ DECODE_CASES = {
     # row 0's slots 32-99 are holes: whole splits with nothing live (m = -inf)
     "dead_splits": (2, 8, 2, 64, 160, 150, torch.float32, None,
                     tuple((0, j) for j in range(32, 100))),
+    # Phi-3's head_dim 96; Gemma's 256 with a window of 16 (starts at pos + 1 - 16)
+    "d96": (3, 8, 2, 96, 64, 50, torch.float32, (0, 7, 23), ((2, 40),)),
+    "d256_window": (2, 8, 2, 256, 80, 70, torch.float32, (55, 55), ()),
 }
 
 

@@ -72,6 +72,9 @@ CASES = {
     # decode bucket (ctx 1 on the null page, which holds pad writes)
     "ctx_0": (2, 8, 2, 128, 16, (0, 40), None, "float32", 11),
     "pad_row": (2, 8, 2, 128, 16, (1, 40), None, "float32", 12),
+    # Phi-3's head_dim 96, and Gemma's 256 under a window
+    "head_dim_96": (3, 8, 2, 96, 16, (40, 16, 61), None, "float32", 96),
+    "head_dim_256_window": (3, 4, 2, 256, 16, (100, 48, 32), 40, "float32", 256),
 }
 
 

@@ -10,7 +10,14 @@ from .convert import params_from_jax
 from .generation import GenerationConfig
 from .modeling_utils import PreTrainedModel
 from .models.auto import AutoConfig, AutoModelForCausalLM
+from .models.gemma import GemmaConfig, GemmaForCausalLM
+from .models.gemma2 import Gemma2Config, Gemma2ForCausalLM
+from .models.gemma3 import Gemma3ForCausalLM, Gemma3TextConfig
 from .models.llama import LlamaConfig, LlamaForCausalLM
+from .models.mistral import MistralConfig, MistralForCausalLM
+from .models.phi3 import Phi3Config, Phi3ForCausalLM
+from .models.qwen2 import Qwen2Config, Qwen2ForCausalLM
+from .models.qwen3 import Qwen3Config, Qwen3ForCausalLM
 from .quantizers import (Fp8WeightOnlyConfig, Int4WeightOnlyConfig, Int8WeightOnlyConfig,
                          QuantizationConfig, quantize_params)
 from .tokenization import AutoTokenizer, BatchEncoding, PreTrainedTokenizer

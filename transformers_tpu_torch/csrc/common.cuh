@@ -31,8 +31,15 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
 }
 
-// N consecutive elements moved as one aligned vector access.
-template <typename T, int N> struct alignas(sizeof(T) * N <= 16 ? sizeof(T) * N : 16) Vec {
+// The alignment of N consecutive elements of `bytes` in all: the largest power
+// of two that divides it, at most 16 (3 bf16 values at head_dim 96 align to 2).
+constexpr size_t vec_align(size_t bytes) {
+  return (bytes & (~bytes + 1)) < 16 ? (bytes & (~bytes + 1)) : 16;
+}
+
+// N consecutive elements moved as one aligned vector access (as element
+// accesses where N * sizeof(T) is no power of two).
+template <typename T, int N> struct alignas(vec_align(sizeof(T) * N)) Vec {
   T x[N];
 };
 

@@ -29,7 +29,7 @@
 // bound is operations (~0.28 and ~0.21 ms at 989 TFLOP/s): only the tensor
 // cores can approach it.
 //
-// bf16 and fp16 at head_dim 64 and 128 take the tensor-core kernels
+// bf16 and fp16 at head_dim 64, 96 and 128 take the tensor-core kernels
 // (*_tc_kernel): warp-level mma.sync m16n8k16 (f32 accumulate) on operands
 // loaded by ldmatrix from shared-memory tiles whose rows are padded by 16
 // bytes (the 8 rows of an ldmatrix, plain or transposed, fall in distinct
@@ -934,6 +934,8 @@ cudaError_t launch_d(int D, const Args& a) {
   switch (D) {
     case 64:
       return DQ ? launch_dq<T, 64>(a) : launch_dkv<T, 64>(a);
+    case 96:
+      return DQ ? launch_dq<T, 96>(a) : launch_dkv<T, 96>(a);
     case 128:
       return DQ ? launch_dq<T, 128>(a) : launch_dkv<T, 128>(a);
     case 256:

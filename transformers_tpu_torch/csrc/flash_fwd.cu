@@ -17,7 +17,8 @@
 // ~1.3e11 operations on ~0.1 GB, so the bound is operations (~0.13 ms at 989
 // TFLOP/s): only the tensor cores can approach it.
 //
-// bf16 and fp16 at head_dim 64 and 128 take the tensor-core kernel
+// bf16 and fp16 at head_dim 64, 96 (Phi-3: 6 x 16, the mma fragments' depth)
+// and 128 take the tensor-core kernel
 // (flash_fwd_tc_kernel), the loop of the backward's dQ kernel with an online
 // softmax: one block of 4 warps owns 64 query rows of one (batch, head), 16
 // rows a warp, and walks the kv tiles of 64 slots that some row of it sees,
@@ -574,6 +575,9 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v, const i
   switch (D) {
     case 64:
       return launch<T, 64>(q, k, v, qp, kv, out, lse, B, Sq, Skv, H, KVH, scale, causal,
+                           window, cap, st);
+    case 96:
+      return launch<T, 96>(q, k, v, qp, kv, out, lse, B, Sq, Skv, H, KVH, scale, causal,
                            window, cap, st);
     case 128:
       return launch<T, 128>(q, k, v, qp, kv, out, lse, B, Sq, Skv, H, KVH, scale, causal,

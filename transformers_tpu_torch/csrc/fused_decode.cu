@@ -224,13 +224,14 @@ __device__ __forceinline__ void decode_split(const DecArgs& a) {
     // element d of the GB heads and the new key (row GB): every load first,
     // then rotate_half(x)[d] = -x[d + D/2] for d < D/2, x[d - D/2] otherwise
     for (int d = tid; d < D; d += NT) {
+      const int dp = d < D / 2 ? d + D / 2 : d - D / 2;  // (not d ^ D/2: D may be 96)
       float x[GB + 1], partner[GB + 1];
 #pragma unroll
       for (int gi = 0; gi <= GB; ++gi) {
         const T* src = gi < GB ? q + gi * D : kn;
         const bool ok = gi == GB || gi < n_heads;
         x[gi] = ok ? to_f(src[d]) : 0.f;
-        partner[gi] = ok ? to_f(src[d ^ (D / 2)]) : 0.f;
+        partner[gi] = ok ? to_f(src[dp]) : 0.f;
       }
       const float c = to_f(cs[d]), sgn = to_f(sn[d]);
       svn[d] = to_f(vn[d]);
@@ -405,6 +406,12 @@ cudaError_t launch_d(int D, const DecArgs& a, int B, cudaStream_t stream) {
   switch (D) {
     case 64:
       return g4 ? launch<T, 64, 4, kFused>(a, B, stream) : launch<T, 64, 8, kFused>(a, B, stream);
+    case 96:  // Phi-3's head_dim: K2 only (K7 serves no path)
+      if constexpr (kFused) {
+        return g4 ? launch<T, 96, 4, kFused>(a, B, stream)
+                  : launch<T, 96, 8, kFused>(a, B, stream);
+      }
+      return cudaErrorInvalidValue;
     case 128:
       return g4 ? launch<T, 128, 4, kFused>(a, B, stream)
                 : launch<T, 128, 8, kFused>(a, B, stream);

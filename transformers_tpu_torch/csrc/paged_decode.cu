@@ -261,6 +261,8 @@ cudaError_t launch_d(int D, const Args& a) {
   switch (D) {
     case 64:
       return launch_g<T, 64>(a);
+    case 96:
+      return launch_g<T, 96>(a);
     case 128:
       return launch_g<T, 128>(a);
     case 256:

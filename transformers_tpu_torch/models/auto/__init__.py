@@ -1,5 +1,6 @@
 """Auto classes (port of ``transformers_tpu/models/auto``), for the families
-the port has: ``llama``."""
+the port has: ``llama`` and the families built on its skeleton, ``mistral``,
+``qwen2``, ``qwen3``, ``phi3``, ``gemma``, ``gemma2`` and ``gemma3_text``."""
 
 from __future__ import annotations
 
@@ -7,10 +8,22 @@ import json
 import os
 
 from ...configuration_utils import CONFIG_NAME, PretrainedConfig
+from ..gemma import GemmaConfig, GemmaForCausalLM
+from ..gemma2 import Gemma2Config, Gemma2ForCausalLM
+from ..gemma3 import Gemma3ForCausalLM, Gemma3TextConfig
 from ..llama import LlamaConfig, LlamaForCausalLM
+from ..mistral import MistralConfig, MistralForCausalLM
+from ..phi3 import Phi3Config, Phi3ForCausalLM
+from ..qwen2 import Qwen2Config, Qwen2ForCausalLM
+from ..qwen3 import Qwen3Config, Qwen3ForCausalLM
 
-CONFIG_MAPPING = {"llama": LlamaConfig}
-MODEL_FOR_CAUSAL_LM_MAPPING = {"llama": LlamaForCausalLM}
+CONFIG_MAPPING = {"llama": LlamaConfig, "mistral": MistralConfig, "qwen2": Qwen2Config,
+                  "qwen3": Qwen3Config, "phi3": Phi3Config, "gemma": GemmaConfig,
+                  "gemma2": Gemma2Config, "gemma3_text": Gemma3TextConfig}
+MODEL_FOR_CAUSAL_LM_MAPPING = {
+    "llama": LlamaForCausalLM, "mistral": MistralForCausalLM, "qwen2": Qwen2ForCausalLM,
+    "qwen3": Qwen3ForCausalLM, "phi3": Phi3ForCausalLM, "gemma": GemmaForCausalLM,
+    "gemma2": Gemma2ForCausalLM, "gemma3_text": Gemma3ForCausalLM}
 
 
 def _lookup(mapping: dict, model_type):

@@ -282,6 +282,10 @@ class LlamaModel(nn.Module):
         inv_freq, self.attention_scaling = rope_inv_freq(config)
         self.register_buffer("inv_freq", torch.as_tensor(inv_freq, dtype=torch.float32,
                                                          device=device), persistent=False)
+        # Gemma's sqrt(hidden), rounded to the compute dtype once here: a
+        # Python float, so no forward makes or copies a tensor for it (the
+        # decode step is captured as a CUDA graph, where a host copy is a sync)
+        self._embed_scale = float(torch.tensor(config.hidden_size ** 0.5, dtype=dtype))
 
     def compute_rope(self, position_ids):
         """(cos, sin) tables for every layer; Gemma3 overrides with a
@@ -292,15 +296,16 @@ class LlamaModel(nn.Module):
     def rope_for_layer(self, rope, layer_idx):
         return rope
 
-    def embed_scale(self):
-        # Gemma multiplies embeddings by sqrt(hidden) rounded to the compute dtype
-        return torch.tensor(self.config.hidden_size ** 0.5, dtype=self.dtype)
+    def embed_scale(self) -> float:
+        """Gemma multiplies embeddings by sqrt(hidden) rounded to the compute
+        dtype (reference models/gemma/modeling_gemma.py ``normalizer``)."""
+        return self._embed_scale
 
     def embed(self, input_ids):
         """Token embedding hook; families with extra embedding-stage work override."""
         inputs_embeds = self.embed_tokens(input_ids)
         if self.scale_embeddings:
-            inputs_embeds = inputs_embeds * self.embed_scale().to(inputs_embeds.device)
+            inputs_embeds = inputs_embeds * self.embed_scale()
         return inputs_embeds
 
     def forward(self, input_ids: Optional[torch.Tensor] = None,

@@ -19,6 +19,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import gc
 import hashlib
 import os
 import shutil
@@ -136,10 +137,17 @@ class CountedGraph:
     def capture(self, stream: Optional[torch.cuda.Stream] = None):
         before = [w.launches for w in _COUNTED]
         t0 = time.perf_counter()
+        # A garbage collection inside the capture could free a dead object's
+        # CUDA graph, which CUDA refuses while a stream captures, and
+        # that invalidates this capture: collections wait until it ends.
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(self.graph, stream=stream):
                 yield
         finally:
+            if collecting:
+                gc.enable()
             self.capture_ms = (time.perf_counter() - t0) * 1e3
             for w, n in zip(_COUNTED, before):
                 if w.launches != n:

@@ -35,7 +35,7 @@ import torch
 
 from . import cuda_build
 
-KERNEL_HEAD_DIMS = (64, 128, 256)
+KERNEL_HEAD_DIMS = (64, 96, 128, 256)  # K1, K4 and K5
 # ttpu_flash_fwd(q, k, v, q_positions, kv_valid, out, lse, B, Sq, Skv, H, KVH, D,
 #                scale, causal, window, logit_cap, dtype, stream)
 _ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 6 + (
@@ -46,7 +46,7 @@ _BWD_ARGTYPES = (ctypes.c_void_p,) * 10 + _ARGTYPES[7:]
 
 
 def flash_supported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
-    """Shapes the kernel takes; other shapes use the eager path."""
+    """Shapes the kernels take; other shapes use the eager path."""
     h, d = q.shape[2], q.shape[3]
     return h % k.shape[2] == 0 and v.shape[-1] == d and d in KERNEL_HEAD_DIMS
 

@@ -44,7 +44,7 @@ from . import cuda_build
 from .paged_attention import merge_splits_plain, split_partials_plain
 from .rope import rotate_half
 
-KERNEL_HEAD_DIMS = (64, 128, 256)
+KERNEL_HEAD_DIMS = (64, 96, 128, 256)
 # Slots per split, from a one-time sweep (decode_split_sweep.py) on an H100 80GB HBM3 at
 # 700 W: at the generate shape 16 / 32 / 64 / 96 / 128 / 160 / 224 / 256 / 512 slots took
 # 0.0212 / 0.0151 / 0.0109 / 0.0105 / 0.0105 / 0.0084 / 0.0084 / 0.0084 / 0.0084 ms (from 160

@@ -36,7 +36,7 @@ import torch
 
 from . import cuda_build
 
-KERNEL_HEAD_DIMS = (64, 128, 256)
+KERNEL_HEAD_DIMS = (64, 96, 128, 256)
 # Slots per split (rounded up to whole pages): the fastest of 32 / 64 / 128 / 256 / 640
 # (0.0145 / 0.0118 / 0.0127 / 0.0182 / 0.0260 ms) at the continuous-batching shape, in a
 # one-time sweep on an H100 80GB HBM3 at 700 W (see csrc/paged_decode.cu and PERF.md).
