@@ -35,11 +35,16 @@ from transformers_tpu.ops import activations as jax_act
 from transformers_tpu.ops import attention as jax_attn
 from transformers_tpu.ops import masks as jax_masks
 from transformers_tpu.ops import rope as jax_rope
+from transformers_tpu.ops.pallas.flash_attention import _flash_fwd as jax_flash_fwd
 from transformers_tpu.ops.pallas.flash_attention import flash_attention as jax_flash
 from transformers_tpu.ops.pallas.fused_decode import fused_decode_attention as jax_fused_decode
 from transformers_tpu_torch.core.module import RMSNorm
 from transformers_tpu_torch.ops import activations, attention, masks, rope
-from transformers_tpu_torch.ops.flash_attention import flash_attention
+from transformers_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_plain,
+    flash_attention_tiled_plain,
+)
 from transformers_tpu_torch.ops.fused_decode import (
     fused_decode_attention,
     fused_decode_plain,
@@ -114,6 +119,55 @@ def test_flash_plain_fully_masked_rows_are_zero():
     out, lse = flash_attention(q, k, v, kv_valid=valid, return_lse=True)
     assert torch.all(out[0, :3] == 0) and torch.all(torch.isneginf(lse[0, :, :3]))
     assert torch.all(torch.isfinite(lse[0, :, 3:]))
+
+
+# The bf16/f16 head_dim-256 kernel's tiling: ``flash_attention_tiled_plain``
+# against the Pallas ``_flash_fwd`` (interpret mode) at the same kv tile of
+# 64 slots. Both take f32 scores, round each tile's P once to bf16 under the
+# same running max and sum the f32 P, so they differ only by the order of
+# the f32 sums: a P that lands on the other side of a bf16 rounding moves an
+# output by at most 2^-9 of its share of v, and two nearly equal outputs
+# round at most one bf16 step apart (2^-8 of the value): 1e-2, absolute and
+# relative (measured: under 4e-3; ``flash_attention_plain``, whose P stays
+# f32, is 4x further from Pallas). The logsumexp comes from the f32 scores
+# alone: F32_TOL. In float32 the tiling changes only the order of the sums:
+# 1e-5 against ``flash_attention_plain``.
+TILED_BF16_TOL = 1e-2
+TILED_CASES = {
+    # name: (b, sq, skv, h, kvh, dtype, left pads per row, window, cap)
+    "window_left_pads": (2, 96, 160, 4, 2, torch.bfloat16, (17, 0), 40, None),
+    "gqa_2_softcap_50": (1, 128, 128, 4, 2, torch.bfloat16, None, None, 50.0),
+    "ragged_sq": (1, 70, 200, 2, 2, torch.bfloat16, (3,), None, None),
+    "f32_window_softcap": (2, 80, 144, 4, 2, torch.float32, (0, 21), 48, 30.0),
+}
+
+
+@pytest.mark.parametrize("case", list(TILED_CASES))
+def test_flash_tiled_plain_matches_jax_pallas(case):
+    b, sq, skv, h, kvh, dtype, pads, window, cap = TILED_CASES[case]
+    d, block = 256, 64
+    rng = np.random.default_rng(len(case) + 7)
+    jq, q = _pair(rng.standard_normal((b, sq, h, d)), dtype)
+    jk, k = _pair(rng.standard_normal((b, skv, kvh, d)), dtype)
+    jv, v = _pair(rng.standard_normal((b, skv, kvh, d)), dtype)
+    qpos = np.broadcast_to(skv - sq + np.arange(sq, dtype=np.int32)[None], (b, sq)).copy()
+    valid = np.ones((b, skv), np.int32)
+    for row, p in enumerate(pads or ()):
+        valid[row, :p] = 0
+    kw = dict(scale=d ** -0.5, is_causal=True, sliding_window=window, logit_cap=cap)
+    out, lse = flash_attention_tiled_plain(q, k, v, torch.as_tensor(qpos),
+                                           torch.as_tensor(valid), block_kv=block, **kw)
+    assert out.dtype == dtype and out.shape == (b, sq, h, d) and lse.shape == (b, h, sq)
+    if dtype == torch.float32:
+        ref, ref_lse = flash_attention_plain(q, k, v, torch.as_tensor(qpos),
+                                             torch.as_tensor(valid), **kw)
+        _assert_close(out, ref, SPLIT_F32_TOL)
+        _assert_close(lse, ref_lse, SPLIT_F32_TOL)
+        return
+    ref, ref_lse = jax_flash_fwd(jq, jk, jv, jnp.asarray(qpos), jnp.asarray(valid), **kw,
+                                 block_q=block, block_kv=block)
+    _assert_close(out, ref, TILED_BF16_TOL)
+    _assert_close(lse, np.asarray(ref_lse)[:, :, :sq], F32_TOL)
 
 
 # ------------------------------------------------------ fused decode (K2)

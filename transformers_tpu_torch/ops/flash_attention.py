@@ -17,8 +17,16 @@ left-pad rows only; no valid row reads them.
 
 ``flash_attention`` goes through ``FlashAttentionFunction``, whose backward
 runs K5 then K4 (K5 also writes ``delta = rowsum(dO * O)``, which K4 reads).
-What bounds each kernel on the card, and what its design does about it: see
-the notes at the top of the two ``.cu`` files.
+K1's routes on the card, by storage type and head_dim: bf16/f16 at 64, 96
+and 128 run ``mma.sync`` tensor-core tiles (``flash_fwd_tc_kernel``), at 256
+``wgmma`` products fed by TMA (``flash_fwd_wg_kernel``); f32 runs CUDA-core
+FMAs (``flash_fwd_kernel``) at every head_dim. Both tensor-core routes round
+P once to the storage type before P.V, as the Pallas kernel does;
+``flash_attention_tiled_plain`` is that computation at the kernel's kv tile,
+which the card's checks hold the ``wgmma`` route to. K4/K5 run ``mma.sync``
+for bf16/f16 up to head_dim 128 and CUDA-core FMAs otherwise. What bounds
+each kernel on the card, and what its design does about it: see the notes
+at the top of the two ``.cu`` files.
 
 Each wrapper takes a CUDA tensor to its kernel and a CPU tensor to the plain
 PyTorch version beside it, and nothing else: there is no fallback. Launches
@@ -86,6 +94,47 @@ def flash_attention_plain(q, k, v, q_positions, kv_valid, *, scale: float,
     l = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bhgqk,bkhd->bhgqd", p, v.float()) / torch.where(l > 0, l, 1.0)
     lse = torch.where(l > 0, m + torch.log(l), float("-inf"))
+    out = out.reshape(b, h, sq, d).transpose(1, 2).to(q.dtype)
+    return out, lse.reshape(b, h, sq)
+
+
+def flash_attention_tiled_plain(q, k, v, q_positions, kv_valid, *, scale: float,
+                                is_causal: bool = True, sliding_window: Optional[int] = None,
+                                logit_cap: Optional[float] = None, block_kv: int = 64):
+    """K1's tiling as plain PyTorch: an online softmax over ``block_kv``-slot
+    tiles (tile t holds slots [t * block_kv, (t + 1) * block_kv)). A tile that
+    a row cannot see leaves its max, sum and output exactly as they were, so
+    the tiles the kernel skips need no skipping here. P is rounded once to
+    v's dtype before P.V, as the Pallas ``_flash_kernel`` (``p.astype(v.dtype)``)
+    and the bf16/f16 kernels round it; the row sums add the f32 P. Nothing on
+    the main path calls it: the kernel is held to it on the card. Returns
+    (out [B, Sq, H, D] in q's dtype, lse [B, H, Sq] f32); a row that sees no
+    slot gives 0 and -inf."""
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qg = q.float().reshape(b, sq, kvh, g, d)
+    kf, vf = k.float(), v.float()
+    visible = _visible(q_positions, kv_valid, skv, is_causal, sliding_window)  # [B, Sq, Skv]
+
+    neg_inf = float("-inf")
+    m = torch.full((b, kvh, g, sq), neg_inf, device=q.device)
+    l = torch.zeros((b, kvh, g, sq), device=q.device)
+    acc = torch.zeros((b, kvh, g, sq, d), device=q.device)
+    for kv0 in range(0, skv, block_kv):
+        kv1 = min(kv0 + block_kv, skv)
+        s = _capped(torch.einsum("bqhgd,bkhd->bhgqk", qg, kf[:, kv0:kv1]) * scale, logit_cap)
+        s = s.masked_fill(~visible[:, None, None, :, kv0:kv1], neg_inf)
+        m_new = torch.maximum(m, s.amax(-1))
+        dead = torch.isneginf(m_new)  # nothing visible to the row yet
+        alpha = torch.where(dead, 1.0, torch.exp(m - m_new))
+        p = torch.where(dead[..., None], 0.0, torch.exp(s - m_new[..., None]))
+        l = l * alpha + p.sum(-1)
+        pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v.dtype).float(), vf[:, kv0:kv1])
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / torch.where(l > 0, l, 1.0)[..., None]
+    lse = torch.where(l > 0, m + torch.log(torch.where(l > 0, l, 1.0)), neg_inf)
     out = out.reshape(b, h, sq, d).transpose(1, 2).to(q.dtype)
     return out, lse.reshape(b, h, sq)
 
