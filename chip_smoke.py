@@ -8,9 +8,10 @@ Phases, in order; any failure exits non-zero:
 (a) build every CUDA kernel from ``transformers_tpu_torch/csrc`` (one nvcc per
     source, all at once), print the card's name and power limit, and each
     tensor-core flash-forward build's (``mma.sync`` at head_dim 64-128,
-    ``wgmma`` at 256) and split-KV decode build's (K2, K6, K7) registers,
-    shared memory and spills from ``nvcc -Xptxas -v``, and those of the
-    quantized product's builds (Q1, Q2) by name; a K2, K7 or ``wgmma`` K1
+    ``wgmma`` at 256), the flash backward's ``wgmma`` builds (K4, K5 at
+    256) and split-KV decode build's (K2, K6, K7) registers, shared memory
+    and spills from ``nvcc -Xptxas -v``, and those of the quantized
+    product's builds (Q1, Q2) by name; a K2, K7 or ``wgmma`` K1, K4 or K5
     build that spills fails the run;
 (b) hold each kernel against its plain PyTorch version at the main paths'
     shapes, in bf16, and time the kernel, the plain version and one PyTorch
@@ -57,8 +58,12 @@ Phases, in order; any failure exits non-zero:
     relative to the output's scale, against ``flash_attention_tiled_plain``
     at its own kv tile, and twice (bitwise-equal outputs required); K4 and
     K5 are held and timed beside SDPA's backward at Phi-3-mini's training
-    shape (head_dim 96, 4 x 2048, 32 heads, window 2047) and Gemma-3-12B's
-    (head_dim 256, 16 over 8 heads, window 1024 and none);
+    shape (head_dim 96, 4 x 2048, 32 heads, window 2047), Gemma-3-12B's
+    (head_dim 256, 16 over 8 heads, window 1024 and none) and Gemma-2-9B's
+    (head_dim 256, 16 over 8, window 4096, softcap 50: no SDPA call computes
+    it); their bf16/f16 head_dim-256 route (``wgmma``, TMA) is also run
+    twice there and on the reference cases at 256 (bitwise-equal outputs
+    required);
 (c) the static-cache path at the Llama-3-8B geometry in bf16 with random
     weights from ``--seed``: a full-width, 2-layer checkpoint written with the
     port's safetensors writer and read back by ``from_pretrained``; then
@@ -165,7 +170,13 @@ Phases, in order; any failure exits non-zero:
     AdamW, 5 steps over 4 rows of 1536-2048 tokens, with launch counts (K1,
     K4 and K5 once per layer per step), step time, tokens/s, MFU, peak
     memory and a profiled step; then one step with gradient checkpointing
-    (K1 twice per layer).
+    (K1 twice per layer). Then the same on Gemma-3-12B's text decoder at
+    its full width, depth cut to 6 layers (one period of its
+    ``sliding_window_pattern``: five sliding layers, window 1024, and one
+    global, held to the config's pattern; ~37.6 GB of f32 weights,
+    gradients and AdamW moments, a step's peak ~75.6 GB, allocated from
+    expandable segments): K4 and K5 run their head_dim-256 route, and the
+    launches are held by window too (five windowed and one global per step).
 
 Prints one ``{"kernels": [...]}`` line, the smoke's total seconds, the card's
 name and power limit, and ends with ``{"ok": true, "device": {...}}``. Needs
@@ -180,6 +191,7 @@ import functools
 import gc
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -206,6 +218,9 @@ CB_REQUESTS, CB_NEW, CB_PREFIX = 16, 64, 256
 CB_SHARED = (0, 8, 11, 14)  # requests that open with the shared prefix
 # training (phase e, and the backward kernels' shapes in phase b)
 TRAIN_LAYERS, TRAIN_ROWS, TRAIN_SEQ, TRAIN_STEPS, TRAIN_MIN_LEN = 4, 4, 2048, 5, 1536
+# phase (e)'s Gemma-3-12B leg: one period of its sliding_window_pattern (five
+# sliding layers with the 1024-slot window, then one global)
+TRAIN_GEMMA3_LAYERS = 6
 
 # Kernel vs plain: both compute in f32 from the same inputs and round the
 # output once to the storage type; sums run in another order, so outputs of
@@ -351,14 +366,15 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 # --------------------------------------------------------------------- (a)
 # the builds this script reports one by one (the others as a summary per library)
-REPORTED_BUILDS = ("flash_fwd_tc_kernel", "flash_fwd_wg_kernel", "paged_split_kernel",
-                   "paged_combine_kernel", "fused_decode_kernel", "static_decode_kernel",
-                   "quantized_linear_tc_kernel")
+REPORTED_BUILDS = ("flash_fwd_tc_kernel", "flash_fwd_wg_kernel", "flash_bwd_dq_wg_kernel",
+                   "flash_bwd_dkv_wg_kernel", "paged_split_kernel", "paged_combine_kernel",
+                   "fused_decode_kernel", "static_decode_kernel", "quantized_linear_tc_kernel")
 # the builds reported as one line each (one instantiation per code type and
 # row tile: Q1's f32 route, and Q2 per activation type)
 SUMMED_BUILDS = ("quantized_linear_kernel", "widen_codes_kernel")
-# the split-KV decode builds (K2, K7) and K1's wgmma build must not spill
-NO_SPILL_BUILDS = ("fused_decode_kernel", "static_decode_kernel", "flash_fwd_wg_kernel")
+# the split-KV decode builds (K2, K7) and the wgmma builds of K1, K4 and K5 must not spill
+NO_SPILL_BUILDS = ("fused_decode_kernel", "static_decode_kernel", "flash_fwd_wg_kernel",
+                   "flash_bwd_dq_wg_kernel", "flash_bwd_dkv_wg_kernel")
 # the kv tile of K1's bf16/f16 head_dim-256 route (FwdWg::BKV in csrc/flash_fwd.cu)
 WG_TILE = 64
 
@@ -622,11 +638,13 @@ def grad_ratio(a: torch.Tensor, ref: torch.Tensor, u: float, spread=None) -> flo
     return float(((a - ref).abs() / bound.clamp_min(1e-30)).max())
 
 
-def _bwd_errors(q, k, v, qpos, valid, do, **kw) -> tuple[dict, dict]:
+def _bwd_errors(q, k, v, qpos, valid, do, twice: bool = False, **kw) -> tuple[dict, dict]:
     """K5 and K4 against the plain backward on the kernel forward's output
     and logsumexp: per gradient, the max abs error and the worst ratio of
     ``grad_ratio`` (at most 1 to pass). The kernels' dV comes back under
-    ``"dv_tensors"`` with the plain one, for the planted-fault check."""
+    ``"dv_tensors"`` with the plain one, for the planted-fault check. With
+    ``twice``, both kernels run a second time on the same inputs and every
+    output (dQ, delta, dK, dV) must be equal bit for bit."""
     from transformers_tpu_torch.ops.flash_attention import (flash_attention,
                                                             flash_attention_bwd_plain,
                                                             flash_bwd_dkv, flash_bwd_dq)
@@ -634,6 +652,14 @@ def _bwd_errors(q, k, v, qpos, valid, do, **kw) -> tuple[dict, dict]:
     out, lse = flash_attention(q, k, v, q_positions=qpos, kv_valid=valid, return_lse=True, **kw)
     dq, delta = flash_bwd_dq(q, k, v, out, do, lse, qpos, valid, **kw)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, qpos, valid, **kw)
+    if twice:
+        dq2, delta2 = flash_bwd_dq(q, k, v, out, do, lse, qpos, valid, **kw)
+        dk2, dv2 = flash_bwd_dkv(q, k, v, do, lse, delta2, qpos, valid, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in ((dq, dq2), (delta, delta2), (dk, dk2),
+                                                   (dv, dv2))):
+            raise AssertionError("flash backward kernels: two runs on the same inputs differ")
+        del dq2, delta2, dk2, dv2
     ref = flash_attention_bwd_plain(q, k, v, qpos, valid, out, lse, do, **kw)
     torch.cuda.synchronize()
     u = GRAD_ULP[q.dtype]
@@ -666,12 +692,40 @@ def _train_lengths(seed: int) -> list:
     return [int(rng.integers(TRAIN_MIN_LEN, TRAIN_SEQ + 1)) for _ in range(TRAIN_ROWS)]
 
 
+def _flex_capped(qt, kt, vt, qpos, valid, *, scale, sliding_window, logit_cap, **_) -> tuple:
+    """One compiled ``flex_attention`` call on BHSD tensors that computes the
+    softcapped function (a tanh ``score_mod`` on the scaled scores; a block
+    mask from ``kv_valid``, causality by position and the window; GQA):
+    the library yardstick where SDPA has no softcap. The port never calls
+    it. Returns its output and a description."""
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    def score_mod(score, b, h, i, j):
+        return logit_cap * torch.tanh(score / logit_cap)
+
+    def mask_mod(b, h, i, j):
+        seen = (valid[b, j] != 0) & (j <= qpos[b, i])
+        if sliding_window:
+            seen = seen & (j > qpos[b, i] - sliding_window)
+        return seen
+
+    b, _, s, _ = qt.shape
+    block_mask = create_block_mask(mask_mod, b, None, s, kt.shape[2], device=qt.device)
+    out = torch.compile(flex_attention, dynamic=False)(
+        qt, kt, vt, score_mod=score_mod, block_mask=block_mask, scale=scale, enable_gqa=True)
+    return out, ("flex_attention backward (autograd.grad of one torch.compile'd flex_attention "
+                 "call: tanh score_mod, block mask from kv_valid, causality and the window, "
+                 "enable_gqa)")
+
+
 def _bwd_timed(q, k, v, qpos, valid, do, **kw) -> dict:
     """K5 (dQ) and K4 (dK/dV) on K1's output and logsumexp, timed between
-    CUDA events beside their plain versions, SDPA's backward (autograd.grad
-    of one SDPA call with the boolean mask: dQ, dK and dV together, a
-    yardstick the port never calls) and their bounds (bf16 inputs); also the
-    mask and its count of visible (row, slot) pairs."""
+    CUDA events beside their plain versions, the library's backward and
+    their bounds (bf16 inputs); also the mask and its count of visible
+    (row, slot) pairs. The library's backward is autograd.grad of one call
+    that computes the same function, dQ, dK and dV together, a yardstick
+    the port never calls: SDPA with the boolean mask, or, with a softcap,
+    ``_flex_capped``, whose dQ is first held to K5's."""
     import torch.nn.functional as F
 
     from transformers_tpu_torch.ops.flash_attention import (flash_attention, flash_bwd_dkv,
@@ -692,9 +746,20 @@ def _bwd_timed(q, k, v, qpos, valid, do, **kw) -> dict:
     if kw.get("sliding_window"):
         mask &= slots[None, None, :] > qpos[:, :, None] - kw["sliding_window"]
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-    out_t = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask[:, None],
-                                           scale=kw["scale"], enable_gqa=True)
     do_t = do.transpose(1, 2)
+    if kw.get("logit_cap"):  # SDPA has no softcap
+        out_t, t["library"] = _flex_capped(qt, kt, vt, qpos, valid, **kw)
+        # the yardstick computes the same function: its dQ against K5's
+        dq_lib = torch.autograd.grad(out_t, qt, do_t, retain_graph=True)[0].transpose(1, 2)
+        dq_ref = flash_bwd_dq(q, k, v, out, do, lse, qpos, valid, **kw)[0].float()
+        t["library_dq_err"] = max_err(dq_lib, dq_ref) / float(dq_ref.abs().max())
+        if t["library_dq_err"] > 5e-2:
+            raise AssertionError(f"the softcapped yardstick's dQ is off K5's by "
+                                 f"{t['library_dq_err']:.3e} of |dQ|max")
+    else:
+        out_t = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask[:, None],
+                                               scale=kw["scale"], enable_gqa=True)
+        t["library"] = "SDPA backward (autograd.grad of one SDPA call, boolean mask, enable_gqa)"
     # the best of three reads: single reads of this yardstick have run 25% high
     t["library_ms"] = min(event_ms(lambda: torch.autograd.grad(out_t, (qt, kt, vt), do_t,
                                                                retain_graph=True), iters=3)
@@ -776,9 +841,7 @@ def check_flash_bwd(gen, seed: int) -> tuple:
               f"visible (row, slot) pairs: K1 {fwd_ms:.4f} ms, plain {fwd_plain_ms:.4f} ms, "
               f"sdpa forward {fwd_library_ms:.4f} ms, bound {fwd_bound:.4f} ms ({fwd_by})")
         common = dict(route="cuda", source="transformers_tpu_torch/csrc/flash_bwd.cu",
-                      library_ms=t["library_ms"],
-                      library="SDPA backward (autograd.grad of one SDPA call, boolean mask, "
-                              "enable_gqa)")
+                      library_ms=t["library_ms"], library=t["library"])
         results = [
             dict(name="flash_bwd_dkv",
                  replaces="transformers_tpu/ops/pallas/flash_attention.py:445",
@@ -797,8 +860,10 @@ def check_flash_bwd(gen, seed: int) -> tuple:
 def _bwd_times_text(t: dict) -> str:
     return (f"K4 dK/dV {t['dkv_ms']:.4f} ms (plain {t['dkv_plain_ms']:.4f}, bound "
             f"{t['dkv_bound']:.4f} {t['dkv_by']}), K5 dQ {t['dq_ms']:.4f} ms (plain "
-            f"{t['dq_plain_ms']:.4f}, bound {t['dq_bound']:.4f} {t['dq_by']}), SDPA backward "
-            f"{t['library_ms']:.4f} ms")
+            f"{t['dq_plain_ms']:.4f}, bound {t['dq_bound']:.4f} {t['dq_by']}), "
+            + t["library"].split(" (")[0] + f" {t['library_ms']:.4f} ms"
+            + (f" (its dQ off K5's by {t['library_dq_err']:.3e} of |dQ|max)"
+               if "library_dq_err" in t else ""))
 
 
 def _decode_inputs(gen, *, b=8, h=32, kvh=8, d=128, s=160, starts=None, holes=0,
@@ -1308,12 +1373,17 @@ def check_reference_cases(gen) -> None:
             q, k, v, qpos, valid = _flash_inputs(gen, b=b, sq=sq, skv=skv, h=h, kvh=kvh, d=d,
                                                  pads=pads, dtype=dtype)
             do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
-            errs, ratios = _bwd_errors(q, k, v, qpos, valid, do, scale=d ** -0.5,
+            wgmma = dtype != torch.float32 and d == 256  # K4/K5's Hopper route: also twice
+            errs, ratios = _bwd_errors(q, k, v, qpos, valid, do, twice=wgmma, scale=d ** -0.5,
                                        sliding_window=window, logit_cap=cap)
             del ratios["dv_tensors"]
             if any(r > 1.0 for r in ratios.values()):
                 raise AssertionError(f"flash backward kernels disagree with their plain version: "
                                      f"{name} {dtype}: max_abs_err {errs}, ratios {ratios}")
+            if wgmma:
+                print(f"[ops cases] flash_bwd wgmma {name} {str(dtype).replace('torch.', '')}: "
+                      + ", ".join(f"{n} max_abs_err {errs[n]:.3e} grad_ratio {ratios[n]:.4f}"
+                                  for n in errs) + " (tol 1); two runs bitwise equal")
             for kernel, grads in (("flash_bwd_dq", ("dq",)), ("flash_bwd_dkv", ("dk", "dv"))):
                 worst[(kernel, dtype)] = max(worst.get((kernel, dtype), 0.0),
                                              *(ratios[n] for n in grads))
@@ -2599,16 +2669,17 @@ DRAFT_GEOMETRY = dict(vocab_size=128256, hidden_size=2048, intermediate_size=819
 
 
 def build_decoder(geometry: dict, layers: int, dtype, seed: int, device="cuda",
-                  model_type: str = "llama"):
+                  model_type: str = "llama", param_dtype=None):
     """A ``model_type`` model of ``geometry`` cut to ``layers``, random weights
     from ``seed`` (uninitialised on the CPU: a CPU copy takes the card model's
-    weights)."""
+    weights); ``param_dtype``: the weights' type where it is not ``dtype``."""
     from transformers_tpu_torch import AutoConfig, AutoModelForCausalLM
 
     cfg = AutoConfig.for_model_type(model_type, **{
         "max_position_embeddings": PROMPT + ASSIST_NEW, **geometry, "num_hidden_layers": layers},
         bos_token_id=None, eos_token_id=None, pad_token_id=0)
-    model = AutoModelForCausalLM.from_config(cfg, dtype=dtype, device=device)
+    model = AutoModelForCausalLM.from_config(cfg, dtype=dtype, device=device,
+                                             param_dtype=param_dtype)
     return model.init_weights(seed) if device == "cuda" else model
 
 
@@ -3429,8 +3500,6 @@ def check_train_grads(model, batch) -> None:
     path's relative gradient error against float32 must be at most twice the
     plain path's, and its loss error at most twice the plain path's plus
     1e-3: the bar phases (c) and (d) hold logits to, carried to gradients."""
-    from transformers_tpu_torch import LlamaForCausalLM
-
     layers = model.config.num_hidden_layers
     _reset_counts()
     loss_k, g_k = _loss_and_qkv_grads(model, batch)
@@ -3442,7 +3511,7 @@ def check_train_grads(model, batch) -> None:
     _reset_counts()
     model.config.attn_implementation = "eager"
     loss_p, g_p = _loss_and_qkv_grads(model, batch)
-    ref_model = LlamaForCausalLM(model.config, dtype=torch.float32, device="cuda")
+    ref_model = type(model)(model.config, dtype=torch.float32, device="cuda")
     ref_model.load_state_dict(model.state_dict())
     loss_f, g_f = _loss_and_qkv_grads(ref_model, batch)
     model.config.attn_implementation = None
@@ -3502,63 +3571,114 @@ def _trainer(model, rows, clock, **kw):
     return Trainer(model, args, train_dataset=rows, callbacks=[clock])
 
 
-def check_train(seed: int, card: str) -> dict:
-    """Phase (e): Trainer.train() at the Llama-3-8B width, depth cut to 4
-    layers (1.9e9 parameters: f32 weights, gradients and AdamW's two moments
-    take 16 bytes each, ~31 GB; all 32 layers would need ~128 GB)."""
-    from transformers_tpu_torch import LlamaConfig, LlamaForCausalLM
+@contextlib.contextmanager
+def flash_launches_by_window():
+    """Counts the flash kernels' launches (K1, K5, K4) by the window each was
+    given (0: none), at their C entry points: {(kernel, window): launches}."""
+    from transformers_tpu_torch.ops import cuda_build
+
+    window_arg = {"ttpu_flash_fwd": ("flash_fwd", 15), "ttpu_flash_bwd_dq": ("flash_bwd_dq", 18),
+                  "ttpu_flash_bwd_dkv": ("flash_bwd_dkv", 18)}  # the window's argument index
+    seen = {}
+    real = cuda_build.kernel_fn
+
+    def kernel_fn(name, symbol, argtypes):
+        fn = real(name, symbol, argtypes)
+        if symbol not in window_arg:
+            return fn
+        kernel, at = window_arg[symbol]
+
+        def call(*args):
+            seen[(kernel, args[at])] = seen.get((kernel, args[at]), 0) + 1
+            return fn(*args)
+        return call
+
+    cuda_build.kernel_fn = kernel_fn
+    try:
+        yield seen
+    finally:
+        cuda_build.kernel_fn = real
+
+
+def _windows(model) -> list:
+    """Each layer's attention window (0: global)."""
+    return [layer.self_attn.sliding_window or 0 for layer in model.model.layers]
+
+
+def _by_window(model, steps: int, fwd_per_step: int = 1) -> dict:
+    """The launches by window that ``steps`` training steps should make: K1
+    ``fwd_per_step`` times and K5, K4 once per layer a step."""
+    out = {}
+    for w in _windows(model):
+        for kernel, n in (("flash_fwd", fwd_per_step), ("flash_bwd_dq", 1), ("flash_bwd_dkv", 1)):
+            out[(kernel, w)] = out.get((kernel, w), 0) + n * steps
+    return out
+
+
+def train_leg(model, seed: int, card: str, tag: str = "[train]") -> dict:
+    """Phase (e) on one model (f32 weights, bf16 compute): ``check_train_grads``
+    on one row, then ``Trainer.train()`` with AdamW for TRAIN_STEPS steps
+    over ``train_rows`` with launch counts exact in all and by window, step
+    time, training tokens/s, MFU, peak memory and a profiled step; one step
+    with gradient checkpointing (K1 twice a layer); the forward + backward's
+    peak with and without it. Returns the steps' launch counts."""
     from transformers_tpu_torch.data import default_data_collator
 
-    print(f"[train] device memory allocated before the phase {torch.cuda.memory_allocated() / 1e9:.2f} "
-          f"GB, peak so far {torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({card})")
-    cfg = LlamaConfig(**dict(GEOMETRY, num_hidden_layers=TRAIN_LAYERS),
-                      max_position_embeddings=TRAIN_SEQ, bos_token_id=None, eos_token_id=None,
-                      pad_token_id=0)
-    model = LlamaForCausalLM(cfg, dtype=torch.bfloat16, param_dtype=torch.float32,
-                             device="cuda").init_weights(seed)
+    cfg = model.config
+    layers, steps = cfg.num_hidden_layers, TRAIN_STEPS
     n_params = sum(p.numel() for p in model.parameters())
     non_embedding = sum(p.numel() for n, p in model.named_parameters()
                         if "embed_tokens" not in n)
+    # the products' weights: a tied model's output head is the embedding
+    matmul_params = non_embedding + (cfg.vocab_size * cfg.hidden_size
+                                     if cfg.tie_word_embeddings else 0)
     rows = train_rows(seed, cfg.vocab_size)
     batch = default_data_collator(rows)
     one_row = {k: v[:1].cuda() for k, v in batch.items()}
     check_train_grads(model, one_row)
 
-    # 5 optimizer steps over the same 4 rows; step 1 warms up
+    # TRAIN_STEPS optimizer steps over the same rows; step 1 warms up
     clock = _step_clock()
-    trainer = _trainer(model, rows, clock, max_steps=TRAIN_STEPS)
+    trainer = _trainer(model, rows, clock, max_steps=steps)
     _reset_counts()
-    trainer.train()
+    with flash_launches_by_window() as by_window:
+        trainer.train()
     torch.cuda.synchronize()
     counts = _read_counts()
-    layers, steps = TRAIN_LAYERS, TRAIN_STEPS
     expected = _expected(flash_fwd=layers * steps, flash_bwd_dq=layers * steps,
                          flash_bwd_dkv=layers * steps)
+    expected_by_window = _by_window(model, steps)
     losses = [e["loss"] for e in trainer.state.log_history if "loss" in e]
-    print(f"[train] launches {counts}, expected {expected} ({layers} layers, {steps} steps); "
-          f"losses {losses}")
-    if counts != expected:
-        raise AssertionError("the training path did not go through the kernels as required")
+    print(f"{tag} launches {counts}, expected {expected} ({layers} layers, {steps} steps); by "
+          f"window {dict(sorted(by_window.items()))}; losses {losses}")
+    if counts != expected or by_window != expected_by_window:
+        raise AssertionError(f"the training path did not go through the kernels as required: "
+                             f"by window {by_window}, expected {expected_by_window}")
     if len(losses) != steps or not all(map(math.isfinite, losses)) or losses[-1] >= losses[0]:
         raise AssertionError(f"train: losses not finite or not falling: {losses}")
 
     step_ms = float(np.median(clock.ms[1:]))
     positions = TRAIN_ROWS * TRAIN_SEQ  # the card computes the pad too
     tokens = sum(_train_lengths(seed))  # non-pad positions: what a user trains on
-    h, d = cfg.num_attention_heads, cfg.head_dim
-    attn_flops = layers * 3 * 4 * TRAIN_ROWS * TRAIN_SEQ ** 2 * h * d / 2
-    flops = 6 * non_embedding * positions + attn_flops
+    h, d = cfg.num_attention_heads, model.model.layers[0].self_attn.head_dim
+    # (row, slot) pairs a causal row sees, under each layer's window
+    pairs = sum(sum(min(p + 1, w or TRAIN_SEQ) for p in range(TRAIN_SEQ)) for w in _windows(model))
+    attn_flops = 3 * 4 * TRAIN_ROWS * pairs * h * d
+    flops = 6 * matmul_params * positions + attn_flops
     mfu = flops / (step_ms / 1e3 * BF16_FLOPS_PER_S)
-    print(f"[train] {n_params / 1e9:.3f}e9 parameters ({non_embedding / 1e9:.3f}e9 non-embedding), "
+    print(f"{tag} {n_params / 1e9:.3f}e9 parameters ({non_embedding / 1e9:.3f}e9 non-embedding), "
           f"{TRAIN_ROWS} x {TRAIN_SEQ} tokens (lengths {_train_lengths(seed)}), AdamW, f32 weights, "
-          f"bf16 compute: step ms {', '.join(f'{x:.2f}' for x in clock.ms)}; median of steps "
+          f"bf16 compute: step ms "
+          f"{', '.join(f'{x:.2f}' for x in clock.ms)}; median of steps "
           f"2-{steps} {step_ms:.2f} ms, {tokens * 1e3 / step_ms:.1f} training tokens/s "
           f"(non-pad), {positions * 1e3 / step_ms:.1f} positions/s, mfu "
           f"{mfu:.4f} ({flops / 1e12:.2f} TFLOP per step at {BF16_FLOPS_PER_S / 1e12:.0f} "
           f"TFLOP/s); peak memory {max(clock.peak) / 1e9:.2f} GB (step 1: "
           f"{clock.peak[0] / 1e9:.2f} GB) ({card})")
-    kernels = profile_run("train step", lambda: trainer.training_step([batch]), step_ms, card)
-    groups = {"flash kernels (K1, K4, K5)": ("flash_",), "cuBLAS GEMMs": ("nvjet", "gemm"),
+    kernels = profile_run(f"{tag[1:-1]} step", lambda: trainer.training_step([batch]), step_ms,
+                          card)
+    groups = {"K1 flash_fwd": ("flash_fwd",), "K5 flash_bwd_dq": ("flash_bwd_dq",),
+              "K4 flash_bwd_dkv": ("flash_bwd_dkv",), "cuBLAS GEMMs": ("nvjet", "gemm"),
               "multi-tensor (AdamW, clip, zero)": ("multi_tensor_apply",)}
     sums = {g: 0.0 for g in (*groups, "other")}
     for e in kernels:
@@ -3575,18 +3695,20 @@ def check_train(seed: int, card: str) -> dict:
     clock_gc = _step_clock()
     trainer = _trainer(model, rows, clock_gc, max_steps=1, gradient_checkpointing=True)
     _reset_counts()
-    trainer.train()
+    with flash_launches_by_window() as by_window_gc:
+        trainer.train()
     torch.cuda.synchronize()
     counts_gc = _read_counts()
     expected_gc = _expected(flash_fwd=2 * layers, flash_bwd_dq=layers, flash_bwd_dkv=layers)
-    print(f"[train] gradient checkpointing, one step: launches {counts_gc}, expected "
-          f"{expected_gc}; {clock_gc.ms[0]:.2f} ms, peak memory {clock_gc.peak[0] / 1e9:.2f} GB "
-          f"against {clock.peak[0] / 1e9:.2f} GB for the first step without it ({card})")
-    if counts_gc != expected_gc:
-        raise AssertionError("gradient checkpointing did not go through the kernels as required")
-    # the step's peak is AdamW's; forward + backward alone shows the activations
+    print(f"{tag} gradient checkpointing, one step: launches {counts_gc}, expected "
+          f"{expected_gc}; {clock_gc.ms[0]:.2f} ms, peak memory {clock_gc.peak[0] / 1e9:.2f} "
+          f"GB against {clock.peak[0] / 1e9:.2f} GB for the first step without it ({card})")
+    if counts_gc != expected_gc or by_window_gc != _by_window(model, 1, fwd_per_step=2):
+        raise AssertionError("gradient checkpointing did not go through the kernels as "
+                             "required")
     del trainer
     gc.collect()
+    # the step's peak is AdamW's; forward + backward alone shows the activations
     peaks = {}
     for enable in (False, True):
         model.gradient_checkpointing_enable(enable)
@@ -3596,10 +3718,63 @@ def check_train(seed: int, card: str) -> dict:
         torch.cuda.synchronize()
         peaks[enable] = (torch.cuda.max_memory_allocated() - base) / 1e9
         model.zero_grad(set_to_none=True)
-    print(f"[train] forward + backward of the 4 x {TRAIN_SEQ} batch, peak above the weights: "
-          f"{peaks[False]:.2f} GB without gradient checkpointing, {peaks[True]:.2f} GB with it "
-          f"(gradients included) ({card})")
+    print(f"{tag} forward + backward of the {TRAIN_ROWS} x {TRAIN_SEQ} batch, peak above the "
+          f"weights: {peaks[False]:.2f} GB without gradient checkpointing, {peaks[True]:.2f} GB "
+          f"with it (gradients included) ({card})")
     model.gradient_checkpointing_disable()
+    return counts
+
+
+def check_train(seed: int, card: str) -> dict:
+    """Phase (e), first leg: Trainer.train() at the Llama-3-8B width, depth
+    cut to 4 layers (1.9e9 parameters: f32 weights, gradients and AdamW's two
+    moments take 16 bytes each, ~31 GB; all 32 layers would need ~128 GB)."""
+    from transformers_tpu_torch import LlamaConfig, LlamaForCausalLM
+
+    print(f"[train] device memory allocated before the phase {torch.cuda.memory_allocated() / 1e9:.2f} "
+          f"GB, peak so far {torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({card})")
+    cfg = LlamaConfig(**dict(GEOMETRY, num_hidden_layers=TRAIN_LAYERS),
+                      max_position_embeddings=TRAIN_SEQ, bos_token_id=None, eos_token_id=None,
+                      pad_token_id=0)
+    model = LlamaForCausalLM(cfg, dtype=torch.bfloat16, param_dtype=torch.float32,
+                             device="cuda").init_weights(seed)
+    counts = train_leg(model, seed, card)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def check_train_gemma3(seed: int, card: str) -> dict:
+    """Phase (e), second leg: Trainer.train() on Gemma-3-12B's text decoder at
+    its full width (hidden 3840, 16 over 8 heads, head_dim 256, the tied
+    262208-token vocabulary), depth cut to TRAIN_GEMMA3_LAYERS: five sliding
+    layers (window 1024, local rope) and one global, so K4 and K5 run their
+    head_dim-256 route with and without the window. 2.35e9 parameters at 16
+    bytes each (f32 weights, gradients, AdamW's two moments) take ~37.6 GB;
+    all 48 layers (12.2e9) would need ~195 GB. A step peaks at ~75.6 GB (the
+    f32 logits of the vocabulary, the moments): the leg allocates from
+    expandable segments, since after the other phases the cache's free
+    blocks were too broken up for the logits' 8 GiB."""
+    pattern, window = GEMMA3_12B["sliding_window_pattern"], GEMMA3_12B["sliding_window"]
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        model = build_decoder(GEMMA3_12B, TRAIN_GEMMA3_LAYERS, torch.bfloat16, seed,
+                              model_type="gemma3_text", param_dtype=torch.float32)
+        windows = _windows(model)
+        print(f"[train gemma3] {TRAIN_GEMMA3_LAYERS} of {GEMMA3_12B['num_hidden_layers']} "
+              f"layers, windows {windows}; device memory allocated "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB ({card})")
+        # every sliding_window_pattern-th layer global, the rest sliding
+        implied = [window if (i + 1) % pattern else 0 for i in range(TRAIN_GEMMA3_LAYERS)]
+        if windows != implied:
+            raise AssertionError(f"the layers' windows {windows} are not the config's {implied}")
+        counts = train_leg(model, seed, card, tag="[train gemma3]")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
     return counts
 
 
@@ -3770,12 +3945,14 @@ def check_family_kernels(seed: int) -> dict:
     return results
 
 
-# K4 / K5 at the families' training shapes: (b, s, h, kvh, d, window), bf16,
-# causal, rows right-padded to phase (e)'s lengths
+# K4 / K5 at the families' training shapes: (b, s, h, kvh, d, window, softcap),
+# bf16, causal, rows right-padded to phase (e)'s lengths
 FAMILY_BWD_SHAPES = {
-    "phi3_mini_train": (TRAIN_ROWS, TRAIN_SEQ, 32, 32, 96, 2047),
-    "gemma3_12b_train_window_1024": (TRAIN_ROWS, TRAIN_SEQ, 16, 8, 256, 1024),
-    "gemma3_12b_train_global": (TRAIN_ROWS, TRAIN_SEQ, 16, 8, 256, None),
+    "phi3_mini_train": (TRAIN_ROWS, TRAIN_SEQ, 32, 32, 96, 2047, None),
+    "gemma3_12b_train_window_1024": (TRAIN_ROWS, TRAIN_SEQ, 16, 8, 256, 1024, None),
+    "gemma3_12b_train_global": (TRAIN_ROWS, TRAIN_SEQ, 16, 8, 256, None, None),
+    # google/gemma-2-9b: 16 over 8 heads, head_dim 256, window 4096, softcap 50
+    "gemma2_9b_train_cap_50": (TRAIN_ROWS, TRAIN_SEQ, 16, 8, 256, 4096, 50.0),
 }
 
 
@@ -3783,36 +3960,39 @@ def check_family_backward(seed: int) -> dict:
     """K5 (dQ) and K4 (dK/dV) at the families' training shapes
     (FAMILY_BWD_SHAPES): held to the plain backward on K1's output and
     logsumexp (``grad_ratio`` at most 1), and timed between CUDA events
-    beside their plain versions, their operation bounds and SDPA's backward
-    (autograd.grad of one SDPA call with the boolean mask: dQ, dK and dV
-    together, a yardstick the port never calls). Returns {kernel: {shape
-    name: entry}}. Draws from its own generator."""
+    beside their plain versions, their operation bounds and the library's
+    backward (``_bwd_timed``: SDPA's, or compiled flex_attention's with a
+    softcap). Returns {kernel: {shape name: entry}}. Draws from its own
+    generator."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 13)
     lengths = _train_lengths(seed)
     results = {"flash_bwd_dq": {}, "flash_bwd_dkv": {}}
-    for name, (b, s, h, kvh, d, window) in FAMILY_BWD_SHAPES.items():
+    for name, (b, s, h, kvh, d, window, cap) in FAMILY_BWD_SHAPES.items():
         q, k, v, qpos, valid = _flash_inputs(gen, b=b, sq=s, skv=s, h=h, kvh=kvh, d=d)
         for row, n in enumerate(lengths):
             valid[row, n:] = 0
         do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
-        kw = dict(scale=d ** -0.5, is_causal=True, sliding_window=window)
-        errs, ratios = _bwd_errors(q, k, v, qpos, valid, do, **kw)
+        kw = dict(scale=d ** -0.5, is_causal=True, sliding_window=window, logit_cap=cap)
+        errs, ratios = _bwd_errors(q, k, v, qpos, valid, do, twice=d == 256, **kw)
         del ratios["dv_tensors"]
         if any(r > 1.0 for r in ratios.values()):
             raise AssertionError(f"flash backward kernels disagree with their plain version at "
                                  f"{name}: max_abs_err {errs}, ratios {ratios}")
         t = _bwd_timed(q, k, v, qpos, valid, do, **kw)
-        shape = f"B={b} S={s} H={h} KVH={kvh} D={d} window={window}, right-padded to {lengths}"
+        shape = (f"B={b} S={s} H={h} KVH={kvh} D={d} window={window}"
+                 + (f" softcap={cap}" if cap else "") + f", right-padded to {lengths}")
         for kernel, key, grads in (("flash_bwd_dq", "dq", ("dq",)),
                                    ("flash_bwd_dkv", "dkv", ("dk", "dv"))):
             results[kernel][name] = dict(
                 max_abs_err=max(errs[g] for g in grads),
                 grad_ratio=max(ratios[g] for g in grads), ms=t[f"{key}_ms"],
                 plain_ms=t[f"{key}_plain_ms"], bound_ms=t[f"{key}_bound"],
-                bound_by=t[f"{key}_by"], library_ms=t["library_ms"], shape=shape)
+                bound_by=t[f"{key}_by"], library_ms=t["library_ms"], library=t["library"],
+                shape=shape)
         print(f"[family shapes] flash_bwd {name} ({shape}), {t['visible']} visible (row, slot) "
               f"pairs: " + _bwd_times_text(t) + "; worst grad_ratio " + ", ".join(
-                  f"{n} {r:.3f}" for n, r in ratios.items()) + " (tol 1)")
+                  f"{n} {r:.3f}" for n, r in ratios.items()) + " (tol 1)"
+              + ("; two runs bitwise equal" if d == 256 else ""))
         del q, k, v, do, t
         gc.collect()
         torch.cuda.empty_cache()
@@ -3907,6 +4087,11 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the compiled flex_attention yardstick: its cache inside the checkout's
+    # build directory, compiled in this process (no worker pool)
+    os.environ["TORCHINDUCTOR_CACHE_DIR"] = os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "transformers_tpu_torch", "_build", "inductor")
+    os.environ["TORCHINDUCTOR_COMPILE_THREADS"] = "1"
     card = card_line()
     print(f"[card] {card}")
     start = time.perf_counter()
@@ -3962,7 +4147,9 @@ def main() -> int:
     paths.update(check_families(args.seed, card))
     lap("phase (i), the other families at 4 layers")
     paths["train"] = check_train(args.seed, card)
-    lap("phase (e), training")
+    lap("phase (e), training at the Llama-3-8B width")
+    paths["train_gemma3"] = check_train_gemma3(args.seed, card)
+    lap("phase (e), training Gemma-3-12B at 6 layers")
     serves = {"paged_decode": "continuous_batching", "paged_decode_combine": "continuous_batching",
               "flash_bwd_dkv": "train", "flash_bwd_dq": "train",
               "quantized_matmul": "quantized_generate", "widen_codes": "quantized_generate"}

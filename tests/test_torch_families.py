@@ -15,6 +15,8 @@ package read by the port's ``AutoModelForCausalLM`` with no missing or
 unexpected keys (and no ``lm_head`` in a tied model's file), saved and read
 back. For Mistral and Gemma-3, whose windows reach the paged path,
 continuous batching's greedy tokens equal the port's static ``generate``.
+For the three Gemma families, the loss of a right-padded batch and every
+parameter's gradient equal ``jax.value_and_grad`` of the JAX family's.
 """
 
 import jax
@@ -170,6 +172,39 @@ def test_family_continuous_batching_matches_static_generate(family):
         if eos in want:
             want = want[:want.index(eos) + 1]
         assert tokens == want
+
+
+GRAD_FAMILIES = ("gemma", "gemma2", "gemma3_text")
+
+
+@pytest.mark.parametrize("family", GRAD_FAMILIES, indirect=True)
+def test_family_loss_and_every_gradient_match_jax_value_and_grad(family):
+    """The training path of the Gemma families (Gemma at head_dim 256, Gemma-2
+    with its attention and final softcaps, Gemma-3 with its sliding and global
+    layers; at the module's configs and weights): the loss of a right-padded
+    batch (labels -100 on the pad, no position_ids, so the port's attention
+    takes the flash route and its autograd.Function) and every parameter's
+    gradient against jax.value_and_grad of the JAX family, float32, at
+    tests/test_torch_trainer.py's tolerances (atol 2e-5, rtol 1e-4)."""
+    _, jax_model, params, model = family
+    rng = np.random.default_rng(7)
+    lengths = (12, 8)
+    ids = rng.integers(3, model.config.vocab_size, (len(lengths), 12))
+    mask = (np.arange(12)[None, :] < np.array(lengths)[:, None]).astype(np.int32)
+    ids = np.where(mask == 1, ids, 0)
+    batch = dict(input_ids=ids, attention_mask=mask, labels=np.where(mask == 1, ids, -100))
+    loss_ref, grads_ref = jax.jit(jax.value_and_grad(
+        lambda p: jax_model(p, **{k: jnp.asarray(v) for k, v in batch.items()}).loss))(params)
+    model.zero_grad(set_to_none=True)
+    loss = model(**{k: torch.as_tensor(v) for k, v in batch.items()}).loss
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(loss_ref), atol=2e-5, rtol=1e-4)
+    ref = port.params_from_jax(jax.tree.map(np.asarray, grads_ref))
+    assert set(ref) == {n for n, _ in model.named_parameters()}
+    for name, p in model.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), ref[name].numpy(), atol=2e-5, rtol=1e-4,
+                                   err_msg=name)
+    model.zero_grad(set_to_none=True)
 
 
 def test_embed_scale_is_a_float_rounded_to_the_compute_dtype():

@@ -9,7 +9,9 @@ output and logsumexp, so the comparison holds the backward alone.
 
 Cases: those of ``tests/ops/test_flash_attention.py``
 (``test_flash_bwd_kernel_parity``: GQA 4/2, ``kv_valid`` holes, window 37,
-softcap 30; ``test_flash_grad_matches_eager``). Tolerance 2e-4, as there:
+softcap 30; ``test_flash_grad_matches_eager``), head_dim 96 with window 37,
+and head_dim 256 (the Gemma families): GQA over kv holes with window 37, and
+a query-head group of 8 with softcap 50. Tolerance 2e-4, as there:
 gradients are sums over up to 192 slots of f32 products, summed in another
 order by each side.
 """
@@ -34,8 +36,13 @@ CASES = {
     "gqa_holes_cap_30": (2, 128, 192, 4, 2, 64, None, 30.0, 23),
     "grad_matches_eager": (1, 64, 64, 2, 2, 64, None, None, 0),
     "head_dim_96_window_37": (2, 128, 192, 4, 2, 96, 37, None, 23),
+    # head_dim 256 (the Gemma families): GQA over kv holes with window 37, and
+    # a query-head group of 8 with Gemma-2's softcap of 50
+    "head_dim_256_gqa_holes_window_37": (2, 128, 192, 4, 2, 256, 37, None, 23),
+    "head_dim_256_gqa_8_cap_50": (2, 64, 96, 8, 1, 256, None, 50.0, 17),
 }
-BWD_CASES = ["gqa_holes", "gqa_holes_window_37", "gqa_holes_cap_30"]
+BWD_CASES = ["gqa_holes", "gqa_holes_window_37", "gqa_holes_cap_30",
+             "head_dim_256_gqa_holes_window_37", "head_dim_256_gqa_8_cap_50"]
 
 
 def _inputs(name, seed=0):

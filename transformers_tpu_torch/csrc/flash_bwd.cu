@@ -27,9 +27,14 @@
 // D=128, causal) K4 does 4 and K5 3 products of 2*Sq*Skv*D/2 operations per
 // head (~275 and ~206 GFLOP) against ~0.3 GB of inputs and outputs, so the
 // bound is operations (~0.28 and ~0.21 ms at 989 TFLOP/s): only the tensor
-// cores can approach it.
+// cores can approach it. At Gemma-3-12B's (H=16, KVH=8, D=256) the
+// operations are the same, and f32 FMAs (~67 TFLOP/s) could not come under
+// ~7 ms.
 //
-// bf16 and fp16 at head_dim 64, 96 and 128 take the tensor-core kernels
+// Three routes, chosen by bwd_route (at the launchers) from the storage
+// type and D.
+//
+// bf16 and fp16 at head_dim 64, 96 and 128 take the mma.sync kernels
 // (*_tc_kernel): warp-level mma.sync m16n8k16 (f32 accumulate) on operands
 // loaded by ldmatrix from shared-memory tiles whose rows are padded by 16
 // bytes (the 8 rows of an ldmatrix, plain or transposed, fall in distinct
@@ -39,39 +44,72 @@
 // taken from the accumulators as the A operand), K4 16 kv rows (it computes
 // S^T = K Q^T and dP^T = V dO^T, so P^T and dS^T are already in the A-operand
 // layout of dV += P^T dO and dK += dS^T Q; dK/dV stay in f32 registers).
-// The second products take P and dS as tensor-core operands of the storage
-// type; rounding them once would break the element-wise hold to the f32
-// plain version (chip_smoke.py), so each is split into hi = round(x) and lo
-// = round(x - hi), two products that carry x to ~16 bits.
-// Blocks are numbered heaviest first under causality (K4: low kv tiles, K5:
-// high query tiles), so the short ones fill the last wave.
 //
-// float32 keeps the CUDA-core FMA kernels (TF32 would not hold float32's
-// tolerance), and so does head_dim 256: a warp's 16 rows of dK and dV there
-// would take 256 f32 registers a thread. Those kernels: 256 threads as a
-// 16 x 16 grid; tiles in shared memory with rows padded by two elements;
-// each thread holds a block of the score tile and of its f32 gradient
-// accumulator in registers; 64 x 64 tiles, K4 32-slot kv tiles at D = 256
-// and both 32-row tiles for f32 at D = 256. Query tiles that causality or
-// the window mask for the whole kv tile (K4), and kv tiles masked for the
-// whole query tile (K5), are never loaded, on either route.
+// bf16 and fp16 at head_dim 256 (Gemma, Gemma-2, Gemma-3) take the Hopper
+// kernels (*_wg_kernel, helpers in wgmma.cuh), K1's shape (flash_fwd.cu): a
+// block is one producer warpgroup, one of whose threads issues every TMA
+// load (128-byte-swizzled boxes from 4-d tensor maps over the BSHD tensors,
+// whose zero fill covers the ragged ends) into a ring of two stages with
+// full and empty mbarriers, and two consumer warpgroups whose products are
+// wgmma with their operands read from shared memory by descriptor;
+// setmaxnreg moves registers from the producer (40) to the consumers (232).
+// At D = 256 a warp's 16 rows of dK and dV would take 256 f32 registers a
+// thread, which sets the split:
+// - K5 (flash_bwd_dq_wg_kernel): each consumer owns 64 query rows of one
+//   head (one head's 128 rows a block, as K1); Q and dO arrive once, K and V
+//   in 32-slot tiles. S = Q K^T and dP = dO V^T are 16 wgmma m64n32k16 each
+//   (f32, 16 + 16 registers), dS is formed in registers and is the A operand
+//   of dQ += dS K (wgmma m64n256k16, K read transposed; dQ in 128 f32
+//   registers). delta = rowsum(dO * O) is computed first from global memory,
+//   each warp its own rows: O never enters shared memory.
+// - K4 (flash_bwd_dkv_wg_kernel): both consumers share one 64-slot kv tile of
+//   one kv head (K and V arrive once) and each holds half of the head dim of
+//   dK and dV (64 + 64 f32 registers a thread). Per item (a 64-row query tile
+//   of one query head of the group) each consumer computes S^T = K Q^T and
+//   dP^T = V dO^T for half of the query rows (wgmma m64n32k16: the two halves
+//   cost the same, and each consumer forms p and ds where it holds both s
+//   and dp), then writes its P^T and dS^T columns as hi and lo into four
+//   exchange tiles in the A operand's K-major swizzled layout; the consumers
+//   meet at named barriers around the exchange, and each adds dV_half +=
+//   P^T dO_half and dK_half += dS^T Q_half (wgmma m64n128k16, dO and Q read
+//   transposed) over all of the tile's query rows.
+// Tiles that causality or the window hide from a whole block are never
+// loaded; a K5 consumer skips the products of a kv tile that none of its
+// rows sees, and a K4 block whose kv tile holds no live slot visits no query
+// tile.
+//
+// On both tensor-core routes the second products (dV += P^T dO, dK += dS^T
+// Q, dQ += dS K) take P and dS as tensor-core operands of the storage type;
+// rounding them once would break the element-wise hold to the f32 plain
+// version (chip_smoke.py), so each is split into hi = round(x) and lo =
+// round(x - hi), two products that carry x to ~16 bits. Blocks are numbered
+// heaviest first under causality (K4: low kv tiles, K5: high query tiles),
+// so the short ones fill the last wave.
+//
+// float32 keeps the CUDA-core FMA kernels at every head_dim (TF32 would not
+// hold float32's tolerance): 256 threads as a 16 x 16 grid; tiles in shared
+// memory with rows padded by two elements; each thread holds a block of the
+// score tile and of its f32 gradient accumulator in registers; 64 x 64
+// tiles, 32 x 32 at D = 256. Query tiles that causality or the window mask
+// for the whole kv tile (K4), and kv tiles masked for the whole query tile
+// (K5), are never loaded, on every route.
 
-#include "mma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 // ------------------------------------------------ CUDA-core FMA kernels
 constexpr int NT = 256;  // threads: a 16 x 16 grid
 
-template <typename T, int D>
+template <int D>
 struct DkvTiles {  // K4
   static constexpr int BKV = D >= 256 ? 32 : 64;
-  static constexpr int BQ = (D >= 256 && sizeof(T) == 4) ? 32 : 64;
+  static constexpr int BQ = D >= 256 ? 32 : 64;
 };
 
-template <typename T, int D>
+template <int D>
 struct DqTiles {  // K5
-  static constexpr int BQ = (D >= 256 && sizeof(T) == 4) ? 32 : 64;
+  static constexpr int BQ = D >= 256 ? 32 : 64;
   static constexpr int BKV = BQ;
 };
 
@@ -146,7 +184,7 @@ __device__ __forceinline__ void p_ds(float s_dot, float dp, float lse, float del
 // ------------------------------------------------------------------ K5: dQ
 template <typename T, int D>
 constexpr size_t dq_smem_bytes() {
-  constexpr int BQ = DqTiles<T, D>::BQ, BKV = DqTiles<T, D>::BKV;
+  constexpr int BQ = DqTiles<D>::BQ, BKV = DqTiles<D>::BKV;
   return (size_t)(2 * BQ + 2 * BKV) * (D + 2) * sizeof(T) +  // Q, dO, K, V tiles
          (size_t)(BQ * (BKV + 1) + 2 * BQ) * sizeof(float) +  // dS, lse, delta
          (size_t)(BQ + BKV + 2) * sizeof(int);                // qpos, valid, range
@@ -166,7 +204,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q,      // [B, Sq, H, D]
                     float* __restrict__ delta,    // [B, H, Sq] out: rowsum(dO * O)
                     int Sq, int Skv, int H, int KVH, float scale, int causal, int window,
                     float logit_cap) {
-  constexpr int BQ = DqTiles<T, D>::BQ, BKV = DqTiles<T, D>::BKV;
+  constexpr int BQ = DqTiles<D>::BQ, BKV = DqTiles<D>::BKV;
   constexpr int S = D + 2;
   constexpr int PS = BKV + 1;
   constexpr int NI = BQ / 16, NJ = BKV / 16, DP = D / 32;
@@ -301,7 +339,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q,      // [B, Sq, H, D]
 // ------------------------------------------------------------ K4: dK, dV
 template <typename T, int D>
 constexpr size_t dkv_smem_bytes() {
-  constexpr int BQ = DkvTiles<T, D>::BQ, BKV = DkvTiles<T, D>::BKV;
+  constexpr int BQ = DkvTiles<D>::BQ, BKV = DkvTiles<D>::BKV;
   return (size_t)(2 * BKV + 2 * BQ) * (D + 2) * sizeof(T) +     // K, V, Q, dO tiles
          (size_t)(2 * BQ * (BKV + 1) + 2 * BQ) * sizeof(float) +  // P, dS, lse, delta
          (size_t)(BQ + BKV + 2) * sizeof(int);                   // qpos, valid, range
@@ -321,7 +359,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q,      // [B, Sq, H, D]
                      T* __restrict__ dv,           // [B, Skv, KVH, D]
                      int Sq, int Skv, int H, int KVH, float scale, int causal, int window,
                      float logit_cap) {
-  constexpr int BQ = DkvTiles<T, D>::BQ, BKV = DkvTiles<T, D>::BKV;
+  constexpr int BQ = DkvTiles<D>::BQ, BKV = DkvTiles<D>::BKV;
   constexpr int S = D + 2;
   constexpr int PS = BKV + 1;
   constexpr int NI = BQ / 16, NJ = BKV / 16;  // score entries per thread
@@ -839,6 +877,501 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_acc<T, D>(dv_acc, kv_row(dv));
 }
 
+// ------------------------------------------ head_dim 256: wgmma and TMA
+// K5: one block of three warpgroups, as K1's: warpgroup 0 is the producer
+// (one of its warps issues every TMA load), warpgroups 1 and 2 are consumers
+// of 64 query rows each, rows [0, 64) and [64, 128) of one head's 128.
+struct DqWg {
+  static constexpr int D = 256;
+  static constexpr int BM = 64;    // query rows of a consumer warpgroup
+  static constexpr int BKV = 32;   // kv slots per tile
+  static constexpr int NC = 2;     // consumer warpgroups
+  static constexpr int NTH = 128 * (NC + 1);
+  static constexpr int STAGES = 2;                 // K/V ring
+  static constexpr int Q_TILE = D / 64 * BM * 128;  // 64 rows x 256: 32 KB
+  static constexpr int KV_BOX = BKV * 128;          // BKV rows x 64 elements
+  static constexpr int KV_TILE = D / 64 * KV_BOX;   // BKV rows x 256
+  static constexpr int Q_OFF = 0;
+  static constexpr int DO_OFF = Q_OFF + NC * Q_TILE;
+  static constexpr int K_OFF = DO_OFF + NC * Q_TILE;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_TILE;
+  static constexpr int VALID_OFF = V_OFF + STAGES * KV_TILE;     // int [STAGES][BKV]
+  static constexpr int QPOS_OFF = VALID_OFF + STAGES * BKV * 4;  // int [NC * BM]
+  static constexpr int RANGE_OFF = QPOS_OFF + NC * BM * 4;       // int [2 (NC + 1)]
+  static constexpr int BAR_OFF = RANGE_OFF + 8 * 4;  // q_full, kv_full[2], empty[2]
+  static constexpr size_t smem = BAR_OFF + (1 + 2 * STAGES) * 8 + 1024;  // + alignment
+  static_assert(BAR_OFF % 8 == 0 && 2 * (NC + 1) <= 8 && smem <= 232448, "shared layout");
+};
+
+template <typename T>
+__global__ void __launch_bounds__(DqWg::NTH, 1)
+flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap q_map,   // [B, Sq, H, D]
+                       const __grid_constant__ CUtensorMap k_map,   // [B, Skv, KVH, D]
+                       const __grid_constant__ CUtensorMap v_map,   // [B, Skv, KVH, D]
+                       const __grid_constant__ CUtensorMap do_map,  // [B, Sq, H, D]
+                       const T* __restrict__ out, const T* __restrict__ dout,
+                       const float* __restrict__ lse, const int* __restrict__ q_positions,
+                       const int* __restrict__ kv_valid, T* __restrict__ dq,
+                       float* __restrict__ delta, int Sq, int Skv, int H, int KVH, float scale,
+                       int causal, int window, float logit_cap) {
+  using C = DqWg;
+  constexpr int D = C::D, BM = C::BM, BKV = C::BKV, NC = C::NC, NT = BKV / 8, DT = D / 8;
+  extern __shared__ unsigned char smem_raw[];
+  // the swizzle pattern repeats every 1024 bytes: tiles start on that boundary
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  int* valid_s = reinterpret_cast<int*>(smem + C::VALID_OFF);
+  int* qpos_s = reinterpret_cast<int*>(smem + C::QPOS_OFF);
+  int* range_s = reinterpret_cast<int*>(smem + C::RANGE_OFF);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + C::BAR_OFF);
+  uint64_t* kv_full = q_full + 1;
+  uint64_t* empty = kv_full + C::STAGES;
+
+  const int tid = threadIdx.x, lane = tid & 31, wg = tid >> 7;
+  // heaviest first: under causality the last query tiles see the most slots
+  const int tile = gridDim.z - 1 - blockIdx.z;
+  const int b = blockIdx.y, h = blockIdx.x, kvh = h / (H / KVH);
+  auto row0_of = [&](int c) { return (tile * NC + c) * BM; };
+
+  if (tid < NC * BM) {
+    const int r = row0_of(tid / BM) + tid % BM;
+    qpos_s[tid] = r < Sq ? q_positions[(size_t)b * Sq + r] : 0;
+  }
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&kv_full[s], 32);    // the producer warp (its valid flags) + K's and V's bytes
+      mbar_init(&empty[s], NC * 4);  // every consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  // the smallest and largest position of the block's live rows and of each consumer's
+  wg_row_ranges<NC, BM>(qpos_s, row0_of(0), Sq, range_s);
+  __syncthreads();
+  // kv tiles outside [kv_begin, kv_end) are masked for every row of the block
+  const int kv_begin = window > 0 ? max(0, (range_s[0] - window + 1) / BKV) * BKV : 0;
+  const int kv_end = causal ? min(Skv, range_s[1] + 1) : Skv;
+  const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + BKV - 1) / BKV : 0;
+
+  if (wg == 0) {
+    // ---- producer: Q and dO once, then K and V tiles into the ring
+    regs_dec<40>();
+    if (tid >= 32) return;
+    unsigned char* Qs = smem + C::Q_OFF;
+    unsigned char* dOs = smem + C::DO_OFF;
+    unsigned char* Ks = smem + C::K_OFF;
+    unsigned char* Vs = smem + C::V_OFF;
+    if (n_tiles > 0 && lane == 0) {
+      mbar_arrive_expect_tx(q_full, 2 * NC * C::Q_TILE);
+      for (int c = 0; c < NC; ++c)
+        for (int i = 0; i < D / 64; ++i) {
+          const int off = c * C::Q_TILE + i * BM * 128;
+          tma_load_4d(Qs + off, &q_map, q_full, 64 * i, h, row0_of(c), b);
+          tma_load_4d(dOs + off, &do_map, q_full, 64 * i, h, row0_of(c), b);
+        }
+    }
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % C::STAGES;
+      mbar_wait(&empty[s], ((t / C::STAGES) & 1) ^ 1);
+      const int kv0 = kv_begin + t * BKV;
+      for (int i = lane; i < BKV; i += 32)
+        valid_s[s * BKV + i] = kv0 + i < Skv ? kv_valid[(size_t)b * Skv + kv0 + i] : 0;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&kv_full[s], 2 * C::KV_TILE);
+        for (int i = 0; i < D / 64; ++i) {
+          const int off = s * C::KV_TILE + i * C::KV_BOX;
+          tma_load_4d(Ks + off, &k_map, &kv_full[s], 64 * i, kvh, kv0, b);
+          tma_load_4d(Vs + off, &v_map, &kv_full[s], 64 * i, kvh, kv0, b);
+        }
+      } else {
+        mbar_arrive(&kv_full[s]);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers
+  regs_inc<232>();
+  const int c = wg - 1;
+  const int w = (tid >> 5) & 3;  // warp of the warpgroup: rows 16 w .. 16 w + 15
+  const int gr = lane >> 2, tg = lane & 3;
+  const int q0 = row0_of(c);
+  const int n_rows = min(BM, Sq - q0);  // <= 0: a consumer with no rows (the last tile)
+  const int wg_lo = range_s[2 + 2 * c], wg_hi = range_s[3 + 2 * c];
+  const size_t row0 = ((size_t)b * Sq + q0) * H + h;  // row index of (b, q0, h)
+  const size_t stat0 = ((size_t)b * H + h) * Sq + q0;  // lse / delta index of row q0
+  // this thread's two query rows: gr and gr + 8 of the warp's 16
+  const int rw = w * 16 + gr;
+  const bool live_r[2] = {rw < n_rows, rw + 8 < n_rows};
+  const int qp_r[2] = {qpos_s[c * BM + rw], qpos_s[c * BM + rw + 8]};
+  float lse_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) lse_r[i] = live_r[i] ? lse[stat0 + rw + 8 * i] : -CUDART_INF_F;
+
+  // delta = rowsum(dO * O) in f32 from global memory (O never enters shared
+  // memory): each warp its own 16 rows, 8 elements a lane; K4 reads it back
+  float delta_r[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    const int row = w * 16 + r;
+    if (row >= n_rows) break;  // the same for the whole warp
+    float o[8], g[8];
+    load_f<T, 8>(out + (row0 + (size_t)row * H) * D + lane * 8, o);
+    load_f<T, 8>(dout + (row0 + (size_t)row * H) * D + lane * 8, g);
+    float part = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) part = fmaf(o[e], g[e], part);
+    const float sum = warp_sum(part);
+    if (r == gr) delta_r[0] = sum;
+    if (r == gr + 8) delta_r[1] = sum;
+    if (lane == 0) delta[stat0 + row] = sum;
+  }
+
+  float acc[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  const unsigned char* Qs = smem + C::Q_OFF + c * C::Q_TILE;
+  const unsigned char* dOs = smem + C::DO_OFF + c * C::Q_TILE;
+
+  if (n_tiles > 0) mbar_wait(q_full, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % C::STAGES;
+    const int kv0 = kv_begin + t * BKV;
+    mbar_wait(&kv_full[s], (t / C::STAGES) & 1);
+    // warpgroup-uniform: a tile that none of the consumer's rows sees
+    const bool seen = wg_lo <= wg_hi && !(causal && kv0 > wg_hi) &&
+                      !(window > 0 && kv0 + BKV - 1 <= wg_lo - window);
+    if (seen) {
+      const unsigned char* Kt = smem + C::K_OFF + s * C::KV_TILE;
+      const unsigned char* Vt = smem + C::V_OFF + s * C::KV_TILE;
+      const int* vt = valid_s + s * BKV;
+
+      // S = Q K^T and dP = dO V^T: 16 steps of 16 over D, 4 to a 128-byte box
+      float sc[NT][4], dp[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+      fence_regs(sc);
+      fence_regs(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int qa = (kk / 4) * BM * 128 + (kk % 4) * 32;
+        const int kb = (kk / 4) * C::KV_BOX + (kk % 4) * 32;
+        wgmma_ss<T>(sc, wgmma_desc(Qs + qa, 16, 1024), wgmma_desc(Kt + kb, 16, 1024), 1);
+        wgmma_ss<T>(dp, wgmma_desc(dOs + qa, 16, 1024), wgmma_desc(Vt + kb, 16, 1024), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // dS in place of S, then as A fragments of hi + lo
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = j * 8 + 2 * tg + (e & 1);
+          const int i = e >> 1;
+          float p, ds;
+          p_ds(sc[j][e], dp[j][e], lse_r[i], delta_r[i],
+               visible(kv0 + col, qp_r[i], vt[col], causal, window), scale, logit_cap, p, ds);
+          sc[j][e] = ds;
+        }
+      }
+      uint32_t a_hi[BKV / 16][4], a_lo[BKV / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) acc_to_a<T, NT>(sc, kk, a_hi[kk], a_lo[kk]);
+
+      // dQ += dS K: BKV / 16 steps of 16 slots, K's rows read transposed
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) {
+        const uint64_t bk = wgmma_desc(Kt + kk * 16 * 128, C::KV_BOX, 1024);
+        wgmma_rs<T>(acc, a_hi[kk], bk, 1);
+        wgmma_rs<T>(acc, a_lo[kk], bk, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  store_acc<T, D>(acc, [&](int i) -> T* {
+    return live_r[i] ? dq + (row0 + (size_t)(rw + 8 * i) * H) * D : nullptr;
+  });
+}
+
+// K4: one block of three warpgroups owns a 64-slot kv tile of one kv head:
+// warpgroup 0 is the producer, warpgroups 1 and 2 are consumers that each
+// hold half of the head dim of dK and dV (columns [128 c, 128 c + 128)).
+struct DkvWg {
+  static constexpr int D = 256;
+  static constexpr int BKV = 64;      // kv slots of the block
+  static constexpr int BQ = 64;       // query rows per tile
+  static constexpr int NC = 2;        // consumer warpgroups
+  static constexpr int DH = D / NC;   // dK / dV columns of a consumer
+  static constexpr int NQ = BQ / NC;  // query columns of S^T and dP^T a consumer computes
+  static constexpr int NTH = 128 * (NC + 1);
+  static constexpr int STAGES = 2;                   // Q/dO ring
+  static constexpr int KV_BOX = BKV * 128;           // 64 rows x 64 elements: 8 KB
+  static constexpr int KV_TILE = D / 64 * KV_BOX;    // 32 KB
+  static constexpr int Q_BOX = BQ * 128;             // BQ rows x 64 elements
+  static constexpr int Q_TILE = D / 64 * Q_BOX;
+  static constexpr int X_TILE = BKV * 128;  // an exchange tile: 64 kv rows x BQ query columns
+  static constexpr int K_OFF = 0;
+  static constexpr int V_OFF = K_OFF + KV_TILE;
+  static constexpr int Q_OFF = V_OFF + KV_TILE;
+  static constexpr int DO_OFF = Q_OFF + STAGES * Q_TILE;
+  static constexpr int X_OFF = DO_OFF + STAGES * Q_TILE;   // P hi, P lo, dS hi, dS lo
+  static constexpr int ROW_OFF = X_OFF + 4 * X_TILE;       // lse, delta, qpos: [STAGES][BQ] each
+  static constexpr int VALID_OFF = ROW_OFF + 3 * STAGES * BQ * 4;  // int [BKV]
+  static constexpr int RANGE_OFF = VALID_OFF + BKV * 4;            // int [2]
+  static constexpr int BAR_OFF = RANGE_OFF + 8;  // kv_full, q_full[2], empty[2]
+  static constexpr size_t smem = BAR_OFF + (1 + 2 * STAGES) * 8 + 1024;  // + alignment
+  static_assert(NQ == 32 && BQ * 2 == 128, "m64n32 halves; a 128-byte exchange row");
+  static_assert(BAR_OFF % 8 == 0 && smem <= 232448, "shared layout");
+};
+
+template <typename T>
+__global__ void __launch_bounds__(DkvWg::NTH, 1)
+flash_bwd_dkv_wg_kernel(const __grid_constant__ CUtensorMap q_map,   // [B, Sq, H, D]
+                        const __grid_constant__ CUtensorMap k_map,   // [B, Skv, KVH, D]
+                        const __grid_constant__ CUtensorMap v_map,   // [B, Skv, KVH, D]
+                        const __grid_constant__ CUtensorMap do_map,  // [B, Sq, H, D]
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        const int* __restrict__ q_positions, const int* __restrict__ kv_valid,
+                        T* __restrict__ dk, T* __restrict__ dv, int Sq, int Skv, int H, int KVH,
+                        float scale, int causal, int window, float logit_cap) {
+  using C = DkvWg;
+  constexpr int D = C::D, BKV = C::BKV, BQ = C::BQ, NQ = C::NQ, DH = C::DH, NT = NQ / 8;
+  constexpr int NWARPS = C::NTH / 32;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  float* lse_s = reinterpret_cast<float*>(smem + C::ROW_OFF);  // [STAGES][BQ]
+  float* delta_s = lse_s + C::STAGES * BQ;                     // [STAGES][BQ]
+  int* qpos_s = reinterpret_cast<int*>(delta_s + C::STAGES * BQ);  // [STAGES][BQ]
+  int* valid_s = reinterpret_cast<int*>(smem + C::VALID_OFF);
+  int* range_s = reinterpret_cast<int*>(smem + C::RANGE_OFF);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + C::BAR_OFF);
+  uint64_t* q_full = kv_full + 1;
+  uint64_t* empty = q_full + C::STAGES;
+
+  const int tid = threadIdx.x, lane = tid & 31, wg = tid >> 7;
+  // heaviest first: under causality the first kv tiles are seen by the most rows
+  const int kv0 = blockIdx.z * BKV;
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int G = H / KVH;
+  const int n_kv = min(BKV, Skv - kv0);
+  const int kv_last = kv0 + n_kv - 1;
+
+  if (tid < BKV) valid_s[tid] = tid < n_kv ? kv_valid[(size_t)b * Skv + kv0 + tid] : 0;
+  if (tid == 0) {
+    range_s[0] = 0x7fffffff;
+    range_s[1] = -1;
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&q_full[s], 32);      // the producer warp (the rows' values) + Q's and dO's bytes
+      mbar_init(&empty[s], C::NC * 4);  // every consumer warp
+    }
+    mbar_fence_init();
+  }
+  // a tile without a live slot gets dK = dV = 0 and visits no query tile
+  const bool any_live = __syncthreads_or(tid < BKV && valid_s[tid] != 0);
+  // The first and last query tile that some row of it sees this kv tile (a
+  // warp per query tile); the tiles between them are all visited.
+  const int* qpos_row = q_positions + (size_t)b * Sq;
+  if (any_live) {
+    for (int qt = (tid >> 5) * BQ; qt < Sq; qt += NWARPS * BQ) {
+      int lo = 0x7fffffff, hi = -0x7fffffff;
+      for (int r = lane; r < min(BQ, Sq - qt); r += 32) {
+        const int p = qpos_row[qt + r];
+        lo = min(lo, p);
+        hi = max(hi, p);
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+        hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+      }
+      const bool skip = (causal && hi < kv0) || (window > 0 && lo - window >= kv_last);
+      if (!skip && lane == 0) {
+        atomicMin(&range_s[0], qt);
+        atomicMax(&range_s[1], qt);
+      }
+    }
+  }
+  __syncthreads();
+  const int qt_first = range_s[0];
+  // item i: query tile qt_first + (i / G) * BQ of head kvh * G + i % G
+  const int n_items = range_s[1] >= qt_first ? ((range_s[1] - qt_first) / BQ + 1) * G : 0;
+
+  if (wg == 0) {
+    // ---- producer: K and V once, then the items' Q and dO tiles into the ring
+    regs_dec<40>();
+    if (tid >= 32) return;
+    unsigned char* Qs = smem + C::Q_OFF;
+    unsigned char* dOs = smem + C::DO_OFF;
+    if (n_items > 0 && lane == 0) {
+      mbar_arrive_expect_tx(kv_full, 2 * C::KV_TILE);
+      for (int i = 0; i < D / 64; ++i) {
+        tma_load_4d(smem + C::K_OFF + i * C::KV_BOX, &k_map, kv_full, 64 * i, kvh, kv0, b);
+        tma_load_4d(smem + C::V_OFF + i * C::KV_BOX, &v_map, kv_full, 64 * i, kvh, kv0, b);
+      }
+    }
+    for (int it = 0; it < n_items; ++it) {
+      const int s = it % C::STAGES;
+      mbar_wait(&empty[s], ((it / C::STAGES) & 1) ^ 1);
+      const int qt = qt_first + (it / G) * BQ;
+      const int h = kvh * G + it % G;
+      for (int i = lane; i < BQ; i += 32) {  // rows past Sq: lse -inf, so p = ds = 0
+        const bool live = qt + i < Sq;
+        const size_t at = ((size_t)b * H + h) * Sq + qt + i;
+        lse_s[s * BQ + i] = live ? lse[at] : -CUDART_INF_F;
+        delta_s[s * BQ + i] = live ? delta[at] : 0.f;
+        qpos_s[s * BQ + i] = live ? qpos_row[qt + i] : 0;
+      }
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&q_full[s], 2 * C::Q_TILE);
+        for (int i = 0; i < D / 64; ++i) {
+          const int off = s * C::Q_TILE + i * C::Q_BOX;
+          tma_load_4d(Qs + off, &q_map, &q_full[s], 64 * i, h, qt, b);
+          tma_load_4d(dOs + off, &do_map, &q_full[s], 64 * i, h, qt, b);
+        }
+      } else {
+        mbar_arrive(&q_full[s]);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers
+  regs_inc<232>();
+  const int c = wg - 1;  // this consumer's half of the head dim
+  const int w = (tid >> 5) & 3;
+  const int gr = lane >> 2, tg = lane & 3;
+  const int rw = w * 16 + gr;  // this thread's kv rows: rw and rw + 8
+  const int valid_r[2] = {valid_s[rw], valid_s[rw + 8]};
+  const unsigned char* Ks = smem + C::K_OFF;
+  const unsigned char* Vs = smem + C::V_OFF;
+  unsigned char* Xs = smem + C::X_OFF;
+
+  float dk_acc[DH / 8][4], dv_acc[DH / 8][4];
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+
+  if (n_items > 0) mbar_wait(kv_full, 0);
+  for (int it = 0; it < n_items; ++it) {
+    const int s = it % C::STAGES;
+    mbar_wait(&q_full[s], (it / C::STAGES) & 1);
+    const unsigned char* Qt = smem + C::Q_OFF + s * C::Q_TILE;
+    const unsigned char* dOt = smem + C::DO_OFF + s * C::Q_TILE;
+    const float* lt = lse_s + s * BQ;
+    const float* dt = delta_s + s * BQ;
+    const int* pt = qpos_s + s * BQ;
+
+    // S^T = K Q^T and dP^T = V dO^T over this consumer's NQ query columns
+    // (rows [c NQ, c NQ + NQ) of the Q and dO tiles): 16 steps of 16 over D
+    float st[NT][4], dpt[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+    fence_regs(st);
+    fence_regs(dpt);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int ka = (kk / 4) * C::KV_BOX + (kk % 4) * 32;
+      const int qb = (kk / 4) * C::Q_BOX + c * NQ * 128 + (kk % 4) * 32;
+      wgmma_ss<T>(st, wgmma_desc(Ks + ka, 16, 1024), wgmma_desc(Qt + qb, 16, 1024), 1);
+      wgmma_ss<T>(dpt, wgmma_desc(Vs + ka, 16, 1024), wgmma_desc(dOt + qb, 16, 1024), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // P^T in place of S^T, dS^T in place of dP^T
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = c * NQ + j * 8 + 2 * tg + (e & 1);  // query row of the tile
+        const int i = e >> 1;
+        float p, ds;
+        p_ds(st[j][e], dpt[j][e], lt[qc], dt[qc],
+             visible(kv0 + rw + 8 * i, pt[qc], valid_r[i], causal, window), scale, logit_cap,
+             p, ds);
+        st[j][e] = p;
+        dpt[j][e] = ds;
+      }
+    }
+    // Both consumers need all of P^T and dS^T: each writes its query columns
+    // as hi and lo in T into the exchange tiles (K-major, 128-byte swizzled:
+    // the A operands of the next products), once both have finished reading
+    // the last item's.
+    bar_sync<1, 256>();
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int chunk = c * NQ / 8 + j;  // the 16-byte chunk of columns 8 chunk .. 8 chunk + 7
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = rw + 8 * i;
+        const int off = r * 128 + ((chunk ^ (r & 7)) << 4) + 4 * tg;
+        const float p0 = st[j][2 * i], p1 = st[j][2 * i + 1];
+        const float d0 = dpt[j][2 * i], d1 = dpt[j][2 * i + 1];
+        *reinterpret_cast<uint32_t*>(Xs + off) = pack2<T>(p0, p1);
+        *reinterpret_cast<uint32_t*>(Xs + C::X_TILE + off) =
+            pack2<T>(p0 - round_to<T>(p0), p1 - round_to<T>(p1));
+        *reinterpret_cast<uint32_t*>(Xs + 2 * C::X_TILE + off) = pack2<T>(d0, d1);
+        *reinterpret_cast<uint32_t*>(Xs + 3 * C::X_TILE + off) =
+            pack2<T>(d0 - round_to<T>(d0), d1 - round_to<T>(d1));
+      }
+    }
+    fence_proxy_async();
+    bar_sync<2, 256>();
+
+    // dV += P^T dO and dK += dS^T Q over this consumer's half of D: BQ / 16
+    // steps of 16 query rows, dO's and Q's rows read transposed
+    fence_regs(dk_acc);
+    fence_regs(dv_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      const int half = (c * DH / 64) * C::Q_BOX + kk * 16 * 128;
+      const uint64_t bo = wgmma_desc(dOt + half, C::Q_BOX, 1024);
+      const uint64_t bq = wgmma_desc(Qt + half, C::Q_BOX, 1024);
+      wgmma_ss_bt<T>(dv_acc, wgmma_desc(Xs + kk * 32, 16, 1024), bo, 1);
+      wgmma_ss_bt<T>(dv_acc, wgmma_desc(Xs + C::X_TILE + kk * 32, 16, 1024), bo, 1);
+      wgmma_ss_bt<T>(dk_acc, wgmma_desc(Xs + 2 * C::X_TILE + kk * 32, 16, 1024), bq, 1);
+      wgmma_ss_bt<T>(dk_acc, wgmma_desc(Xs + 3 * C::X_TILE + kk * 32, 16, 1024), bq, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dk_acc);
+    fence_regs(dv_acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  const size_t kv_row0 = ((size_t)b * Skv + kv0) * KVH + kvh;
+  auto kv_row = [&](T* base) {
+    return [=](int i) -> T* {
+      const int r = rw + 8 * i;
+      return r < n_kv ? base + (kv_row0 + (size_t)r * KVH) * D + c * DH : nullptr;
+    };
+  };
+  store_acc<T, DH>(dk_acc, kv_row(dk));
+  store_acc<T, DH>(dv_acc, kv_row(dv));
+}
+
 // ---------------------------------------------------------------- launch
 struct Args {
   const void *q, *k, *v, *out_or_dout, *dout_or_lse, *lse_or_delta;
@@ -851,41 +1384,69 @@ struct Args {
   cudaStream_t stream;
 };
 
+// The backward's routes: float32 keeps the CUDA-core kernels at every head_dim
+// (TF32 would not hold its tolerance); bf16 and fp16 take mma.sync at
+// head_dim 64/96/128 and wgmma at 256.
+enum class BwdRoute { kFma, kMmaSync, kWgmma };
+
+template <typename T, int D>
+constexpr BwdRoute bwd_route() {
+  if (std::is_same<T, float>::value) return BwdRoute::kFma;
+  return D == 256 ? BwdRoute::kWgmma : BwdRoute::kMmaSync;
+}
+
+// cudaFuncSetAttribute of `kernel`'s dynamic shared memory, once (`done`: a
+// static of the caller's instantiation; this also keeps it out of graph capture).
+template <typename K>
+cudaError_t set_smem(bool& done, K kernel, size_t bytes) {
+  if (done) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  done = err == cudaSuccess;
+  return err;
+}
+
 template <typename T, int D>
 cudaError_t launch_dq(const Args& a) {
-  static bool smem_set = false;  // once per instantiation (also keeps it out of graph capture)
-  if constexpr (use_tensor_cores<T, D>()) {
+  static bool smem_set = false;
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const T* out = static_cast<const T*>(a.out_or_dout);
+  const T* dout = static_cast<const T*>(a.dout_or_lse);
+  const float* lse = static_cast<const float*>(a.lse_or_delta);
+  T* dq = static_cast<T*>(a.o1);
+  float* delta = static_cast<float*>(a.o2);
+  cudaError_t err;
+  if constexpr (bwd_route<T, D>() == BwdRoute::kWgmma) {
+    using C = DqWg;
+    if ((err = set_smem(smem_set, flash_bwd_dq_wg_kernel<T>, C::smem)) != cudaSuccess) return err;
+    CUtensorMap q_map, k_map, v_map, do_map;
+    if (!bshd_map<T>(&q_map, q, a.B, a.Sq, a.H, D, C::BM) ||
+        !bshd_map<T>(&do_map, dout, a.B, a.Sq, a.H, D, C::BM) ||
+        !bshd_map<T>(&k_map, k, a.B, a.Skv, a.KVH, D, C::BKV) ||
+        !bshd_map<T>(&v_map, v, a.B, a.Skv, a.KVH, D, C::BKV))
+      return cudaErrorInvalidValue;
+    dim3 grid(a.H, a.B, (a.Sq + C::NC * C::BM - 1) / (C::NC * C::BM));
+    flash_bwd_dq_wg_kernel<T><<<grid, C::NTH, C::smem, a.stream>>>(
+        q_map, k_map, v_map, do_map, out, dout, lse, a.q_positions, a.kv_valid, dq, delta, a.Sq,
+        a.Skv, a.H, a.KVH, a.scale, a.causal, a.window, a.cap);
+  } else if constexpr (bwd_route<T, D>() == BwdRoute::kMmaSync) {
     using C = DqTc<T, D>;
-    if (!smem_set) {
-      cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel<T, D>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             (int)C::smem);
-      if (err != cudaSuccess) return err;
-      smem_set = true;
-    }
+    if ((err = set_smem(smem_set, flash_bwd_dq_tc_kernel<T, D>, C::smem)) != cudaSuccess)
+      return err;
     dim3 grid(a.H, a.B, (a.Sq + C::BQ - 1) / C::BQ);
     flash_bwd_dq_tc_kernel<T, D><<<grid, C::NW * 32, C::smem, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        static_cast<const T*>(a.out_or_dout), static_cast<const T*>(a.dout_or_lse),
-        static_cast<const float*>(a.lse_or_delta), a.q_positions, a.kv_valid,
-        static_cast<T*>(a.o1), static_cast<float*>(a.o2), a.Sq, a.Skv, a.H, a.KVH, a.scale,
-        a.causal, a.window, a.cap);
+        q, k, v, out, dout, lse, a.q_positions, a.kv_valid, dq, delta, a.Sq, a.Skv, a.H, a.KVH,
+        a.scale, a.causal, a.window, a.cap);
   } else {
     constexpr size_t bytes = dq_smem_bytes<T, D>();
-    if (!smem_set) {
-      cudaError_t err = cudaFuncSetAttribute(
-          flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-      if (err != cudaSuccess) return err;
-      smem_set = true;
-    }
-    constexpr int BQ = DqTiles<T, D>::BQ;
+    if ((err = set_smem(smem_set, flash_bwd_dq_kernel<T, D>, bytes)) != cudaSuccess) return err;
+    constexpr int BQ = DqTiles<D>::BQ;
     dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B);
     flash_bwd_dq_kernel<T, D><<<grid, NT, bytes, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        static_cast<const T*>(a.out_or_dout), static_cast<const T*>(a.dout_or_lse),
-        static_cast<const float*>(a.lse_or_delta), a.q_positions, a.kv_valid,
-        static_cast<T*>(a.o1), static_cast<float*>(a.o2), a.Sq, a.Skv, a.H, a.KVH, a.scale,
-        a.causal, a.window, a.cap);
+        q, k, v, out, dout, lse, a.q_positions, a.kv_valid, dq, delta, a.Sq, a.Skv, a.H, a.KVH,
+        a.scale, a.causal, a.window, a.cap);
   }
   return cudaGetLastError();
 }
@@ -893,38 +1454,45 @@ cudaError_t launch_dq(const Args& a) {
 template <typename T, int D>
 cudaError_t launch_dkv(const Args& a) {
   static bool smem_set = false;
-  if constexpr (use_tensor_cores<T, D>()) {
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const T* dout = static_cast<const T*>(a.out_or_dout);
+  const float* lse = static_cast<const float*>(a.dout_or_lse);
+  const float* delta = static_cast<const float*>(a.lse_or_delta);
+  T* dk = static_cast<T*>(a.o1);
+  T* dv = static_cast<T*>(a.o2);
+  cudaError_t err;
+  if constexpr (bwd_route<T, D>() == BwdRoute::kWgmma) {
+    using C = DkvWg;
+    if ((err = set_smem(smem_set, flash_bwd_dkv_wg_kernel<T>, C::smem)) != cudaSuccess)
+      return err;
+    CUtensorMap q_map, k_map, v_map, do_map;
+    if (!bshd_map<T>(&q_map, q, a.B, a.Sq, a.H, D, C::BQ) ||
+        !bshd_map<T>(&do_map, dout, a.B, a.Sq, a.H, D, C::BQ) ||
+        !bshd_map<T>(&k_map, k, a.B, a.Skv, a.KVH, D, C::BKV) ||
+        !bshd_map<T>(&v_map, v, a.B, a.Skv, a.KVH, D, C::BKV))
+      return cudaErrorInvalidValue;
+    dim3 grid(a.KVH, a.B, (a.Skv + C::BKV - 1) / C::BKV);
+    flash_bwd_dkv_wg_kernel<T><<<grid, C::NTH, C::smem, a.stream>>>(
+        q_map, k_map, v_map, do_map, lse, delta, a.q_positions, a.kv_valid, dk, dv, a.Sq, a.Skv,
+        a.H, a.KVH, a.scale, a.causal, a.window, a.cap);
+  } else if constexpr (bwd_route<T, D>() == BwdRoute::kMmaSync) {
     using C = DkvTc<T, D>;
-    if (!smem_set) {
-      cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_tc_kernel<T, D>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             (int)C::smem);
-      if (err != cudaSuccess) return err;
-      smem_set = true;
-    }
+    if ((err = set_smem(smem_set, flash_bwd_dkv_tc_kernel<T, D>, C::smem)) != cudaSuccess)
+      return err;
     dim3 grid(a.KVH, a.B, (a.Skv + C::BKV - 1) / C::BKV);
     flash_bwd_dkv_tc_kernel<T, D><<<grid, C::NW * 32, C::smem, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        static_cast<const T*>(a.out_or_dout), static_cast<const float*>(a.dout_or_lse),
-        static_cast<const float*>(a.lse_or_delta), a.q_positions, a.kv_valid,
-        static_cast<T*>(a.o1), static_cast<T*>(a.o2), a.Sq, a.Skv, a.H, a.KVH, a.scale,
-        a.causal, a.window, a.cap);
+        q, k, v, dout, lse, delta, a.q_positions, a.kv_valid, dk, dv, a.Sq, a.Skv, a.H, a.KVH,
+        a.scale, a.causal, a.window, a.cap);
   } else {
     constexpr size_t bytes = dkv_smem_bytes<T, D>();
-    if (!smem_set) {
-      cudaError_t err = cudaFuncSetAttribute(
-          flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-      if (err != cudaSuccess) return err;
-      smem_set = true;
-    }
-    constexpr int BKV = DkvTiles<T, D>::BKV;
+    if ((err = set_smem(smem_set, flash_bwd_dkv_kernel<T, D>, bytes)) != cudaSuccess) return err;
+    constexpr int BKV = DkvTiles<D>::BKV;
     dim3 grid((a.Skv + BKV - 1) / BKV, a.KVH, a.B);
     flash_bwd_dkv_kernel<T, D><<<grid, NT, bytes, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        static_cast<const T*>(a.out_or_dout), static_cast<const float*>(a.dout_or_lse),
-        static_cast<const float*>(a.lse_or_delta), a.q_positions, a.kv_valid,
-        static_cast<T*>(a.o1), static_cast<T*>(a.o2), a.Sq, a.Skv, a.H, a.KVH, a.scale,
-        a.causal, a.window, a.cap);
+        q, k, v, dout, lse, delta, a.q_positions, a.kv_valid, dk, dv, a.Sq, a.Skv, a.H, a.KVH,
+        a.scale, a.causal, a.window, a.cap);
   }
   return cudaGetLastError();
 }

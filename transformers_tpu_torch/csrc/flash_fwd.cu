@@ -77,8 +77,6 @@
 // every route, KV tiles that causality or the window mask for every row of
 // the query tile are never loaded.
 
-#include <dlfcn.h>
-
 #include "wgmma.cuh"
 
 namespace {
@@ -585,7 +583,6 @@ struct FwdWg {
   static constexpr int BAR_OFF = RANGE_OFF + 8 * 4;  // q_full, k_full[2], v_full[2], empty[2]
   static constexpr size_t smem = BAR_OFF + (1 + 3 * STAGES) * 8 + 1024;  // + alignment
   static_assert(BAR_OFF % 8 == 0 && 2 * (NC + 1) <= 8, "shared layout");
-  static_assert(BM == BKV, "Q, K and V share the box shape of bshd_map");
 };
 
 template <typename T>
@@ -630,28 +627,8 @@ flash_fwd_wg_kernel(const __grid_constant__ CUtensorMap q_map,  // [B, Sq, H, D]
     mbar_fence_init();
   }
   __syncthreads();
-  // the smallest and largest position of the block's live rows (warp 0) and
-  // of each consumer's (warp 1 + c)
-  if (tid < 32 * (NC + 1)) {
-    const int w = tid >> 5;
-    int lo = 0x7fffffff, hi = -0x7fffffff;
-    for (int i = lane; i < NC * BM; i += 32) {
-      const int c = i / BM;
-      if ((w == 0 || c == w - 1) && row0_of(c) + i % BM < Sq) {
-        lo = min(lo, qpos_s[i]);
-        hi = max(hi, qpos_s[i]);
-      }
-    }
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
-      hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
-    }
-    if (lane == 0) {
-      range_s[2 * w] = lo;
-      range_s[2 * w + 1] = hi;
-    }
-  }
+  // the smallest and largest position of the block's live rows and of each consumer's
+  wg_row_ranges<NC, BM>(qpos_s, row0_of(0), Sq, range_s);
   __syncthreads();
   // kv tiles outside [kv_begin, kv_end) are masked for every row of the block
   const int kv_begin = window > 0 ? max(0, (range_s[0] - window + 1) / BKV) * BKV : 0;
@@ -865,43 +842,8 @@ flash_fwd_wg_kernel(const __grid_constant__ CUtensorMap q_map,  // [B, Sq, H, D]
   }
 }
 
-// cuTensorMapEncodeTiled, a driver function, from the driver library the
-// CUDA runtime has loaded (these libraries link the runtime only).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
-  }();
-  return fn;
-}
-
-// A BSHD tensor [B, S, NH, 256] of T as a 4-d map (D, NH, S, B) read in
-// 128-byte-swizzled boxes of 64 elements x 1 head x 64 rows.
-template <typename T>
-bool bshd_map(CUtensorMap* map, const void* p, int B, int S, int NH) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  constexpr cuuint64_t D = FwdWg::D, E = sizeof(T);
-  const cuuint64_t dims[4] = {D, (cuuint64_t)NH, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {D * E, NH * D * E, (cuuint64_t)S * NH * D * E};  // bytes
-  const cuuint32_t box[4] = {64, 1, FwdWg::BKV, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map,
-                std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                                               : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                4, const_cast<void*>(p), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // ---------------------------------------------------------------- launch
-// The forward's own routes (the backward's are use_tensor_cores in mma.cuh):
+// The forward's routes (the backward's: bwd_route in flash_bwd.cu):
 // float32 keeps the CUDA-core kernel (TF32 would not hold its tolerance);
 // bf16 and fp16 take mma.sync at head_dim 64/96/128 and wgmma at 256.
 enum class FwdRoute { kFma, kMmaSync, kWgmma };
@@ -927,8 +869,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* q_pos
       smem_set = true;
     }
     CUtensorMap q_map, k_map, v_map;
-    if (!bshd_map<T>(&q_map, q, B, Sq, H) || !bshd_map<T>(&k_map, k, B, Skv, KVH) ||
-        !bshd_map<T>(&v_map, v, B, Skv, KVH))
+    if (!bshd_map<T>(&q_map, q, B, Sq, H, C::D, C::BM) ||
+        !bshd_map<T>(&k_map, k, B, Skv, KVH, C::D, C::BKV) ||
+        !bshd_map<T>(&v_map, v, B, Skv, KVH, C::D, C::BKV))
       return cudaErrorInvalidValue;
     dim3 grid(H, B, (Sq + C::NC * C::BM - 1) / (C::NC * C::BM));
     flash_fwd_wg_kernel<T><<<grid, C::NTH, C::smem, stream>>>(

@@ -17,16 +17,6 @@
 
 constexpr int kPad = 8;  // elements of padding per shared row
 
-// The flash backward's route (flash_bwd.cu, K4 and K5): bf16 and fp16 at
-// head_dim <= 128 take the mma.sync kernels; float32 (TF32 would not hold its
-// tolerance) and head_dim 256 (a warp's dK/dV rows would not fit its
-// registers) take the CUDA-core ones. The forward has its own (fwd_route in
-// flash_fwd.cu).
-template <typename T, int D>
-constexpr bool use_tensor_cores() {
-  return !std::is_same<T, float>::value && D <= 128;
-}
-
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }

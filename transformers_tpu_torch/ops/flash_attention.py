@@ -23,10 +23,11 @@ and 128 run ``mma.sync`` tensor-core tiles (``flash_fwd_tc_kernel``), at 256
 FMAs (``flash_fwd_kernel``) at every head_dim. Both tensor-core routes round
 P once to the storage type before P.V, as the Pallas kernel does;
 ``flash_attention_tiled_plain`` is that computation at the kernel's kv tile,
-which the card's checks hold the ``wgmma`` route to. K4/K5 run ``mma.sync``
-for bf16/f16 up to head_dim 128 and CUDA-core FMAs otherwise. What bounds
-each kernel on the card, and what its design does about it: see the notes
-at the top of the two ``.cu`` files.
+which the card's checks hold the ``wgmma`` route to. K4/K5 route the same
+way: ``mma.sync`` for bf16/f16 up to head_dim 128 (``*_tc_kernel``),
+``wgmma`` fed by TMA at 256 (``*_wg_kernel``), CUDA-core FMAs in f32. What
+bounds each kernel on the card, and what its design does about it: see the
+notes at the top of the two ``.cu`` files.
 
 Each wrapper takes a CUDA tensor to its kernel and a CPU tensor to the plain
 PyTorch version beside it, and nothing else: there is no fallback. Launches
