@@ -63,7 +63,14 @@ Phases, in order; any failure exits non-zero:
     (head_dim 256, 16 over 8, window 4096, softcap 50: no SDPA call computes
     it); their bf16/f16 head_dim-256 route (``wgmma``, TMA) is also run
     twice there and on the reference cases at 256 (bitwise-equal outputs
-    required);
+    required). K1, K2 and K6 are also held and timed at phase (j)'s shapes
+    (Qwen3-30B-A3B: 32 query heads over 4 kv heads, a group of 8, head_dim
+    128). The mixture-of-experts products (``ops/moe.py``; library calls, no
+    kernel of the port) are held at Qwen3-30B-A3B's layer (128 experts of
+    768 over hidden 2048, 8 a token) at 8 and 1024 rows: the ``dense`` and
+    ``ragged`` routes against each other and a per-expert loop in float32
+    and bf16, the ragged route twice (bitwise) and under the sync check,
+    and both timed beside their bound and ``torch.bmm`` over all experts;
 (c) the static-cache path at the Llama-3-8B geometry in bf16 with random
     weights from ``--seed``: a full-width, 2-layer checkpoint written with the
     port's safetensors writer and read back by ``from_pretrained``; then
@@ -159,10 +166,27 @@ Phases, in order; any failure exits non-zero:
     launches exact, the graph engine profiled; the generated tokens
     teacher-forced against a float32 run (the bf16 model moved off the card
     first). Then Mistral-7B, Qwen2.5-7B, Qwen3-8B, Phi-3-mini (head_dim 96),
-    Gemma-7B and Gemma-2-9B at 4 layers of their published widths: static
-    generate at batch 4, prompt 128, 16 new tokens, graph against step loop
-    bitwise, launches exact by route (K2 never for Gemma-2, whose softcap
-    keeps decode on the plain path), logits teacher-forced;
+    Gemma-7B, Gemma-2-9B and the mixture-of-experts Mixtral-8x7B and
+    Qwen1.5-MoE-A2.7B (its shared expert) at 4 layers of their published
+    widths: static generate at batch 4, prompt 128, 16 new tokens, graph
+    against step loop bitwise, launches exact by route (K2 never for Gemma-2,
+    whose softcap keeps decode on the plain path), logits teacher-forced;
+(j) (run after (i), when no other model is held) Qwen3-30B-A3B at full width
+    and depth (48 layers, 128 experts of 768, 8 a token; bf16, random
+    weights from ``--seed``, 61 GB, built on the card): a 2-layer checkpoint
+    round trip (one tensor per expert in the file); static generate at phase
+    (c)'s shape under each experts route, ``dense`` and ``ragged``, graph
+    against step loop bitwise under the sync check, K1 48 per prefill and K2
+    48 per step; prefill ms, decode ms/step, tokens/s, idle share and peak
+    memory per route beside the step's weight-stream bound (the experts the
+    rows touch, over the HBM copy rate measured here), and the device time
+    split by span (experts and their products, router, attention and its
+    kernel, norms, lm_head) from a profile with host events; the routes'
+    prompt logits held to each other and float32; continuous batching (8
+    requests of 90-502 tokens, 16 steps per sync, ragged route), the graph
+    engine against an uncaptured one, K1 and K6 exact, and its split by
+    span; the generated tokens teacher-forced against float32 computed from
+    the same bf16 weights (a float32 copy would take 122 GB);
 (e) training at the same width, depth cut to 4 layers (f32 weights, bf16
     compute, random from ``--seed``), after (c)/(d)'s model is freed: layer 0's
     q/k/v gradients and the loss of one row through the kernel path held
@@ -1775,8 +1799,11 @@ def check_load_path(seed: int, card: str, model_type: str = "llama",
     """Full width, depth cut to 2 layers: save with the port's safetensors
     writer, read back with ``AutoModelForCausalLM.from_pretrained``, and hold
     the weights and logits to the model that was saved. A model with tied
-    embeddings writes no ``lm_head``."""
+    embeddings writes no ``lm_head``; the file's keys are the checkpoint's
+    (``checkpoint_state_dict``: a mixture-of-experts model's stacked experts
+    one tensor per expert)."""
     from transformers_tpu_torch import AutoConfig, AutoModelForCausalLM
+    from transformers_tpu_torch.core.loading import checkpoint_state_dict
     from transformers_tpu_torch.core.safetensors import SafetensorsFile
     from transformers_tpu_torch.ops import cuda_build
 
@@ -1790,7 +1817,8 @@ def check_load_path(seed: int, card: str, model_type: str = "llama",
         save_ms = _timed(lambda: model.save_pretrained(ckpt))
         size = sum(f.stat().st_size for f in ckpt.iterdir())
         with SafetensorsFile(str(ckpt / "model.safetensors")) as f:
-            has_head = "lm_head.weight" in f.keys()
+            keys = set(f.keys())
+        has_head = "lm_head.weight" in keys
         holder = {}
         load_ms = _timed(lambda: holder.update(m=AutoModelForCausalLM.from_pretrained(ckpt)))
         loaded = holder["m"]
@@ -1799,6 +1827,10 @@ def check_load_path(seed: int, card: str, model_type: str = "llama",
     if has_head == cfg.tie_word_embeddings:
         raise AssertionError(f"lm_head in the file: {has_head}, tied embeddings: "
                              f"{cfg.tie_word_embeddings}")
+    if keys != set(checkpoint_state_dict(model)):
+        raise AssertionError(f"the file's keys are not the checkpoint's: "
+                             f"{sorted(keys ^ set(checkpoint_state_dict(model)))[:8]}")
+    per_expert = sum(".experts." in k and k.split(".experts.")[1][0].isdigit() for k in keys)
     if type(loaded) is not type(model):
         raise AssertionError(f"from_pretrained built {type(loaded).__name__}")
     report = loaded.load_report
@@ -1815,8 +1847,10 @@ def check_load_path(seed: int, card: str, model_type: str = "llama",
     if not same:
         raise AssertionError("logits differ after the save/load round trip")
     print(f"[load] {model_type}: 2-layer full-width checkpoint, {size / 1e9:.2f} GB (lm_head "
-          f"{'in the file' if has_head else 'absent: tied'}): save {save_ms:.0f} ms, "
-          f"from_pretrained {load_ms:.0f} ms; weights and logits identical ({card})")
+          f"{'in the file' if has_head else 'absent: tied'}"
+          + (f"; {per_expert} per-expert tensors" if per_expert else "")
+          + f"): save {save_ms:.0f} ms, from_pretrained {load_ms:.0f} ms; weights and logits "
+          f"identical ({card})")
 
 
 def build_model(seed: int):
@@ -1990,14 +2024,15 @@ def profile_run(label: str, run, wall_ms: float, card: str) -> list:
 
 
 def teacher_force(model, seq, prompt_mask, quant=None, prompt: int = PROMPT,
-                  label: str = "teacher-force", release: bool = False) -> None:
+                  label: str = "teacher-force", release: bool = False,
+                  f32_in_place: bool = False) -> None:
     """The generated sequence through the kernel path (prefill of all but the
     last token, then one decode step) and through the plain path (eager
     attention, no cache, no kernel), against the same model in float32 as
     the reference. The kernel path must be no further from float32 than twice
     the plain bf16 path is: both are bf16 through 32 layers, and they round
     at different places (f32 rope in the decode kernel, f32 probabilities in
-    both kernels). ``release``: see ``plain_and_f32_logits``."""
+    both kernels). ``release``, ``f32_in_place``: see ``plain_and_f32_logits``."""
     b, total = seq.shape
     mask = torch.cat([prompt_mask, torch.ones((b, total - prompt), dtype=torch.int32,
                                               device="cuda")], dim=1)
@@ -2009,7 +2044,8 @@ def teacher_force(model, seq, prompt_mask, quant=None, prompt: int = PROMPT,
         kernel = model(seq[:, -1:], attention_mask=mask, position_ids=pos[:, -1:],
                        past_key_values=cache, cache_position=total - 1).logits[:, -1].float()
         del cache
-    [(plain_all, ref)] = plain_and_f32_logits(model, [(seq, mask, pos)], quant, release=release)
+    [(plain_all, ref)] = plain_and_f32_logits(model, [(seq, mask, pos)], quant, release=release,
+                                              f32_in_place=f32_in_place)
     plain = plain_all[:, -1].float()
     agree = float((plain_all[:, prompt - 1:-1].argmax(-1) == seq[:, prompt:]).float().mean())
     hold_to_plain(label, kernel, plain, ref,
@@ -2038,8 +2074,24 @@ def plain_quantized():
         module.quantized_linear = real
 
 
+@contextlib.contextmanager
+def computing_in(model, dtype):
+    """Every module of ``model`` computes in ``dtype`` (each module's
+    ``dtype``), its weights widened at each call: the float32 run of a model
+    whose float32 copy would not fit on the card beside it."""
+    saved = [(m, m.dtype) for m in model.modules()
+             if isinstance(getattr(m, "dtype", None), torch.dtype)]
+    for m, _ in saved:
+        m.dtype = dtype
+    try:
+        yield
+    finally:
+        for m, d in saved:
+            m.dtype = d
+
+
 def plain_and_f32_logits(model, batches, quant=None, all_positions: bool = False,
-                         release: bool = False) -> list:
+                         release: bool = False, f32_in_place: bool = False) -> list:
     """For each (ids, mask, positions) batch: the logits of every position
     through the plain path (eager attention, no cache, no kernel; quantized
     Linears through the plain ``quantized_dot``) of ``model``, and the last
@@ -2048,7 +2100,9 @@ def plain_and_f32_logits(model, batches, quant=None, all_positions: bool = False
     its codes and scales and computes the quantized product in f32). With
     ``release``, for a model too large to sit beside its float32 copy on the
     card: ``model`` moves to the host (its decode program dropped) before the
-    copy is built, and the caller frees it."""
+    copy is built, and the caller frees it. With ``f32_in_place`` the float32
+    run is ``model`` itself under ``computing_in(model, float32)``: the same
+    bf16 weights, widened at each call, as the copy would hold them."""
     from transformers_tpu_torch import quantize_params
 
     out = []
@@ -2065,15 +2119,20 @@ def plain_and_f32_logits(model, batches, quant=None, all_positions: bool = False
             model.to("cpu")
             gc.collect()
             torch.cuda.empty_cache()
-        ref_model = type(model)(model.config, dtype=torch.float32, device="cuda")
-        if quant is not None:
-            quantize_params(ref_model, quant)  # the layout; the codes come from ``model``
-        ref_model.load_state_dict(model.state_dict())
+        if f32_in_place:
+            ref_model, widened = model, computing_in(model, torch.float32)
+        else:
+            ref_model, widened = (type(model)(model.config, dtype=torch.float32, device="cuda"),
+                                  contextlib.nullcontext())
+            if quant is not None:
+                quantize_params(ref_model, quant)  # the layout; the codes come from ``model``
+            ref_model.load_state_dict(model.state_dict())
         ref_model.config.attn_implementation = "eager"
-        for item, (ids, mask, pos) in zip(out, batches):
-            logits = ref_model(ids, attention_mask=mask, position_ids=pos,
-                               logits_to_keep=0 if all_positions else 1).logits
-            item.append(logits if all_positions else logits[:, -1])
+        with widened:
+            for item, (ids, mask, pos) in zip(out, batches):
+                logits = ref_model(ids, attention_mask=mask, position_ids=pos,
+                                   logits_to_keep=0 if all_positions else 1).logits
+                item.append(logits if all_positions else logits[:, -1])
         ref_model.config.attn_implementation = None
         del ref_model
         torch.cuda.empty_cache()
@@ -3827,7 +3886,41 @@ FAMILY_GEOMETRIES = {  # model_type: (source config, geometry)
         sliding_window=4096, final_logit_softcapping=30.0, attn_logit_softcapping=50.0,
         rms_norm_eps=1e-6, rope_theta=10000.0, hidden_activation="gelu_pytorch_tanh",
         max_position_embeddings=8192, tie_word_embeddings=True)),
+    # the mixture-of-experts families on the skeleton (phase j runs Qwen3-MoE)
+    "mixtral": ("mistralai/Mixtral-8x7B-v0.1", dict(
+        vocab_size=32000, hidden_size=4096, intermediate_size=14336, num_hidden_layers=32,
+        num_attention_heads=32, num_key_value_heads=8, rms_norm_eps=1e-5,
+        rope_theta=1_000_000.0, sliding_window=None, num_local_experts=8,
+        num_experts_per_tok=2, max_position_embeddings=32768, tie_word_embeddings=False)),
+    "qwen2_moe": ("Qwen/Qwen1.5-MoE-A2.7B", dict(
+        vocab_size=151936, hidden_size=2048, intermediate_size=5632, num_hidden_layers=24,
+        num_attention_heads=16, num_key_value_heads=16, rms_norm_eps=1e-6,
+        rope_theta=1_000_000.0, num_experts=60, num_experts_per_tok=4,
+        moe_intermediate_size=1408, shared_expert_intermediate_size=5632,
+        norm_topk_prob=False, decoder_sparse_step=1, use_sliding_window=False,
+        sliding_window=32768, max_window_layers=21, max_position_embeddings=8192,
+        tie_word_embeddings=False)),
 }
+# --------------------------------------------------------------------- (j)
+# Qwen3-30B-A3B at full width and depth: Qwen/Qwen3-30B-A3B's config.json
+# (48 layers, 32 over 4 heads, head_dim 128; 128 experts of 768, 8 a token,
+# renormalized; every layer sparse): 30.53e9 parameters, 61.06 GB in bf16
+QWEN3_MOE_SOURCE = "Qwen/Qwen3-30B-A3B"
+QWEN3_MOE = dict(vocab_size=151936, hidden_size=2048, intermediate_size=6144,
+                 num_hidden_layers=48, num_attention_heads=32, num_key_value_heads=4,
+                 head_dim=128, rms_norm_eps=1e-6, rope_theta=1_000_000.0,
+                 max_position_embeddings=40960, num_experts=128, num_experts_per_tok=8,
+                 moe_intermediate_size=768, norm_topk_prob=True, decoder_sparse_step=1,
+                 mlp_only_layers=[], use_sliding_window=False, max_window_layers=48,
+                 tie_word_embeddings=False)
+MOE_ROUTES = ("dense", "ragged")
+# continuous batching: 8 requests of 90-502 tokens, 32 new each, 16 steps a sync
+MOE_CB_REQUESTS, MOE_CB_LENS, MOE_CB_NEW = 8, (90, 502), 32
+# phase (b)'s K6 contexts at that traffic (prompt + new tokens)
+MOE_CB_CONTEXTS = (96, 140, 233, 310, 377, 420, 488, 534)
+# the split of the device time by span: a prefill and MOE_SPLIT_NEW - 1
+# uncaptured steps (reading a trace with host events costs ~10 s per 1000 ms)
+MOE_SPLIT_NEW = 4
 # the families' shapes at which phase (b) holds and times K1, K2 and K6
 FAMILY_KERNEL_SHAPES = {
     # K1: (b, s, h, kvh, d, left pads, window)
@@ -3835,6 +3928,8 @@ FAMILY_KERNEL_SHAPES = {
         "gemma3_12b_prefill_window_1024": (len(G3_PADS), G3_PROMPT, 16, 8, 256, G3_PADS, 1024),
         "gemma3_12b_prefill_global": (len(G3_PADS), G3_PROMPT, 16, 8, 256, G3_PADS, None),
         "phi3_mini_prefill": (len(FAMILY_PADS), FAMILY_PROMPT, 32, 32, 96, FAMILY_PADS, 2047),
+        # a query-head group of 8, which no earlier path ran
+        "qwen3_30b_a3b_prefill": (BATCH, PROMPT, 32, 4, 128, PADS, None),
     },
     # K2: (b, h, kvh, d, s, pos, starts, window)
     "fused_decode": {
@@ -3842,11 +3937,14 @@ FAMILY_KERNEL_SHAPES = {
                                           G3_PROMPT + G3_NEW - 1, G3_PADS, 1024),
         "phi3_mini_decode": (len(FAMILY_PADS), 32, 32, 96, FAMILY_PROMPT + FAMILY_NEW,
                              FAMILY_PROMPT + FAMILY_NEW - 1, FAMILY_PADS, 2047),
+        "qwen3_30b_a3b_decode": (BATCH, 32, 4, 128, PROMPT + NEW, PROMPT + NEW - 1, PADS,
+                                 None),
     },
     # K6: (n, h, kvh, d, block size, context lengths (None: drawn in G3_CB_LENS), window)
     "paged_decode": {
         "gemma3_12b_cb_window_1024": (G3_CB_REQUESTS, 16, 8, 256, 32, None, 1024),
         "phi3_mini_cb": (BATCH, 32, 32, 96, 32, (77, 140, 300, 511, 64, 96, 200, 576), 2047),
+        "qwen3_30b_a3b_cb": (len(MOE_CB_CONTEXTS), 32, 4, 128, 32, MOE_CB_CONTEXTS, None),
     },
 }
 
@@ -3919,9 +4017,11 @@ def _paged_at(gen, n, h, kvh, d, bs, ctx_lens, window) -> dict:
 def check_family_kernels(seed: int) -> dict:
     """Phase (b) at the families' shapes: K1 at Gemma-3-12B's prefill (4 rows
     of 1536 slots, 16 query heads over 8 kv heads, head_dim 256, window 1024
-    and none) and Phi-3-mini's (head_dim 96); K2 at their decode steps with
-    the window; K6 at Gemma-3-12B's continuous batching (8 rows of 1100-2000
-    slots, window 1024) and at Phi-3-mini's head_dim. Each held to its plain
+    and none), Phi-3-mini's (head_dim 96) and Qwen3-30B-A3B's (8 rows of 128,
+    32 query heads over 4 kv heads); K2 at their decode steps with the
+    window; K6 at Gemma-3-12B's continuous batching (8 rows of 1100-2000
+    slots, window 1024), at Phi-3-mini's head_dim and at Qwen3-30B-A3B's
+    group of 8. Each held to its plain
     version, absolutely and relative to the output's scale, and timed beside
     its bound and SDPA. Returns {kernel: {shape name: entry}}. Draws from
     its own generator, so the other checks' inputs stay as they were."""
@@ -3999,6 +4099,116 @@ def check_family_backward(seed: int) -> dict:
     return results
 
 
+# --------------------------------------------------------------------- (b), MoE
+# Qwen3-30B-A3B's layer: 128 experts of 768 over hidden 2048, 8 a token, at a
+# decode step's rows (8) and a prefill's (8 x 128)
+MOE_LAYER = dict(e=128, h=2048, i=768, k=8)
+MOE_PRODUCT_ROWS = (BATCH, BATCH * PROMPT)
+# bf16 routes against the float32 loop: gate, up, their product and each
+# expert's output are each rounded to bf16 (2^-8 relative), so a route is
+# held within 1/32 of the output's scale; float32 within TOLERANCE[f32]
+MOE_BF16_SCALE_TOL = 2.0 ** -5
+
+
+def moe_loop(x, wg, wu, wd, weights, idx) -> torch.Tensor:
+    """The plain per-expert loop in float32 (reads the routing to the host):
+    each expert on the tokens that picked it, the weighted rows added."""
+    x, wg, wu, wd = (t.float() for t in (x, wg, wu, wd))
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for e in idx.unique().tolist():
+        rows, slot = (idx == e).nonzero(as_tuple=True)
+        inner = torch.nn.functional.silu(x[rows] @ wg[e]) * (x[rows] @ wu[e])
+        out.index_add_(0, rows, (inner @ wd[e]) * weights[rows, slot, None])
+    return out
+
+
+def check_moe_products(seed: int) -> list:
+    """Phase (b), the expert products (no Pallas kernel: ``jax.lax.ragged_dot``
+    and the dense einsums are XLA's, so the port computes them with library
+    calls, ``ops/moe.py``): at Qwen3-30B-A3B's layer shapes and 8 and 1024
+    rows, the ``dense`` and ``ragged`` routes held to each other and to
+    ``moe_loop`` in float32 (the ragged route on its padded product there)
+    and in bf16 (the grouped product; run twice, bitwise equal, and once
+    under ``no_host_sync``), then timed in bf16 beside their bound (the
+    bytes of the experts the routing touches, or the T·k rows' operations)
+    and three ``torch.bmm`` over all experts (the yardstick). Returns one
+    entry per row count."""
+    from transformers_tpu_torch.ops.moe import get_experts_fn, topk_routing
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 16)
+    e, h, i, k = (MOE_LAYER[n] for n in "ehik")
+    act = torch.nn.functional.silu
+    # [E, out, in] as the port stores them; the routes take transposed views
+    stored = [0.02 * torch.randn(e, *shape, generator=gen, device="cuda")
+              for shape in ((i, h), (i, h), (h, i))]
+    entries = []
+    for t in MOE_PRODUCT_ROWS:
+        x = torch.randn(t, h, generator=gen, device="cuda")
+        weights, idx = topk_routing(torch.randn(t, e, generator=gen, device="cuda"), k)
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            xd = x.to(dtype)
+            ws = [w.to(dtype).transpose(1, 2) for w in stored]
+            ref = moe_loop(xd, *ws, weights, idx)
+            scale = float(ref.abs().max())
+            outs = {r: get_experts_fn(r)(xd, *ws, weights, idx, act) for r in MOE_ROUTES}
+            errs[dtype] = {r: max_err(o, ref) for r, o in outs.items()}
+            errs[dtype]["dense_vs_ragged"] = max_err(outs["dense"], outs["ragged"])
+            tol = TOLERANCE[dtype] if dtype == torch.float32 else MOE_BF16_SCALE_TOL * scale
+            if max(errs[dtype].values()) > tol or not torch.isfinite(outs["ragged"]).all():
+                raise AssertionError(f"moe routes at T={t} {dtype}: {errs[dtype]} (tol {tol:.3e})")
+            if dtype == torch.bfloat16:
+                with no_host_sync():
+                    again = get_experts_fn("ragged")(xd, *ws, weights, idx, act)
+                torch.cuda.synchronize()
+                if not torch.equal(again, outs["ragged"]):
+                    raise AssertionError(f"moe ragged route at T={t}: two runs differ")
+                routes = {r: device_ms(lambda r=r: get_experts_fn(r)(xd, *ws, weights, idx, act))
+                          for r in MOE_ROUTES}
+                xe = xd.expand(e, t, h).contiguous()
+
+                def library():
+                    inner = act(torch.bmm(xe, ws[0])) * torch.bmm(xe, ws[1])
+                    return torch.bmm(inner, ws[2])
+
+                library_ms = device_ms(library)
+                del xe
+                # the host's cost a call (at 8 rows the card's time is below it)
+                sorted_expert, order = torch.sort(idx.reshape(-1), stable=True)
+                xs = xd.index_select(0, order // k)
+                ends = torch.searchsorted(sorted_expert, torch.arange(e, device="cuda"),
+                                          right=True).to(torch.int32)
+                host = {r: host_us(lambda r=r: get_experts_fn(r)(xd, *ws, weights, idx, act),
+                                   calls=32) for r in MOE_ROUTES}
+                host["grouped_mm"] = host_us(lambda: torch._grouped_mm(xs, ws[0], offs=ends),
+                                             calls=32)
+            del outs, ref
+        touched = int(idx.unique().numel())
+        nbytes = touched * 3 * h * i * 2 + 2 * t * h * 2
+        bound, by = bound_ms(nbytes, 2.0 * t * k * 3 * h * i)
+        entry = dict(name=f"moe_experts_T{t}", rows=t, experts_touched=touched,
+                     dense_ms=routes["dense"], ragged_ms=routes["ragged"], library_ms=library_ms,
+                     library="torch.bmm over all 128 experts (gate, up, down)",
+                     bound_ms=bound, bound_by=by, host_us=host,
+                     max_abs_err={str(d).split(".")[1]: v for d, v in errs.items()})
+        entries.append(entry)
+        print(f"[moe products] T={t} rows (Qwen3-30B-A3B's layer: E={e} H={h} I={i} k={k}, "
+              f"{touched} experts touched): f32 |route - loop| dense "
+              f"{errs[torch.float32]['dense']:.3e}, ragged (padded product) "
+              f"{errs[torch.float32]['ragged']:.3e} (tol {TOLERANCE[torch.float32]}); bf16 dense "
+              f"{errs[torch.bfloat16]['dense']:.3e}, ragged {errs[torch.bfloat16]['ragged']:.3e}, "
+              f"dense vs ragged {errs[torch.bfloat16]['dense_vs_ragged']:.3e} (tol 2^-5 of the "
+              f"scale); ragged twice bitwise, no host sync; bf16 dense {routes['dense']:.4f} ms, "
+              f"ragged {routes['ragged']:.4f} ms, bmm over all experts {library_ms:.4f} ms, "
+              f"bound {bound:.4f} ms ({by}); the host's cost a call: dense "
+              f"{host['dense']:.1f} us, ragged {host['ragged']:.1f} us, one _grouped_mm "
+              f"{host['grouped_mm']:.1f} us")
+    del stored
+    gc.collect()
+    torch.cuda.empty_cache()
+    return entries
+
+
 def g3_cb_prompts(seed: int, vocab: int) -> list:
     rng = np.random.default_rng(seed + 14)
     return [[int(t) for t in rng.integers(1, vocab, size=int(rng.integers(G3_CB_LENS[0],
@@ -4051,7 +4261,8 @@ def check_gemma3(seed: int, card: str) -> dict:
 
 def check_families(seed: int, card: str) -> dict:
     """Phase (i), part 2: each other family at 4 layers of its published
-    width (bf16, random weights): static generate at batch 4, prompt 128, 16
+    width (bf16, random weights; the MoE families on the default dense
+    route): static generate at batch 4, prompt 128, 16
     new tokens, graph against step loop bitwise with exact launches (K2 never
     for Gemma2, whose softcap keeps decode on the plain path), then the
     tokens teacher-forced. Returns each family's launch counts."""
@@ -4075,6 +4286,294 @@ def check_families(seed: int, card: str) -> dict:
         print(f"[families] {model_type} ({source}, {FAMILY_LAYERS} of "
               f"{geometry['num_hidden_layers']} layers, head_dim {head_dim}): "
               f"{time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+# --------------------------------------------------------------------- (j)
+def moe_cb_prompts(seed: int, vocab: int) -> list:
+    rng = np.random.default_rng(seed + 15)
+    lo, hi = MOE_CB_LENS
+    return [[int(t) for t in rng.integers(1, vocab, size=int(rng.integers(lo, hi + 1)))]
+            for _ in range(MOE_CB_REQUESTS)]
+
+
+def measured_hbm_rate() -> float:
+    """Bytes a second of a 2 GiB device-to-device copy (read and write), the
+    best of three timings of five copies."""
+    a = torch.empty(2 ** 30, dtype=torch.bfloat16, device="cuda")
+    b = torch.empty_like(a)
+    ms = min(event_ms(lambda: b.copy_(a)) for _ in range(3))
+    del a, b
+    torch.cuda.empty_cache()
+    return 2 * 2 ** 31 / (ms * 1e-3)
+
+
+def experts_touched(model, run) -> list:
+    """The distinct experts each decode step's rows pick in each layer, over
+    one ``run`` (uncaptured: a hook reads the routing back)."""
+    from transformers_tpu_torch.ops.moe import Experts
+
+    counts = []
+
+    def hook(module, args, out):
+        if args[0].shape[0] == BATCH:  # a decode step's rows (the prefill has 1024)
+            counts.append(int(args[2].unique().numel()))
+
+    handles = [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, Experts)]
+    try:
+        run()
+    finally:
+        for handle in handles:
+            handle.remove()
+    return counts
+
+
+SPAN = "span::"
+PHASE = "phase::"
+OUR_KERNELS = re.compile(r"(flash_fwd|fused_decode|paged_split|paged_combine)\w*kernel")
+GEMM_KERNELS = re.compile(r"gemm|cutlass|xmma|cublas|nvjet", re.I)
+SPAN_NAMES = ("experts", "router", "attention", "norms", "lm_head", "other")
+
+
+@contextlib.contextmanager
+def labelled_spans(phases: dict):
+    """Each call of the attention block, the MoE block (the router and the
+    experts' call), the experts, every RMSNorm and the lm_head runs inside a
+    ``record_function`` span named for it, and each of ``phases`` ((name,
+    object, method) triples) inside one named for the phase, so that a
+    profile can credit each kernel to the innermost span and the phase that
+    launched it."""
+    from torch.profiler import record_function
+    from transformers_tpu_torch.core.module import RMSNorm
+    from transformers_tpu_torch.models.llama.modeling_llama import (LlamaAttention,
+                                                                    LlamaForCausalLM)
+    from transformers_tpu_torch.ops.moe import Experts, SparseMoeBlock
+
+    def wrap(fn, name):
+        @functools.wraps(fn)
+        def call(*args, **kw):
+            with record_function(name):
+                return fn(*args, **kw)
+        return call
+
+    targets = [(LlamaAttention, "forward", SPAN + "attention"),
+               (SparseMoeBlock, "forward", SPAN + "router"),
+               (Experts, "forward", SPAN + "experts"), (RMSNorm, "forward", SPAN + "norms"),
+               (LlamaForCausalLM, "compute_logits", SPAN + "lm_head")]
+    targets += [(owner, method, PHASE + phase) for phase, owner, method in phases]
+    patched = []
+    for owner, method, name in targets:
+        own = method in vars(owner)  # else an instance's bound method, or inherited
+        patched.append((owner, method, getattr(owner, method) if own else None))
+        setattr(owner, method, wrap(getattr(owner, method), name))
+    try:
+        yield
+    finally:
+        for owner, method, fn in reversed(patched):
+            if fn is None:
+                delattr(owner, method)
+            else:
+                setattr(owner, method, fn)
+
+
+def moe_breakdown(label: str, run, phases: list, card: str) -> dict:
+    """Device time of one uncaptured ``run`` (a captured graph replays the
+    same kernels) by phase and by what launched each kernel (``SPAN_NAMES``):
+    the attention block, the router (the gate and top-k; the rest of the MoE
+    block's call), the experts (their products, the GEMMs, also apart from
+    the sort, gathers and combine), the RMSNorms, the lm_head and the rest
+    (embedding, residual adds, rope tables, the draw, copies). From
+    torch.profiler with host events: each kernel is credited to the innermost
+    span of the op that launched it. The port's attention kernels are summed
+    by name over the run (K1 serves prefills, K2 and K6 decode steps), and
+    the kernel time that no op took is printed with its largest names."""
+    from collections import defaultdict
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with labelled_spans(phases), profile(activities=[ProfilerActivity.CPU,
+                                                     ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    us = defaultdict(float)
+    credited, device = defaultdict(float), defaultdict(float)
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA and not getattr(ev, "is_user_annotation", False):
+            device[ev.name] += ev.self_device_time_total
+        if ev.device_type != DeviceType.CPU or not ev.kernels:
+            continue
+        span, phase, p = None, "other", ev
+        while p is not None:
+            if span is None and p.name.startswith(SPAN):
+                span = p.name[len(SPAN):]
+            if p.name.startswith(PHASE):
+                phase = p.name[len(PHASE):]
+            p = p.cpu_parent
+        span = span or "other"
+        for kernel in ev.kernels:
+            credited[kernel.name] += kernel.duration
+            us[(phase, span)] += kernel.duration
+            if span == "experts" and GEMM_KERNELS.search(kernel.name):
+                us[(phase, "expert products")] += kernel.duration
+    out = {}
+    for phase in dict.fromkeys(name for name, _, _ in phases):
+        row = {span: t / 1e3 for (ph, span), t in us.items() if ph == phase}
+        out[phase] = row
+        print(f"[{label} breakdown] {phase}: device "
+              f"{sum(row.get(n, 0.0) for n in SPAN_NAMES):.3f} ms = " + ", ".join(
+                  f"{n} {row.get(n, 0.0):.3f}" for n in SPAN_NAMES)
+              + f" ms; the expert products (GEMMs) {row.get('expert products', 0.0):.3f} ms of "
+              f"the experts' ({card})")
+    ours = {OUR_KERNELS.search(name).group(0): t / 1e3 for name, t in device.items()
+            if OUR_KERNELS.search(name)}
+    missing = sorted(((t - credited.get(n, 0.0), n) for n, t in device.items()), reverse=True)
+    print(f"[{label} breakdown] the port's attention kernels over the run: " + ", ".join(
+        f"{n} {t:.3f} ms" for n, t in sorted(ours.items())) + f"; kernels credited "
+        f"{sum(credited.values()) / 1e3:.3f} ms of the trace's {sum(device.values()) / 1e3:.3f} "
+        f"ms (outside the phases {sum(t for (ph, _), t in us.items() if ph == 'other') / 1e3:.3f}"
+        f" ms), not credited: " + ", ".join(f"{t / 1e3:.3f} ms {n[:60]}" for t, n in missing[:3])
+        + f"; the trace read in {time.perf_counter() - t0:.1f} s")
+    out["attention kernels"] = ours
+    return out
+
+
+def moe_routes_logits(model, ids, mask) -> None:
+    """The prompt's logits at every valid position under each route (the
+    kernel path: K1 over the local k/v) and in float32 (the same weights
+    widened, eager attention, the dense route). Neither route may be more
+    than twice as far from float32 as the other; their distance from each
+    other is printed against the logits' scale."""
+    pos = (mask.cumsum(-1) - 1).clamp_min(0)
+    valid = mask.bool()
+    logits = {}
+    with torch.inference_mode():
+        for route in MOE_ROUTES:
+            model.config.experts_implementation = route
+            logits[route] = model(ids, attention_mask=mask, position_ids=pos).logits[valid]
+        model.config.experts_implementation = "dense"
+        model.config.attn_implementation = "eager"
+        with computing_in(model, torch.float32):
+            ref = model(ids, attention_mask=mask, position_ids=pos).logits[valid]
+        model.config.attn_implementation = None
+    scale = float(ref.abs().max())
+    far = {route: max_err(logits[route], ref) for route in MOE_ROUTES}
+    between = max_err(logits["dense"], logits["ragged"])
+    finite = all(bool(torch.isfinite(v).all()) for v in logits.values())
+    print(f"[qwen3_moe routes] prefill logits at {int(valid.sum())} valid positions (|max| "
+          f"{scale:.3f}): |dense - f32| {far['dense']:.4f}, |ragged - f32| {far['ragged']:.4f}, "
+          f"|dense - ragged| {between:.4f} = {between / scale:.4f} of the scale; each route "
+          f"within twice the other's distance from f32")
+    if not finite or far["dense"] > 2 * far["ragged"] or far["ragged"] > 2 * far["dense"]:
+        raise AssertionError("qwen3_moe: the two routes' prefill logits disagree")
+
+
+def moe_generate_route(model, route: str, ids, mask, stream_bytes, hbm: float,
+                       card: str) -> tuple:
+    """Static generate under ``route``: graph against step loop
+    (``generate_graph_vs_loop``, launches exact), then prefill ms and decode
+    ms/step of the graph path (medians of 3), tokens/s, the profiled idle
+    share, peak memory, the step's weight-stream bound and the breakdown by
+    span. Returns (ids, launch counts)."""
+    from transformers_tpu_torch.generation.utils import StaticDecode
+
+    layers = model.config.num_hidden_layers
+    model.config.experts_implementation = route
+    torch.cuda.reset_peak_memory_stats()
+    out, counts = generate_graph_vs_loop(f"qwen3_moe {route}", model, ids, mask, NEW, True,
+                                         card)
+    graph, eager = _generate_runs(model, ids, mask, NEW)
+    prefill = _median_ms(lambda: graph(max_new_tokens=1))
+    total = _median_ms(lambda: graph(max_new_tokens=NEW))
+    step = (total - prefill) / (NEW - 1)
+    kernels = profile_run(f"qwen3_moe {route} (graph)", lambda: graph(max_new_tokens=NEW), total,
+                          card)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    peak = torch.cuda.max_memory_allocated()
+    touched = stream_bytes["touched"][route]
+    nbytes = stream_bytes["fixed"] + touched * layers * stream_bytes["expert"]
+    print(f"[qwen3_moe {route}] B={BATCH} prompt={PROMPT} new={NEW} bf16, {layers} layers: "
+          f"prefill {prefill:.2f} ms, decode {step:.3f} ms/step, {BATCH * 1e3 / step:.1f} decode "
+          f"tokens/s, {BATCH * NEW * 1e3 / total:.1f} tokens/s over the whole generate; device "
+          f"idle share {1 - busy / total:.3f}; peak memory {peak / 1e9:.2f} GB; the step's "
+          f"weight stream {nbytes / 1e9:.2f} GB ({touched:.1f} experts a layer) over the "
+          f"measured {hbm / 1e12:.3f} TB/s: bound {nbytes / hbm * 1e3:.3f} ms/step, "
+          f"{nbytes / hbm * 1e3 / step:.2f} of the step's time (at the published "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s: {nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms) ({card})")
+    moe_breakdown(f"qwen3_moe {route}", lambda: eager(max_new_tokens=MOE_SPLIT_NEW),
+                  [("prefill", StaticDecode, "prefill"), ("decode", StaticDecode, "step")], card)
+    return out, counts
+
+
+def check_qwen3_moe(seed: int, card: str) -> dict:
+    """Phase (j): Qwen3-30B-A3B at full width and depth (bf16, random weights
+    from ``seed``, built on the card): the 2-layer checkpoint round trip (one
+    tensor per expert in the file); static generate at phase (c)'s shape under
+    each route, graph against step loop, timed, profiled and broken down; the
+    routes' prefill logits against each other and float32; continuous
+    batching on the ragged route, graph engine against uncaptured; the
+    generated tokens teacher-forced against float32 (the same weights
+    widened: a float32 copy would take 122 GB). Returns the paths' launches."""
+    from transformers_tpu_torch.generation.continuous_batching import ContinuousBatchingEngine
+
+    check_load_path(seed, card, "qwen3_moe", QWEN3_MOE)
+    hbm = measured_hbm_rate()
+    model = build_decoder(QWEN3_MOE, QWEN3_MOE["num_hidden_layers"], torch.bfloat16, seed,
+                          model_type="qwen3_moe")
+    cfg = model.config
+    experts = sum(p.numel() for n, p in model.named_parameters() if ".experts." in n)
+    params = sum(p.numel() for p in model.parameters())
+    print(f"[qwen3_moe] {QWEN3_MOE_SOURCE}: {cfg.num_hidden_layers} layers (no cut), "
+          f"{params / 1e9:.3f} B parameters ({experts / 1e9:.3f} B in the experts), "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated; HBM copy rate measured "
+          f"{hbm / 1e12:.3f} TB/s ({card})")
+    ids, mask = generate_inputs(seed, cfg.vocab_size)
+    graph, eager = _generate_runs(model, ids, mask, NEW)
+    # the decode step's weight stream: every weight but the embedding table
+    # (8 rows read) and the experts, plus the experts the rows touch
+    fixed = 2 * (params - experts - model.model.embed_tokens.weight.numel())
+    expert = 2 * 3 * cfg.hidden_size * cfg.moe_intermediate_size
+    picked = experts_touched(model, lambda: eager(max_new_tokens=NEW))
+    stream = dict(fixed=fixed, expert=expert,
+                  touched={"dense": cfg.num_experts, "ragged": sum(picked) / len(picked)})
+    kv = cfg.num_hidden_layers * BATCH * (PROMPT + NEW) * cfg.num_key_value_heads * 128 * 4
+    print(f"[qwen3_moe] decode steps' rows touch {min(picked)}-{max(picked)} experts a layer, "
+          f"{stream['touched']['ragged']:.2f} on average, of {cfg.num_experts} (the dense route "
+          f"reads all); the KV cache ({kv / 1e9:.3f} GB at most a step) is left out of the bound")
+    runs = {route: moe_generate_route(model, route, ids, mask, stream, hbm, card)
+            for route in MOE_ROUTES}
+    same = int((runs["dense"][0][:, PROMPT:] == runs["ragged"][0][:, PROMPT:]).sum())
+    print(f"[qwen3_moe routes] greedy tokens: {same} of {BATCH * NEW} equal between the routes "
+          f"(bf16 near-ties of random weights)")
+    moe_routes_logits(model, ids, mask)
+    model._decode_program = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths = {"qwen3_moe_generate": runs["ragged"][1]}
+    model.config.experts_implementation = "ragged"
+    prompts = moe_cb_prompts(seed, cfg.vocab_size)
+    cb = cb_graph_vs_uncaptured("qwen3_moe cb", model, prompts, 16, card, new=MOE_CB_NEW)
+    paths["qwen3_moe_continuous_batching"] = cb["counts"]
+    del cb
+    engine = ContinuousBatchingEngine(model, steps_per_sync=16, **CB_ENGINE)
+    engine.runner._capture = False
+    runner = engine.runner
+    shortest = sorted(prompts, key=len)[:2]
+    moe_breakdown("qwen3_moe cb ragged",
+                  lambda: run_cb(engine, shifted(shortest, cfg.vocab_size, 3), "split",
+                                 new=MOE_SPLIT_NEW),
+                  [("prefill", runner, "prefill_chunk"), ("decode", runner, "decode_step"),
+                   ("decode", runner, "decode_multi")], card)
+    del engine, runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    teacher_force(model, runs["ragged"][0], mask, label="qwen3_moe teacher-force",
+                  f32_in_place=True)
+    del model, runs
+    gc.collect()
+    torch.cuda.empty_cache()
     return paths
 
 
@@ -4117,6 +4616,7 @@ def main() -> int:
         if entry["name"] in family:
             entry["at_family_shapes"] = family[entry["name"]]
     kernels += check_quantized_linear(gen)
+    moe_products = check_moe_products(args.seed)
     phase_b = _read_counts()  # K7 serves no path: its launches are phase (b)'s checks
     lap("phase (b), kernel holds")
     check_load_path(args.seed, card)
@@ -4146,6 +4646,10 @@ def main() -> int:
     lap("phase (i), Gemma-3-12B")
     paths.update(check_families(args.seed, card))
     lap("phase (i), the other families at 4 layers")
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths.update(check_qwen3_moe(args.seed, card))
+    lap("phase (j), Qwen3-30B-A3B")
     paths["train"] = check_train(args.seed, card)
     lap("phase (e), training at the Llama-3-8B width")
     paths["train_gemma3"] = check_train_gemma3(args.seed, card)
@@ -4163,6 +4667,7 @@ def main() -> int:
         else:
             k["launches"] = paths[serves.get(k["name"], "generate")][k["name"]]
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
+    print(json.dumps({"moe_products": moe_products}))
     print(json.dumps({"kernels": kernels}))
     print(f"[time] smoke total: {time.perf_counter() - start:.1f} s")
     print(f"[card] {card}")

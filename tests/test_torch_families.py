@@ -1,19 +1,26 @@
 """The port's Llama-skeleton families against the JAX package's, on the CPU:
-Mistral, Qwen2, Qwen3, Phi-3, Gemma, Gemma2 and the Gemma-3 text decoder.
+Mistral, Qwen2, Qwen3, Phi-3, Gemma, Gemma2 and the Gemma-3 text decoder,
+and the mixture-of-experts Mixtral, Qwen2-MoE and Qwen3-MoE.
 
 Each family is a tiny model (2 or 3 layers, hidden 128, head_dim 64, the
 kernels' routes as on the card) whose weights are made from a numpy seed
 and carried to the port by ``params_from_jax``; Phi-3 runs at head_dim 96
 (hidden 192, 2 heads, LongRoPE) and Gemma at head_dim 256. The windows are
 5 slots, so they bite in the 10-token prompts; Gemma-3's sliding layers run
-the local rope table and its full layer the linearly scaled global one.
+the local rope table and its full layer the linearly scaled global one. The
+MoE families have 4 experts, 2 per token: Mixtral's renormalized, Qwen2-MoE
+with its shared expert and a dense layer (``mlp_only_layers``) between two
+sparse ones, Qwen3-MoE with ``norm_topk_prob`` on the ragged route (the
+others on the default dense one).
 
 Per family: logits of a left-padded batch within 2e-5 of JAX at valid
 positions (float32; the frameworks sum in different orders), greedy static
 ``generate`` tokens equal to JAX's, and a checkpoint written by the JAX
 package read by the port's ``AutoModelForCausalLM`` with no missing or
-unexpected keys (and no ``lm_head`` in a tied model's file), saved and read
-back. For Mistral and Gemma-3, whose windows reach the paged path,
+unexpected keys (and no ``lm_head`` in a tied model's file), saved with the
+JAX writer's keys and tensors (one tensor per expert for the MoE families,
+whose experts the port keeps stacked) and read back. For Mistral and
+Gemma-3, whose windows reach the paged path, and for Qwen3-MoE,
 continuous batching's greedy tokens equal the port's static ``generate``.
 For the three Gemma families, the loss of a right-padded batch and every
 parameter's gradient equal ``jax.value_and_grad`` of the JAX family's.
@@ -30,9 +37,12 @@ from transformers_tpu.models.gemma import GemmaConfig, GemmaForCausalLM
 from transformers_tpu.models.gemma2 import Gemma2Config, Gemma2ForCausalLM
 from transformers_tpu.models.gemma3 import Gemma3ForCausalLM, Gemma3TextConfig
 from transformers_tpu.models.mistral import MistralConfig, MistralForCausalLM
+from transformers_tpu.models.mixtral import MixtralConfig, MixtralForCausalLM
 from transformers_tpu.models.phi3 import Phi3Config, Phi3ForCausalLM
 from transformers_tpu.models.qwen2 import Qwen2Config, Qwen2ForCausalLM
+from transformers_tpu.models.qwen2_moe import Qwen2MoeConfig, Qwen2MoeForCausalLM
 from transformers_tpu.models.qwen3 import Qwen3Config, Qwen3ForCausalLM
+from transformers_tpu.models.qwen3_moe import Qwen3MoeConfig, Qwen3MoeForCausalLM
 from transformers_tpu_torch.core.safetensors import load_file
 from transformers_tpu_torch.ops.fused_decode import KERNEL_HEAD_DIMS
 from test_torch_llama import IDS, MASK, POS, TOL, VALID, _numpy_params, jax_forward
@@ -59,8 +69,18 @@ FAMILIES = {  # model_type: (JAX config class, JAX model class, config)
     "gemma3_text": (Gemma3TextConfig, Gemma3ForCausalLM, dict(
         num_hidden_layers=3, sliding_window=5, sliding_window_pattern=3,
         rope_scaling={"rope_type": "linear", "factor": 8.0})),
+    # tests/models/test_decoder_families.py's MoE configs at this file's widths
+    "mixtral": (MixtralConfig, MixtralForCausalLM, dict(num_local_experts=4,
+                                                        num_experts_per_tok=2)),
+    "qwen2_moe": (Qwen2MoeConfig, Qwen2MoeForCausalLM, dict(
+        num_hidden_layers=3, mlp_only_layers=[1], num_experts=4, num_experts_per_tok=2,
+        moe_intermediate_size=64, shared_expert_intermediate_size=256, norm_topk_prob=False,
+        use_sliding_window=False)),
+    "qwen3_moe": (Qwen3MoeConfig, Qwen3MoeForCausalLM, dict(
+        num_experts=4, num_experts_per_tok=2, moe_intermediate_size=64, norm_topk_prob=True,
+        experts_implementation="ragged")),
 }
-CB_FAMILIES = ("mistral", "gemma3_text")
+CB_FAMILIES = ("mistral", "gemma3_text", "qwen3_moe")
 
 
 def _config(model_type):
@@ -146,6 +166,10 @@ def test_family_checkpoint_round_trip(family, tmp_path):
         assert torch.equal(t, want[name]), name
     loaded.save_pretrained(tmp_path / "port")
     saved = load_file(str(tmp_path / "port" / "model.safetensors"))
+    written = load_file(str(tmp_path / "jax" / "model.safetensors"))
+    assert saved.keys() == written.keys()
+    for name, t in saved.items():
+        assert torch.equal(t, written[name]), name
     tied = model.config.tie_word_embeddings
     assert ("lm_head.weight" in saved) == (not tied)
     again = port.AutoModelForCausalLM.from_pretrained(tmp_path / "port", device="cpu")

@@ -73,9 +73,10 @@ def test_every_kernel_module_is_checked():
                  "transformers_tpu_torch.quantizers.base",
                  "transformers_tpu_torch.quantizers.weight_only",
                  "transformers_tpu_torch.quantizers.checkpoint_formats",
+                 "transformers_tpu_torch.ops.moe",
                  *(f"transformers_tpu_torch.models.{family}.{kind}_{family}"
                    for family in ("mistral", "qwen2", "qwen3", "phi3", "gemma", "gemma2",
-                                  "gemma3")
+                                  "gemma3", "mixtral", "qwen2_moe", "qwen3_moe")
                    for kind in ("configuration", "modeling"))):
         assert name in MODULES
     # the flash backward (K5 dQ, K4 dK/dV) lives in ops.flash_attention,

@@ -18,6 +18,12 @@ then holds codes ``(n, 2j)`` and ``(n, 2j + 1)``, low nibble first, as
 ``[out, in]`` as ``torch.float8_e4m3fn``; ``weight_scale`` [out] as it is.
 A model takes them with ``load_state_dict`` once ``quantize_params`` has made
 its Linears quantized.
+
+A mixture-of-experts block keeps each expert as its own subtree
+(``experts: {"0": {"w1": {"weight": [in, out]}}, ...}``); the port keeps one
+stacked parameter per projection, ``experts.w1`` ``[E, out, in]``
+(``ops/moe.py`` ``Experts``), so those subtrees are stacked, each expert's
+kernel transposed.
 """
 
 from __future__ import annotations
@@ -44,9 +50,25 @@ def _flatten(tree: dict, prefix: str = ""):
             yield key, value
 
 
+def _stack_experts(tree: dict) -> dict:
+    """``tree`` with every ``experts`` subtree keyed by expert number replaced
+    by {projection: its experts' kernels transposed and stacked, [E, out, in]}."""
+    out = {}
+    for name, value in tree.items():
+        if isinstance(value, dict):
+            if name == "experts" and value and all(k.isdigit() for k in value):
+                experts = [value[str(e)] for e in range(len(value))]
+                value = {proj: np.stack([np.asarray(x[proj]["weight"]).T for x in experts])
+                         for proj in experts[0]}
+            else:
+                value = _stack_experts(value)
+        out[name] = value
+    return out
+
+
 def params_from_jax(jax_params_numpy: dict) -> dict[str, torch.Tensor]:
     state_dict = {}
-    for key, value in _flatten(jax_params_numpy):
+    for key, value in _flatten(_stack_experts(jax_params_numpy)):
         t = _to_torch(np.asarray(value))
         if key.endswith(".weight") and t.ndim == 2 and not key.endswith("embed_tokens.weight"):
             t = t.T.contiguous()

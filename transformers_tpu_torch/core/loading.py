@@ -6,6 +6,13 @@ onto the port's parameter names, and Linear weights keep torch's
 from the safetensors mapping, checked for shape, and copied into its
 parameter (cast to the parameter's dtype, moved to its device) before the
 next one is read. Keys present on one side only are reported.
+
+The one exception is a mixture-of-experts block's experts: the checkpoint
+holds one tensor per expert and projection, the port one stacked parameter
+per projection (``ops/moe.py`` ``Experts``). ``expert_slots`` maps each
+per-expert key to its slice, which the tensor is copied into as it streams
+(the stacked parameter is never assembled a second time), and
+``checkpoint_state_dict`` writes the slices back under the per-expert keys.
 """
 
 from __future__ import annotations
@@ -95,24 +102,55 @@ def open_checkpoint_source(file):
     raise TypeError(f"a checkpoint entry is a file path or a state dict, got {type(file)}")
 
 
+def expert_slots(model: nn.Module) -> dict[str, tuple[str, int]]:
+    """The checkpoint key of each expert's projection, ``<experts>.<e>.<name>.weight``,
+    -> (the stacked parameter's name, e), for every module that keeps its
+    experts stacked (its ``stacked_names``)."""
+    slots = {}
+    for prefix, module in model.named_modules():
+        for name in getattr(module, "stacked_names", ()):
+            for e in range(getattr(module, name).shape[0]):
+                slots[f"{prefix}.{e}.{name}.weight"] = (f"{prefix}.{name}", e)
+    return slots
+
+
+def checkpoint_state_dict(model: nn.Module) -> dict[str, torch.Tensor]:
+    """``model.state_dict()`` under the checkpoint's names: each stacked
+    expert parameter as one tensor per expert (views, no copy)."""
+    per_param: dict[str, list] = {}
+    for key, (name, e) in expert_slots(model).items():
+        per_param.setdefault(name, []).append((key, e))
+    out = {}
+    for name, t in model.state_dict().items():
+        for key, e in per_param.get(name, [(name, None)]):
+            out[key] = t if e is None else t[e]
+    return out
+
+
 @torch.no_grad()
 def load_checkpoint_in_model(model: nn.Module, checkpoint_files: list) -> LoadReport:
     """Stream every tensor of the checkpoint entries (file paths or in-memory
     state dicts, ``open_checkpoint_source``) into ``model``'s parameters. A
     checkpoint of the bare base model loads into a task model and the other
-    way round, by adding or stripping ``model.base_model_prefix``."""
+    way round, by adding or stripping ``model.base_model_prefix``. A stacked
+    expert parameter takes its experts' tensors (``expert_slots``); a missing
+    expert is reported by its per-expert key."""
     params = dict(model.named_parameters())
+    slots = expert_slots(model)
     prefix = getattr(model, "base_model_prefix", "")
     report = LoadReport()
     seen: set[str] = set()
 
+    def known(key: str) -> bool:
+        return key in params or key in slots
+
     def fix_prefix(key: str) -> str:
-        if key in params or not prefix:
+        if known(key) or not prefix:
             return key
         pref = prefix + "."
-        if key.startswith(pref) and key[len(pref):] in params:
+        if key.startswith(pref) and known(key[len(pref):]):
             return key[len(pref):]
-        if pref + key in params:
+        if known(pref + key):
             return pref + key
         return key
 
@@ -120,7 +158,11 @@ def load_checkpoint_in_model(model: nn.Module, checkpoint_files: list) -> LoadRe
         with open_checkpoint_source(entry) as f:
             for ckpt_key in f.keys():
                 key = fix_prefix(ckpt_key)
-                param = params.get(key)
+                if key in slots:
+                    name, e = slots[key]
+                    param = params[name][e]
+                else:
+                    param = params.get(key)
                 if param is None:
                     report.unexpected_keys.append(ckpt_key)
                     continue
@@ -130,7 +172,10 @@ def load_checkpoint_in_model(model: nn.Module, checkpoint_files: list) -> LoadRe
                     continue
                 param.copy_(f.get_tensor(ckpt_key))
                 seen.add(key)
-    report.missing_keys = sorted(set(params) - seen)
+    stacked = {name for name, _ in slots.values()}
+    report.missing_keys = sorted(
+        [k for k in params if k not in seen and k not in stacked]
+        + [k for k, (name, _) in slots.items() if k not in seen and name not in seen])
     return report
 
 

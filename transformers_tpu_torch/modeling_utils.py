@@ -17,7 +17,8 @@ import torch
 from torch import nn
 
 from .configuration_utils import PretrainedConfig
-from .core.loading import load_checkpoint_in_model, resolve_checkpoint_files, save_state_dict
+from .core.loading import (checkpoint_state_dict, expert_slots, load_checkpoint_in_model,
+                           resolve_checkpoint_files, save_state_dict)
 
 logger = logging.getLogger(__name__)
 
@@ -69,8 +70,16 @@ class PreTrainedModel(nn.Module):
 
     # ------------------------------------------------------------------- init
     def _init_params(self, names, seed: int) -> None:
+        """Initialise the named parameters; a checkpoint's per-expert key
+        (``expert_slots``) initialises that expert's slice only."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
+        slots = expert_slots(self)
         for name in names:
+            if name in slots:
+                stacked, expert = slots[name]
+                owner, _, leaf = stacked.rpartition(".")
+                self.get_submodule(owner).init_parameter(leaf, gen, expert=expert)
+                continue
             owner, _, leaf = name.rpartition(".")
             self.get_submodule(owner).init_parameter(leaf, gen)
 
@@ -149,9 +158,10 @@ class PreTrainedModel(nn.Module):
 
     def save_pretrained(self, save_directory, **kwargs) -> None:
         """Write ``config.json``, ``generation_config.json`` and the weights as
-        safetensors (sharded above ``max_shard_size`` bytes)."""
+        safetensors (sharded above ``max_shard_size`` bytes), stacked experts
+        one tensor per expert, as the hub and the JAX package write them."""
         self.config.architectures = [type(self).__name__]
         self.config.save_pretrained(save_directory)
         if self.generation_config is not None:
             self.generation_config.save_pretrained(save_directory)
-        save_state_dict(self.state_dict(), str(save_directory), **kwargs)
+        save_state_dict(checkpoint_state_dict(self), str(save_directory), **kwargs)

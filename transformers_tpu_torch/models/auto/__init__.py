@@ -1,6 +1,7 @@
 """Auto classes (port of ``transformers_tpu/models/auto``), for the families
 the port has: ``llama`` and the families built on its skeleton, ``mistral``,
-``qwen2``, ``qwen3``, ``phi3``, ``gemma``, ``gemma2`` and ``gemma3_text``."""
+``qwen2``, ``qwen3``, ``phi3``, ``gemma``, ``gemma2`` and ``gemma3_text``, and
+the mixture-of-experts ``mixtral``, ``qwen2_moe`` and ``qwen3_moe``."""
 
 from __future__ import annotations
 
@@ -13,17 +14,24 @@ from ..gemma2 import Gemma2Config, Gemma2ForCausalLM
 from ..gemma3 import Gemma3ForCausalLM, Gemma3TextConfig
 from ..llama import LlamaConfig, LlamaForCausalLM
 from ..mistral import MistralConfig, MistralForCausalLM
+from ..mixtral import MixtralConfig, MixtralForCausalLM
 from ..phi3 import Phi3Config, Phi3ForCausalLM
 from ..qwen2 import Qwen2Config, Qwen2ForCausalLM
+from ..qwen2_moe import Qwen2MoeConfig, Qwen2MoeForCausalLM
 from ..qwen3 import Qwen3Config, Qwen3ForCausalLM
+from ..qwen3_moe import Qwen3MoeConfig, Qwen3MoeForCausalLM
 
 CONFIG_MAPPING = {"llama": LlamaConfig, "mistral": MistralConfig, "qwen2": Qwen2Config,
                   "qwen3": Qwen3Config, "phi3": Phi3Config, "gemma": GemmaConfig,
-                  "gemma2": Gemma2Config, "gemma3_text": Gemma3TextConfig}
+                  "gemma2": Gemma2Config, "gemma3_text": Gemma3TextConfig,
+                  "mixtral": MixtralConfig, "qwen2_moe": Qwen2MoeConfig,
+                  "qwen3_moe": Qwen3MoeConfig}
 MODEL_FOR_CAUSAL_LM_MAPPING = {
     "llama": LlamaForCausalLM, "mistral": MistralForCausalLM, "qwen2": Qwen2ForCausalLM,
     "qwen3": Qwen3ForCausalLM, "phi3": Phi3ForCausalLM, "gemma": GemmaForCausalLM,
-    "gemma2": Gemma2ForCausalLM, "gemma3_text": Gemma3ForCausalLM}
+    "gemma2": Gemma2ForCausalLM, "gemma3_text": Gemma3ForCausalLM,
+    "mixtral": MixtralForCausalLM, "qwen2_moe": Qwen2MoeForCausalLM,
+    "qwen3_moe": Qwen3MoeForCausalLM}
 
 
 def _lookup(mapping: dict, model_type):

@@ -54,14 +54,15 @@ from .configuration_llama import LlamaConfig
 class LlamaMLP(nn.Module):
     """Gated SwiGLU MLP (reference modeling_llama.py:163)."""
 
-    def __init__(self, config, *, dtype, param_dtype, device):
+    def __init__(self, config, *, dtype, param_dtype, device, intermediate_size=None):
         super().__init__()
         bias = getattr(config, "mlp_bias", False)
+        inner = intermediate_size or config.intermediate_size
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device,
                   init_std=config.initializer_range)
-        self.gate_proj = Linear(config.hidden_size, config.intermediate_size, bias, **kw)
-        self.up_proj = Linear(config.hidden_size, config.intermediate_size, bias, **kw)
-        self.down_proj = Linear(config.intermediate_size, config.hidden_size, bias, **kw)
+        self.gate_proj = Linear(config.hidden_size, inner, bias, **kw)
+        self.up_proj = Linear(config.hidden_size, inner, bias, **kw)
+        self.down_proj = Linear(inner, config.hidden_size, bias, **kw)
         self.act_fn = get_activation(getattr(config, "hidden_activation", None)
                                      or config.hidden_act)
 
@@ -233,6 +234,8 @@ class LlamaDecoderLayer(nn.Module):
 
     attention_cls = LlamaAttention
     mlp_cls = LlamaMLP
+    # checkpoint name of the feed-forward block (Mixtral's "block_sparse_moe")
+    mlp_name = "mlp"
 
     def __init__(self, config, layer_idx: int, *, dtype, param_dtype, device):
         super().__init__()
@@ -240,17 +243,22 @@ class LlamaDecoderLayer(nn.Module):
         self.input_layernorm = self.make_norm(config, **kw)
         self.self_attn = self.attention_cls(config, layer_idx, **kw)
         self.post_attention_layernorm = self.make_norm(config, **kw)
-        self.mlp = self.mlp_cls(config, **kw)
+        setattr(self, self.mlp_name, self.make_mlp(config, layer_idx, **kw))
 
     @staticmethod
     def make_norm(config, **kw):
         return RMSNorm(config.hidden_size, config.rms_norm_eps, **kw)
 
+    def make_mlp(self, config, layer_idx: int, **kw) -> nn.Module:
+        """The feed-forward block; the mixture-of-experts families choose a
+        sparse or a dense one per layer."""
+        return self.mlp_cls(config, **kw)
+
     def forward(self, hidden, cos, sin, attn_args, cache, cache_position):
         h = self.self_attn(self.input_layernorm(hidden), cos, sin, attn_args, cache,
                            cache_position)
         hidden = hidden + h
-        return hidden + self.mlp(self.post_attention_layernorm(hidden))
+        return hidden + getattr(self, self.mlp_name)(self.post_attention_layernorm(hidden))
 
 
 class LlamaModel(nn.Module):

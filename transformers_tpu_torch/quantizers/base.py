@@ -67,8 +67,19 @@ def quantize_params(model, config: QuantizationConfig):
     """Quantize every eligible ``Linear`` weight of ``model`` in place, one tensor
     at a time on the weight's device (the load-time analog of reference
     ``preprocess_model`` + ``param_needs_quantization``). Weights already
-    quantized are skipped. Returns ``model``."""
+    quantized are skipped. Returns ``model``.
+
+    A mixture-of-experts model is refused: its experts are stacked
+    parameters, not ``Linear``s, and would stay unquantized (most of its
+    weights); quantized experts are not ported."""
     from ..core.module import Linear
+
+    stacked = [name for name, m in model.named_modules() if getattr(m, "stacked_names", ())]
+    if stacked:
+        raise NotImplementedError(
+            f"weight-only quantization of stacked mixture-of-experts weights is not ported: "
+            f"{len(stacked)} expert blocks ({stacked[0]}, ...) would stay in "
+            f"{next(model.parameters()).dtype}")
 
     quantizer = get_quantizer(config)
     n = 0
