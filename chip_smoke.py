@@ -65,9 +65,12 @@ Phases, in order; any failure exits non-zero:
     twice there and on the reference cases at 256 (bitwise-equal outputs
     required). K1, K2 and K6 are also held and timed at phase (j)'s shapes
     (Qwen3-30B-A3B: 32 query heads over 4 kv heads, a group of 8, head_dim
-    128). The mixture-of-experts products (``ops/moe.py``; library calls, no
-    kernel of the port) are held at Qwen3-30B-A3B's layer (128 experts of
-    768 over hidden 2048, 8 a token) at 8 and 1024 rows: the ``dense`` and
+    128) and phase (k)'s (OLMoE-1B-7B's group of 1, 16 heads over 16, at
+    phase (c)'s shapes; Laguna's group of 6, 48 over 8, with its 512-slot
+    window at Gemma-3-12B's long contexts). The mixture-of-experts products
+    (``ops/moe.py``; library calls, no kernel of the port) are held at
+    Qwen3-30B-A3B's layer (128 experts of 768 over hidden 2048, 8 a token)
+    at 8 and 1024 rows: the ``dense`` and
     ``ragged`` routes against each other and a per-expert loop in float32
     and bf16, the ragged route twice (bitwise) and under the sync check,
     and both timed beside their bound and ``torch.bmm`` over all experts;
@@ -187,6 +190,25 @@ Phases, in order; any failure exits non-zero:
     engine against an uncaptured one, K1 and K6 exact, and its split by
     span; the generated tokens teacher-forced against float32 computed from
     the same bf16 weights (a float32 copy would take 122 GB);
+(k) (run after (j), when no other model is held) the mixture-of-experts
+    families whose bases the port has. OLMoE-1B-7B at full width and depth
+    (allenai/OLMoE-1B-7B-0924: 16 layers, 16 over 16 heads, 64 experts of
+    1024, 8 a token, not renormalized; 13.8 GB) as phase (j)'s model: the
+    2-layer checkpoint round trip, static generate under both routes (graph
+    against step loop, K1 16 per prefill and K2 16 per step, timed,
+    profiled, split by span), the routes' logits, continuous batching on
+    the ragged route (K1, K6 exact), the tokens teacher-forced against
+    float32. gpt-oss-20b at full width and depth (openai/gpt-oss-20b: 24
+    layers alternating window 128 and full, 64 over 8 heads at head_dim 64,
+    sinks, 32 experts of 2880, 4 a token, yarn; 41.8 GB): the round trip
+    (its stacked experts whole), static generate graph against step loop
+    with no kernel launched (no kernel takes its sinks, as in the JAX
+    package), timed, profiled and split by span with the eager attention
+    apart, teacher-forced. Then Phi-3.5-MoE (sparsemixer, LayerNorms,
+    LongRoPE) and Laguna (three sliding layers and one full, whose half-width
+    rope keeps its decode step off K2; layer 0 dense) at 4 layers of their
+    widths, as phase (i)'s families. Each MoE teacher-force also prints how
+    often the bf16 path's router picks other experts than float32's;
 (e) training at the same width, depth cut to 4 layers (f32 weights, bf16
     compute, random from ``--seed``), after (c)/(d)'s model is freed: layer 0's
     q/k/v gradients and the loss of one row through the kernel path held
@@ -1803,7 +1825,7 @@ def check_load_path(seed: int, card: str, model_type: str = "llama",
     (``checkpoint_state_dict``: a mixture-of-experts model's stacked experts
     one tensor per expert)."""
     from transformers_tpu_torch import AutoConfig, AutoModelForCausalLM
-    from transformers_tpu_torch.core.loading import checkpoint_state_dict
+    from transformers_tpu_torch.core.loading import checkpoint_state_dict, resolve_checkpoint_files
     from transformers_tpu_torch.core.safetensors import SafetensorsFile
     from transformers_tpu_torch.ops import cuda_build
 
@@ -1816,8 +1838,10 @@ def check_load_path(seed: int, card: str, model_type: str = "llama",
     try:
         save_ms = _timed(lambda: model.save_pretrained(ckpt))
         size = sum(f.stat().st_size for f in ckpt.iterdir())
-        with SafetensorsFile(str(ckpt / "model.safetensors")) as f:
-            keys = set(f.keys())
+        keys = set()
+        for path in resolve_checkpoint_files(str(ckpt)):  # shards above 5 GiB
+            with SafetensorsFile(path) as f:
+                keys |= set(f.keys())
         has_head = "lm_head.weight" in keys
         holder = {}
         load_ms = _timed(lambda: holder.update(m=AutoModelForCausalLM.from_pretrained(ckpt)))
@@ -1911,8 +1935,7 @@ def check_generate(model, seed: int, card: str) -> dict:
     calls use ``decode_pad_multiple=NEW``, so the prefill-only runs (1 new
     token) share the 32-token program and nothing is captured twice."""
     ids, mask = generate_inputs(seed, model.config.vocab_size)
-    out, counts = generate_graph_vs_loop("generate", model, ids, mask, NEW, True, card,
-                                         timed=True)
+    out, counts = generate_graph_vs_loop("generate", model, ids, mask, NEW, card, timed=True)
     graph, eager = _generate_runs(model, ids, mask, NEW)
 
     # the streaming route replays the same graph, with a host read of every step
@@ -3295,20 +3318,38 @@ def _graph_vs_step_loop(label, model, graph, eager, expected, new: int = NEW,
     return out, counts
 
 
-def generate_graph_vs_loop(label: str, model, ids, mask, new: int, decode_kernel: bool,
-                           card: str, timed: bool = False) -> tuple:
+def kernel_layers(model) -> tuple:
+    """(layers whose static prefill takes K1, layers whose static decode step
+    takes K2), as the skeleton routes them: no kernel takes gpt-oss's sinks
+    (the JAX package sends them to its XLA path), and K2 takes no softcap
+    (Gemma-2) and no rope table narrower than the head (Laguna's full
+    layers, as the JAX package's fused-decode gate)."""
+    rope = model.model.compute_rope(torch.zeros((1, 1), dtype=torch.long, device=model.device))
+    k1 = k2 = 0
+    for i, layer in enumerate(model.model.layers):
+        attn = layer.self_attn
+        if attn.extra_attn_kwargs().get("sinks") is not None:
+            continue
+        k1 += 1
+        cos = model.model.rope_for_layer(rope, i)[0]
+        k2 += attn.logit_cap is None and cos.shape[-1] == attn.head_dim
+    return k1, k2
+
+
+def generate_graph_vs_loop(label: str, model, ids, mask, new: int, card: str,
+                           timed: bool = False) -> tuple:
     """Greedy ``generate``, graph against the uncaptured step loop
     (``_graph_vs_step_loop``; K1 once per layer per prefill, K2 once per layer
-    per decode step, or never where ``decode_kernel`` is False), the
-    signature's first call equal to both. With ``timed``: prefill ms, decode
+    per decode step, on the layers ``kernel_layers`` gives), the signature's
+    first call equal to both. With ``timed``: prefill ms, decode
     ms/step and tokens/s of both paths in turns, the graph's idle share,
     capture ms and the memory its program holds, and a profile of each path.
     Returns (ids, the graph run's launch counts)."""
     layers, (b, prompt) = model.config.num_hidden_layers, ids.shape
     graph, eager = _generate_runs(model, ids, mask, new)
     first = _first_call(model, graph, new=new)
-    expected = _expected(flash_fwd=layers,
-                         fused_decode=layers * (new - 1) if decode_kernel else 0)
+    k1, k2 = kernel_layers(model)
+    expected = _expected(flash_fwd=k1, fused_decode=k2 * (new - 1))
     out, counts = _graph_vs_step_loop(label, model, graph, eager, expected, new=new)
     if not torch.equal(out, first["first"]) or out.shape != (b, prompt + new) \
             or not torch.equal(out[:, :prompt], ids):
@@ -3921,6 +3962,51 @@ MOE_CB_CONTEXTS = (96, 140, 233, 310, 377, 420, 488, 534)
 # the split of the device time by span: a prefill and MOE_SPLIT_NEW - 1
 # uncaptured steps (reading a trace with host events costs ~10 s per 1000 ms)
 MOE_SPLIT_NEW = 4
+# --------------------------------------------------------------------- (k)
+# OLMoE-1B-7B at full width and depth: allenai/OLMoE-1B-7B-0924's config.json
+# (16 layers, 16 over 16 heads, head_dim 128; 64 experts of 1024, 8 a token,
+# not renormalized; no clip_qkv): 6.92e9 parameters, 13.8 GB in bf16
+OLMOE_SOURCE = "allenai/OLMoE-1B-7B-0924"
+OLMOE = dict(vocab_size=50304, hidden_size=2048, intermediate_size=1024, num_hidden_layers=16,
+             num_attention_heads=16, num_key_value_heads=16, rms_norm_eps=1e-5,
+             rope_theta=10000.0, max_position_embeddings=4096, num_experts=64,
+             num_experts_per_tok=8, norm_topk_prob=False, clip_qkv=None,
+             tie_word_embeddings=False)
+# gpt-oss-20b at full width and depth: openai/gpt-oss-20b's config.json (24
+# layers alternating window 128 and full, 64 over 8 heads, head_dim 64,
+# sinks, attention biases; 32 experts of 2880, 4 a token; yarn factor 32):
+# 20.9e9 parameters, 41.8 GB in bf16
+GPT_OSS_SOURCE = "openai/gpt-oss-20b"
+GPT_OSS = dict(vocab_size=201088, hidden_size=2880, intermediate_size=2880, num_hidden_layers=24,
+               num_attention_heads=64, num_key_value_heads=8, head_dim=64, num_local_experts=32,
+               num_experts_per_tok=4, sliding_window=128, rope_theta=150000.0,
+               rope_scaling={"rope_type": "yarn", "factor": 32.0, "beta_fast": 32.0,
+                             "beta_slow": 1.0, "truncate": False,
+                             "original_max_position_embeddings": 4096},
+               rms_norm_eps=1e-5, attention_bias=True, max_position_embeddings=131072,
+               tie_word_embeddings=False)
+# Phi-3.5-MoE and Laguna at 4 layers of their widths, through check_families
+MOE_FAMILY_GEOMETRIES = {
+    # PhimoeConfig's defaults are microsoft/Phi-3.5-MoE-instruct's widths (16
+    # experts of 6400, top 2 by the sparsemixer; 32 over 8 heads); its
+    # published LongRoPE factor lists are not in the repo: 64 factors of 1.0,
+    # which do the same work (the scaled attention factor included)
+    "phimoe": ("microsoft/Phi-3.5-MoE-instruct", dict(
+        vocab_size=32064, hidden_size=4096, intermediate_size=6400, num_hidden_layers=32,
+        num_attention_heads=32, num_key_value_heads=8, rms_norm_eps=1e-5,
+        num_local_experts=16, num_experts_per_tok=2, max_position_embeddings=131072,
+        rope_scaling={"type": "longrope", "original_max_position_embeddings": 4096,
+                      "short_factor": [1.0] * 64, "long_factor": [1.0] * 64},
+        tie_word_embeddings=False)),
+    # LagunaConfig's defaults, as the JAX config cites them; at 4 layers three
+    # sliding (window 512) and one full, layer 0 dense
+    "laguna": ("LagunaConfig (reference modular_laguna.py:50-181)", dict(
+        vocab_size=100352, hidden_size=2048, intermediate_size=8192, num_hidden_layers=40,
+        num_attention_heads=48, num_key_value_heads=8, head_dim=128, rms_norm_eps=1e-6,
+        sliding_window=512, num_experts=256, num_experts_per_tok=8, moe_intermediate_size=512,
+        shared_expert_intermediate_size=512, max_position_embeddings=131072,
+        tie_word_embeddings=False)),
+}
 # the families' shapes at which phase (b) holds and times K1, K2 and K6
 FAMILY_KERNEL_SHAPES = {
     # K1: (b, s, h, kvh, d, left pads, window)
@@ -3930,6 +4016,10 @@ FAMILY_KERNEL_SHAPES = {
         "phi3_mini_prefill": (len(FAMILY_PADS), FAMILY_PROMPT, 32, 32, 96, FAMILY_PADS, 2047),
         # a query-head group of 8, which no earlier path ran
         "qwen3_30b_a3b_prefill": (BATCH, PROMPT, 32, 4, 128, PADS, None),
+        # phase (k)'s groups of 1 (OLMoE) and 6 (Laguna, at Gemma-3's long
+        # prompts, so that its 512-slot window bites)
+        "olmoe_1b_7b_prefill": (BATCH, PROMPT, 16, 16, 128, PADS, None),
+        "laguna_prefill_window_512": (len(G3_PADS), G3_PROMPT, 48, 8, 128, G3_PADS, 512),
     },
     # K2: (b, h, kvh, d, s, pos, starts, window)
     "fused_decode": {
@@ -3939,12 +4029,17 @@ FAMILY_KERNEL_SHAPES = {
                              FAMILY_PROMPT + FAMILY_NEW - 1, FAMILY_PADS, 2047),
         "qwen3_30b_a3b_decode": (BATCH, 32, 4, 128, PROMPT + NEW, PROMPT + NEW - 1, PADS,
                                  None),
+        "olmoe_1b_7b_decode": (BATCH, 16, 16, 128, PROMPT + NEW, PROMPT + NEW - 1, PADS, None),
+        "laguna_decode_window_512": (len(G3_PADS), 48, 8, 128, G3_PROMPT + G3_NEW,
+                                     G3_PROMPT + G3_NEW - 1, G3_PADS, 512),
     },
     # K6: (n, h, kvh, d, block size, context lengths (None: drawn in G3_CB_LENS), window)
     "paged_decode": {
         "gemma3_12b_cb_window_1024": (G3_CB_REQUESTS, 16, 8, 256, 32, None, 1024),
         "phi3_mini_cb": (BATCH, 32, 32, 96, 32, (77, 140, 300, 511, 64, 96, 200, 576), 2047),
         "qwen3_30b_a3b_cb": (len(MOE_CB_CONTEXTS), 32, 4, 128, 32, MOE_CB_CONTEXTS, None),
+        "olmoe_1b_7b_cb": (len(MOE_CB_CONTEXTS), 16, 16, 128, 32, MOE_CB_CONTEXTS, None),
+        "laguna_cb_window_512": (G3_CB_REQUESTS, 48, 8, 128, 32, None, 512),
     },
 }
 
@@ -4244,8 +4339,7 @@ def check_gemma3(seed: int, card: str) -> dict:
           f"(window {GEMMA3_12B['sliding_window']}, local rope), "
           f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B parameters in bf16")
     ids, mask = generate_inputs(seed, model.config.vocab_size, G3_PROMPT, G3_PADS)
-    out, counts = generate_graph_vs_loop("gemma3", model, ids, mask, G3_NEW, True, card,
-                                         timed=True)
+    out, counts = generate_graph_vs_loop("gemma3", model, ids, mask, G3_NEW, card, timed=True)
     paths = {"gemma3_12b_generate": counts}
     model._decode_program = None
     gc.collect()
@@ -4259,32 +4353,55 @@ def check_gemma3(seed: int, card: str) -> dict:
     return paths
 
 
-def check_families(seed: int, card: str) -> dict:
-    """Phase (i), part 2: each other family at 4 layers of its published
-    width (bf16, random weights; the MoE families on the default dense
-    route): static generate at batch 4, prompt 128, 16
-    new tokens, graph against step loop bitwise with exact launches (K2 never
-    for Gemma2, whose softcap keeps decode on the plain path), then the
-    tokens teacher-forced. Returns each family's launch counts."""
-    paths = {}
-    for model_type, (source, geometry) in FAMILY_GEOMETRIES.items():
+def moe_family_times(label: str, model, ids, mask, new: int, hbm: float, card: str) -> None:
+    """A 4-layer MoE family's prefill ms and decode ms/step on the graph path
+    (medians of 3; its program was captured by ``generate_graph_vs_loop``)
+    beside the step's weight-stream bound on its route, the default dense
+    one (``moe_stream``), at the copy rate measured in the run."""
+    graph, eager = _generate_runs(model, ids, mask, new)
+    stream = moe_stream(model, lambda: eager(max_new_tokens=new), rows=ids.shape[0])
+    prefill = _median_ms(lambda: graph(max_new_tokens=1))
+    total = _median_ms(lambda: graph(max_new_tokens=new))
+    step = (total - prefill) / (new - 1)
+    nbytes = stream["fixed"] + stream["touched"]["dense"] * stream["blocks"] * stream["expert"]
+    print(f"[{label} timed] B={ids.shape[0]} prompt={ids.shape[1]} new={new} bf16, "
+          f"{model.config.num_hidden_layers} layers ({stream['blocks']} of them MoE), dense route: "
+          f"prefill {prefill:.2f} ms, decode {step:.3f} ms/step; the step's weight stream "
+          f"{nbytes / 1e9:.2f} GB over the measured {hbm / 1e12:.3f} TB/s: bound "
+          f"{nbytes / hbm * 1e3:.3f} ms/step, {nbytes / hbm * 1e3 / step:.2f} of the step's time "
+          f"({card})")
+
+
+def check_families(seed: int, card: str, geometries: dict = FAMILY_GEOMETRIES) -> dict:
+    """Phase (i), part 2 (and phase (k)'s ``MOE_FAMILY_GEOMETRIES``): each
+    family at 4 layers of its published width (bf16, random weights; the MoE
+    families on the default dense route): static generate at batch 4,
+    prompt 128, 16 new tokens, graph against step loop bitwise with exact
+    launches (``kernel_layers``: K2 never for Gemma2, whose softcap keeps
+    decode on the plain path, nor on Laguna's full layers), then the tokens
+    teacher-forced; an MoE family is also timed (``moe_family_times``).
+    Returns each family's launch counts."""
+    paths, hbm = {}, None
+    for model_type, (source, geometry) in geometries.items():
         t0 = time.perf_counter()
         model = build_decoder(geometry, FAMILY_LAYERS, torch.bfloat16, seed,
                               model_type=model_type)
         ids, mask = generate_inputs(seed, model.config.vocab_size, FAMILY_PROMPT, FAMILY_PADS)
         head_dim = model.model.layers[0].self_attn.head_dim
-        out, counts = generate_graph_vs_loop(
-            model_type, model, ids, mask, FAMILY_NEW,
-            decode_kernel=getattr(model.config, "attn_logit_softcapping", None) is None,
-            card=card)
-        teacher_force(model, out, mask, prompt=FAMILY_PROMPT,
-                      label=f"{model_type} teacher-force")
+        out, counts = generate_graph_vs_loop(model_type, model, ids, mask, FAMILY_NEW, card)
+        moe = any(isinstance(m, expert_modules()) for m in model.modules())
+        if moe:
+            hbm = hbm or measured_hbm_rate()
+            moe_family_times(model_type, model, ids, mask, FAMILY_NEW, hbm, card)
+        force = teacher_force_moe if moe else teacher_force
+        force(model, out, mask, prompt=FAMILY_PROMPT, label=f"{model_type} teacher-force")
         paths[f"{model_type}_generate"] = counts
         del model
         gc.collect()
         torch.cuda.empty_cache()
         print(f"[families] {model_type} ({source}, {FAMILY_LAYERS} of "
-              f"{geometry['num_hidden_layers']} layers, head_dim {head_dim}): "
+              f"{geometry['num_hidden_layers']} layers, head_dim {head_dim}; K1 on "
+              f"{counts['flash_fwd']} layers, K2 on {counts['fused_decode'] // (FAMILY_NEW - 1)}): "
               f"{time.perf_counter() - t0:.1f} s")
     return paths
 
@@ -4308,45 +4425,102 @@ def measured_hbm_rate() -> float:
     return 2 * 2 ** 31 / (ms * 1e-3)
 
 
-def experts_touched(model, run) -> list:
-    """The distinct experts each decode step's rows pick in each layer, over
-    one ``run`` (uncaptured: a hook reads the routing back)."""
+def expert_modules() -> tuple:
+    """The port's expert modules: ``ops/moe.py``'s stacked ``Experts`` and
+    gpt-oss's own; each is called as (x, routing weights, routing indices)."""
+    from transformers_tpu_torch.models.gpt_oss.modeling_gpt_oss import GptOssExperts
     from transformers_tpu_torch.ops.moe import Experts
 
-    counts = []
+    return Experts, GptOssExperts
+
+
+def moe_stream(model, run, rows: int = BATCH) -> dict:
+    """The decode step's weight stream: every weight but the embedding table
+    (a few rows read) and the experts (``fixed`` bytes), one expert's bytes,
+    the number of expert blocks (``blocks``), and the experts a block each
+    route reads: all on the dense route, and on the ragged one as many as a
+    decode step's ``rows`` pick, on average over one uncaptured ``run``
+    (``experts_touched``; also printed)."""
+    blocks = [m for m in model.modules() if isinstance(m, expert_modules())]
+    in_experts = sum(p.numel() for m in blocks for p in m.parameters())
+    e = next(iter(blocks[0].parameters())).shape[0]
+    params = sum(p.numel() for p in model.parameters())
+    itemsize = model.model.embed_tokens.weight.element_size()
+    picked = experts_touched(run, rows)
+    print(f"[moe stream] decode steps' rows touch {min(picked)}-{max(picked)} experts a layer, "
+          f"{sum(picked) / len(picked):.2f} on average, of {e} (the dense route reads all); "
+          f"the KV cache is left out of the bound")
+    return dict(fixed=itemsize * (params - in_experts - model.model.embed_tokens.weight.numel()),
+                expert=itemsize * in_experts / (len(blocks) * e), blocks=len(blocks),
+                touched={"dense": e, "ragged": sum(picked) / len(picked)})
+
+
+def expert_calls(run) -> list:
+    """(rows, dtype of x, routing indices) of every call of an expert module
+    of any model over one ``run`` (uncaptured: a global hook reads the
+    routing back)."""
+    kinds, calls = expert_modules(), []
 
     def hook(module, args, out):
-        if args[0].shape[0] == BATCH:  # a decode step's rows (the prefill has 1024)
-            counts.append(int(args[2].unique().numel()))
+        if isinstance(module, kinds):
+            calls.append((args[0].shape[0], args[0].dtype, args[2].detach().clone()))
 
-    handles = [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, Experts)]
+    handle = torch.nn.modules.module.register_module_forward_hook(hook)
     try:
         run()
     finally:
-        for handle in handles:
-            handle.remove()
-    return counts
+        handle.remove()
+    return calls
+
+
+def experts_touched(run, rows: int = BATCH) -> list:
+    """The distinct experts each decode step's ``rows`` pick in each layer,
+    over one ``run``; a prefill's rows are left out."""
+    return [int(idx.unique().numel()) for n, _, idx in expert_calls(run) if n == rows]
+
+
+def teacher_force_moe(model, seq, prompt_mask, label: str, **kw) -> None:
+    """``teacher_force``, and how often the plain bf16 path's router picks
+    another set of experts for a token than the float32 run's, layer by layer
+    over the same full sequence: where the top k flips under bf16 rounding,
+    the two runs part by whole experts, which the logits' distance from
+    float32 then shows."""
+    rows = seq.numel()
+    calls = expert_calls(lambda: teacher_force(model, seq, prompt_mask, label=label, **kw))
+
+    def picks(dtype):
+        return [idx.sort(dim=-1).values for r, d, idx in calls if r == rows and d == dtype]
+
+    share = [float((a != b).any(dim=-1).float().mean())
+             for a, b in zip(picks(model.dtype), picks(torch.float32), strict=True)]
+    print(f"[{label}] routing of the {rows} teacher-forced tokens, plain bf16 path against "
+          f"float32: {sum(share) / len(share):.4f} of tokens pick another set of experts, on "
+          f"average over {len(share)} MoE layers (first {share[0]:.4f}, last {share[-1]:.4f})")
 
 
 SPAN = "span::"
 PHASE = "phase::"
 OUR_KERNELS = re.compile(r"(flash_fwd|fused_decode|paged_split|paged_combine)\w*kernel")
 GEMM_KERNELS = re.compile(r"gemm|cutlass|xmma|cublas|nvjet", re.I)
-SPAN_NAMES = ("experts", "router", "attention", "norms", "lm_head", "other")
+SPAN_NAMES = ("experts", "router", "attention", "eager attention", "norms", "lm_head", "other")
 
 
 @contextlib.contextmanager
 def labelled_spans(phases: dict):
-    """Each call of the attention block, the MoE block (the router and the
-    experts' call), the experts, every RMSNorm and the lm_head runs inside a
-    ``record_function`` span named for it, and each of ``phases`` ((name,
+    """Each call of the attention block, the eager attention inside it (where
+    no kernel takes the call: gpt-oss's sinks), the MoE block (the router and
+    the experts' call), the experts, every RMSNorm and the lm_head runs inside
+    a ``record_function`` span named for it, and each of ``phases`` ((name,
     object, method) triples) inside one named for the phase, so that a
     profile can credit each kernel to the innermost span and the phase that
     launched it."""
     from torch.profiler import record_function
     from transformers_tpu_torch.core.module import RMSNorm
+    from transformers_tpu_torch.models.gpt_oss.modeling_gpt_oss import GptOssExperts, GptOssMLP
+    from transformers_tpu_torch.models.llama import modeling_llama
     from transformers_tpu_torch.models.llama.modeling_llama import (LlamaAttention,
                                                                     LlamaForCausalLM)
+    from transformers_tpu_torch.ops import attention
     from transformers_tpu_torch.ops.moe import Experts, SparseMoeBlock
 
     def wrap(fn, name):
@@ -4357,8 +4531,12 @@ def labelled_spans(phases: dict):
         return call
 
     targets = [(LlamaAttention, "forward", SPAN + "attention"),
+               (attention, "eager_attention", SPAN + "eager attention"),
+               (modeling_llama, "cached_attention_bhsd", SPAN + "eager attention"),
                (SparseMoeBlock, "forward", SPAN + "router"),
-               (Experts, "forward", SPAN + "experts"), (RMSNorm, "forward", SPAN + "norms"),
+               (GptOssMLP, "forward", SPAN + "router"),
+               (Experts, "forward", SPAN + "experts"), (GptOssExperts, "forward", SPAN + "experts"),
+               (RMSNorm, "forward", SPAN + "norms"),
                (LlamaForCausalLM, "compute_logits", SPAN + "lm_head")]
     targets += [(owner, method, PHASE + phase) for phase, owner, method in phases]
     patched = []
@@ -4440,7 +4618,7 @@ def moe_breakdown(label: str, run, phases: list, card: str) -> dict:
     return out
 
 
-def moe_routes_logits(model, ids, mask) -> None:
+def moe_routes_logits(label: str, model, ids, mask) -> None:
     """The prompt's logits at every valid position under each route (the
     kernel path: K1 over the local k/v) and in float32 (the same weights
     widened, eager attention, the dense route). Neither route may be more
@@ -4462,39 +4640,39 @@ def moe_routes_logits(model, ids, mask) -> None:
     far = {route: max_err(logits[route], ref) for route in MOE_ROUTES}
     between = max_err(logits["dense"], logits["ragged"])
     finite = all(bool(torch.isfinite(v).all()) for v in logits.values())
-    print(f"[qwen3_moe routes] prefill logits at {int(valid.sum())} valid positions (|max| "
+    print(f"[{label} routes] prefill logits at {int(valid.sum())} valid positions (|max| "
           f"{scale:.3f}): |dense - f32| {far['dense']:.4f}, |ragged - f32| {far['ragged']:.4f}, "
           f"|dense - ragged| {between:.4f} = {between / scale:.4f} of the scale; each route "
           f"within twice the other's distance from f32")
     if not finite or far["dense"] > 2 * far["ragged"] or far["ragged"] > 2 * far["dense"]:
-        raise AssertionError("qwen3_moe: the two routes' prefill logits disagree")
+        raise AssertionError(f"{label}: the two routes' prefill logits disagree")
 
 
-def moe_generate_route(model, route: str, ids, mask, stream_bytes, hbm: float,
+def moe_generate_route(label: str, model, route: str, ids, mask, stream_bytes, hbm: float,
                        card: str) -> tuple:
-    """Static generate under ``route``: graph against step loop
-    (``generate_graph_vs_loop``, launches exact), then prefill ms and decode
-    ms/step of the graph path (medians of 3), tokens/s, the profiled idle
-    share, peak memory, the step's weight-stream bound and the breakdown by
-    span. Returns (ids, launch counts)."""
+    """Static generate under ``route`` (gpt-oss's experts take none: every
+    expert computes every token, the dense route's work): graph against step
+    loop (``generate_graph_vs_loop``, launches exact), then prefill ms and
+    decode ms/step of the graph path (medians of 3), tokens/s, the profiled
+    idle share, peak memory, the step's weight-stream bound (``moe_stream``)
+    and the breakdown by span. Returns (ids, launch counts)."""
     from transformers_tpu_torch.generation.utils import StaticDecode
 
     layers = model.config.num_hidden_layers
     model.config.experts_implementation = route
     torch.cuda.reset_peak_memory_stats()
-    out, counts = generate_graph_vs_loop(f"qwen3_moe {route}", model, ids, mask, NEW, True,
-                                         card)
+    out, counts = generate_graph_vs_loop(f"{label} {route}", model, ids, mask, NEW, card)
     graph, eager = _generate_runs(model, ids, mask, NEW)
     prefill = _median_ms(lambda: graph(max_new_tokens=1))
     total = _median_ms(lambda: graph(max_new_tokens=NEW))
     step = (total - prefill) / (NEW - 1)
-    kernels = profile_run(f"qwen3_moe {route} (graph)", lambda: graph(max_new_tokens=NEW), total,
+    kernels = profile_run(f"{label} {route} (graph)", lambda: graph(max_new_tokens=NEW), total,
                           card)
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     peak = torch.cuda.max_memory_allocated()
     touched = stream_bytes["touched"][route]
-    nbytes = stream_bytes["fixed"] + touched * layers * stream_bytes["expert"]
-    print(f"[qwen3_moe {route}] B={BATCH} prompt={PROMPT} new={NEW} bf16, {layers} layers: "
+    nbytes = stream_bytes["fixed"] + touched * stream_bytes["blocks"] * stream_bytes["expert"]
+    print(f"[{label} {route}] B={BATCH} prompt={PROMPT} new={NEW} bf16, {layers} layers: "
           f"prefill {prefill:.2f} ms, decode {step:.3f} ms/step, {BATCH * 1e3 / step:.1f} decode "
           f"tokens/s, {BATCH * NEW * 1e3 / total:.1f} tokens/s over the whole generate; device "
           f"idle share {1 - busy / total:.3f}; peak memory {peak / 1e9:.2f} GB; the step's "
@@ -4502,7 +4680,7 @@ def moe_generate_route(model, route: str, ids, mask, stream_bytes, hbm: float,
           f"measured {hbm / 1e12:.3f} TB/s: bound {nbytes / hbm * 1e3:.3f} ms/step, "
           f"{nbytes / hbm * 1e3 / step:.2f} of the step's time (at the published "
           f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s: {nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms) ({card})")
-    moe_breakdown(f"qwen3_moe {route}", lambda: eager(max_new_tokens=MOE_SPLIT_NEW),
+    moe_breakdown(f"{label} {route}", lambda: eager(max_new_tokens=MOE_SPLIT_NEW),
                   [("prefill", StaticDecode, "prefill"), ("decode", StaticDecode, "step")], card)
     return out, counts
 
@@ -4531,23 +4709,13 @@ def check_qwen3_moe(seed: int, card: str) -> dict:
           f"{hbm / 1e12:.3f} TB/s ({card})")
     ids, mask = generate_inputs(seed, cfg.vocab_size)
     graph, eager = _generate_runs(model, ids, mask, NEW)
-    # the decode step's weight stream: every weight but the embedding table
-    # (8 rows read) and the experts, plus the experts the rows touch
-    fixed = 2 * (params - experts - model.model.embed_tokens.weight.numel())
-    expert = 2 * 3 * cfg.hidden_size * cfg.moe_intermediate_size
-    picked = experts_touched(model, lambda: eager(max_new_tokens=NEW))
-    stream = dict(fixed=fixed, expert=expert,
-                  touched={"dense": cfg.num_experts, "ragged": sum(picked) / len(picked)})
-    kv = cfg.num_hidden_layers * BATCH * (PROMPT + NEW) * cfg.num_key_value_heads * 128 * 4
-    print(f"[qwen3_moe] decode steps' rows touch {min(picked)}-{max(picked)} experts a layer, "
-          f"{stream['touched']['ragged']:.2f} on average, of {cfg.num_experts} (the dense route "
-          f"reads all); the KV cache ({kv / 1e9:.3f} GB at most a step) is left out of the bound")
-    runs = {route: moe_generate_route(model, route, ids, mask, stream, hbm, card)
+    stream = moe_stream(model, lambda: eager(max_new_tokens=NEW))
+    runs = {route: moe_generate_route("qwen3_moe", model, route, ids, mask, stream, hbm, card)
             for route in MOE_ROUTES}
     same = int((runs["dense"][0][:, PROMPT:] == runs["ragged"][0][:, PROMPT:]).sum())
     print(f"[qwen3_moe routes] greedy tokens: {same} of {BATCH * NEW} equal between the routes "
           f"(bf16 near-ties of random weights)")
-    moe_routes_logits(model, ids, mask)
+    moe_routes_logits("qwen3_moe", model, ids, mask)
     model._decode_program = None
     gc.collect()
     torch.cuda.empty_cache()
@@ -4569,11 +4737,102 @@ def check_qwen3_moe(seed: int, card: str) -> dict:
     del engine, runner
     gc.collect()
     torch.cuda.empty_cache()
-    teacher_force(model, runs["ragged"][0], mask, label="qwen3_moe teacher-force",
-                  f32_in_place=True)
+    teacher_force_moe(model, runs["ragged"][0], mask, label="qwen3_moe teacher-force",
+                      f32_in_place=True)
     del model, runs
     gc.collect()
     torch.cuda.empty_cache()
+    return paths
+
+
+# --------------------------------------------------------------------- (k)
+def _moe_model(label: str, source: str, geometry: dict, model_type: str, seed: int,
+               hbm: float, card: str):
+    """``geometry`` at full depth in bf16, random weights from ``seed``;
+    prints its size."""
+    model = build_decoder(geometry, geometry["num_hidden_layers"], torch.bfloat16, seed,
+                          model_type=model_type)
+    blocks = [m for m in model.modules() if isinstance(m, expert_modules())]
+    experts = sum(p.numel() for m in blocks for p in m.parameters())
+    params = sum(p.numel() for p in model.parameters())
+    print(f"[{label}] {source}: {model.config.num_hidden_layers} layers (no cut), "
+          f"{params / 1e9:.3f} B parameters ({experts / 1e9:.3f} B in the experts), "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated; HBM copy rate measured "
+          f"{hbm / 1e12:.3f} TB/s ({card})")
+    return model
+
+
+def check_olmoe(seed: int, card: str, hbm: float) -> dict:
+    """Phase (k), OLMoE-1B-7B at full width and depth (bf16, random weights
+    from ``seed``): the 2-layer checkpoint round trip (one tensor per expert);
+    static generate at phase (c)'s shape under each route, graph against step
+    loop, timed, profiled and split by span; the routes' prompt logits
+    against each other and float32; continuous batching on the ragged route
+    (phase (j)'s traffic), graph engine against uncaptured; the generated
+    tokens teacher-forced against float32 from the same bf16 weights. Returns
+    the paths' launches."""
+    check_load_path(seed, card, "olmoe", OLMOE)
+    model = _moe_model("olmoe", OLMOE_SOURCE, OLMOE, "olmoe", seed, hbm, card)
+    vocab = model.config.vocab_size
+    ids, mask = generate_inputs(seed, vocab)
+    eager = _generate_runs(model, ids, mask, NEW)[1]
+    stream = moe_stream(model, lambda: eager(max_new_tokens=NEW))
+    runs = {route: moe_generate_route("olmoe", model, route, ids, mask, stream, hbm, card)
+            for route in MOE_ROUTES}
+    same = int((runs["dense"][0][:, PROMPT:] == runs["ragged"][0][:, PROMPT:]).sum())
+    print(f"[olmoe routes] greedy tokens: {same} of {BATCH * NEW} equal between the routes "
+          f"(bf16 near-ties of random weights)")
+    moe_routes_logits("olmoe", model, ids, mask)
+    model._decode_program = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    model.config.experts_implementation = "ragged"
+    cb = cb_graph_vs_uncaptured("olmoe cb", model, moe_cb_prompts(seed, vocab), 16, card,
+                                new=MOE_CB_NEW)
+    paths = {"olmoe_generate": runs["ragged"][1], "olmoe_continuous_batching": cb["counts"]}
+    del cb
+    gc.collect()
+    torch.cuda.empty_cache()
+    teacher_force_moe(model, runs["ragged"][0], mask, label="olmoe teacher-force",
+                      f32_in_place=True)
+    del model, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def check_gpt_oss(seed: int, card: str, hbm: float) -> dict:
+    """Phase (k), gpt-oss-20b at full width and depth (bf16, random weights
+    from ``seed``): the 2-layer checkpoint round trip (the experts' stacked
+    tensors whole); static generate at phase (c)'s shape, graph against step
+    loop with no kernel launched (its sinks keep every attention call on the
+    eager path, as the JAX package keeps them off its Pallas kernels), timed,
+    profiled and split by span (the eager attention apart); the generated
+    tokens teacher-forced against float32 from the same bf16 weights (a
+    float32 copy would take 84 GB). Returns the path's launches."""
+    check_load_path(seed, card, "gpt_oss", GPT_OSS)
+    model = _moe_model("gpt_oss", GPT_OSS_SOURCE, GPT_OSS, "gpt_oss", seed, hbm, card)
+    ids, mask = generate_inputs(seed, model.config.vocab_size)
+    eager = _generate_runs(model, ids, mask, NEW)[1]
+    stream = moe_stream(model, lambda: eager(max_new_tokens=NEW))
+    out, counts = moe_generate_route("gpt_oss", model, "dense", ids, mask, stream, hbm, card)
+    model._decode_program = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    teacher_force_moe(model, out, mask, label="gpt_oss teacher-force", f32_in_place=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"gpt_oss_generate": counts}
+
+
+def check_moe_families(seed: int, card: str) -> dict:
+    """Phase (k): OLMoE-1B-7B and gpt-oss-20b at full depth, then Phi-3.5-MoE
+    and Laguna at 4 layers (``check_families``). Returns the paths' launches."""
+    hbm = measured_hbm_rate()
+    paths = check_olmoe(seed, card, hbm)
+    paths.update(check_gpt_oss(seed, card, hbm))
+    paths.update(check_families(seed, card, MOE_FAMILY_GEOMETRIES))
     return paths
 
 
@@ -4650,6 +4909,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths.update(check_qwen3_moe(args.seed, card))
     lap("phase (j), Qwen3-30B-A3B")
+    paths.update(check_moe_families(args.seed, card))
+    lap("phase (k), OLMoE-1B-7B, gpt-oss-20b, Phi-3.5-MoE and Laguna")
     paths["train"] = check_train(args.seed, card)
     lap("phase (e), training at the Llama-3-8B width")
     paths["train_gemma3"] = check_train_gemma3(args.seed, card)

@@ -13,10 +13,14 @@ from .models.auto import AutoConfig, AutoModelForCausalLM
 from .models.gemma import GemmaConfig, GemmaForCausalLM
 from .models.gemma2 import Gemma2Config, Gemma2ForCausalLM
 from .models.gemma3 import Gemma3ForCausalLM, Gemma3TextConfig
+from .models.gpt_oss import GptOssConfig, GptOssForCausalLM
+from .models.laguna import LagunaConfig, LagunaForCausalLM
 from .models.llama import LlamaConfig, LlamaForCausalLM
 from .models.mistral import MistralConfig, MistralForCausalLM
 from .models.mixtral import MixtralConfig, MixtralForCausalLM
+from .models.olmoe import OlmoeConfig, OlmoeForCausalLM
 from .models.phi3 import Phi3Config, Phi3ForCausalLM
+from .models.phimoe import PhimoeConfig, PhimoeForCausalLM
 from .models.qwen2 import Qwen2Config, Qwen2ForCausalLM
 from .models.qwen2_moe import Qwen2MoeConfig, Qwen2MoeForCausalLM
 from .models.qwen3 import Qwen3Config, Qwen3ForCausalLM

@@ -23,7 +23,12 @@ A mixture-of-experts block keeps each expert as its own subtree
 (``experts: {"0": {"w1": {"weight": [in, out]}}, ...}``); the port keeps one
 stacked parameter per projection, ``experts.w1`` ``[E, out, in]``
 (``ops/moe.py`` ``Experts``), so those subtrees are stacked, each expert's
-kernel transposed.
+kernel transposed. gpt-oss's experts are raw stacked ``[E, in, out]``
+parameters on both sides (``experts.gate_up_proj``, its ``_bias``), so they
+pass as they are; its router ``weight`` is a 2-D kernel like any other.
+OLMoE's full-width q/k norms, ``self_attn.full_q_norm`` / ``full_k_norm`` in
+the JAX package, are the port's ``self_attn.q_norm`` / ``k_norm``, the
+checkpoint's names.
 """
 
 from __future__ import annotations
@@ -66,9 +71,16 @@ def _stack_experts(tree: dict) -> dict:
     return out
 
 
+# JAX names the port does not keep: (the JAX name's part, the port's)
+_RENAMES = ((".self_attn.full_q_norm.", ".self_attn.q_norm."),
+            (".self_attn.full_k_norm.", ".self_attn.k_norm."))
+
+
 def params_from_jax(jax_params_numpy: dict) -> dict[str, torch.Tensor]:
     state_dict = {}
     for key, value in _flatten(_stack_experts(jax_params_numpy)):
+        for jax_part, port_part in _RENAMES:
+            key = key.replace(jax_part, port_part)
         t = _to_torch(np.asarray(value))
         if key.endswith(".weight") and t.ndim == 2 and not key.endswith("embed_tokens.weight"):
             t = t.T.contiguous()

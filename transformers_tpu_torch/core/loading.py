@@ -7,12 +7,15 @@ from the safetensors mapping, checked for shape, and copied into its
 parameter (cast to the parameter's dtype, moved to its device) before the
 next one is read. Keys present on one side only are reported.
 
-The one exception is a mixture-of-experts block's experts: the checkpoint
-holds one tensor per expert and projection, the port one stacked parameter
-per projection (``ops/moe.py`` ``Experts``). ``expert_slots`` maps each
-per-expert key to its slice, which the tensor is copied into as it streams
-(the stacked parameter is never assembled a second time), and
-``checkpoint_state_dict`` writes the slices back under the per-expert keys.
+The one exception is a mixture-of-experts block's experts where the
+checkpoint holds one tensor per expert and projection and the port one
+stacked parameter per projection (``ops/moe.py`` ``Experts``).
+``expert_slots`` maps each per-expert key to its slice, which the tensor is
+copied into as it streams (the stacked parameter is never assembled a second
+time), and ``checkpoint_state_dict`` writes the slices back under the
+per-expert keys. A checkpoint that stacks the experts itself (gpt-oss's
+``mlp.experts.gate_up_proj``, a module with ``per_expert_checkpoint`` False)
+loads and saves each stacked tensor whole, as any other key.
 """
 
 from __future__ import annotations
@@ -105,9 +108,12 @@ def open_checkpoint_source(file):
 def expert_slots(model: nn.Module) -> dict[str, tuple[str, int]]:
     """The checkpoint key of each expert's projection, ``<experts>.<e>.<name>.weight``,
     -> (the stacked parameter's name, e), for every module that keeps its
-    experts stacked (its ``stacked_names``)."""
+    experts stacked (its ``stacked_names``) where the checkpoint holds them
+    per expert."""
     slots = {}
     for prefix, module in model.named_modules():
+        if not getattr(module, "per_expert_checkpoint", True):
+            continue
         for name in getattr(module, "stacked_names", ()):
             for e in range(getattr(module, name).shape[0]):
                 slots[f"{prefix}.{e}.{name}.weight"] = (f"{prefix}.{name}", e)

@@ -1,4 +1,4 @@
-"""Leaf modules of the port: Linear, Embedding, RMSNorm.
+"""Leaf modules of the port: Linear, Embedding, RMSNorm, LayerNorm.
 
 Port of the leaf modules in ``transformers_tpu/core/module.py`` as
 ``nn.Module``s. Parameters are created on the given device, uninitialised;
@@ -136,4 +136,30 @@ class RMSNorm(nn.Module):
         h = x.float()
         h = h * torch.rsqrt(h.square().mean(dim=-1, keepdim=True) + self.eps)
         h = h * (self.weight.float() + self.scale_offset)
+        return h.to(self.dtype)
+
+
+class LayerNorm(nn.Module):
+    """Layer norm with a scale and a bias (JAX ``LayerNorm``, torch-compatible):
+    mean, variance and the affine map in float32, then one cast to the
+    compute dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, *, dtype=torch.float32,
+                 param_dtype=torch.float32, device=None):
+        super().__init__()
+        self.dim = dim
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty((dim,), dtype=param_dtype, device=device))
+        self.bias = nn.Parameter(torch.empty((dim,), dtype=param_dtype, device=device))
+
+    @torch.no_grad()
+    def init_parameter(self, name: str, generator: torch.Generator) -> None:
+        getattr(self, name).fill_(1.0 if name == "weight" else 0.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x.float()
+        mean = h.mean(dim=-1, keepdim=True)
+        var = (h - mean).square().mean(dim=-1, keepdim=True)
+        h = (h - mean) * torch.rsqrt(var + self.eps) * self.weight.float() + self.bias.float()
         return h.to(self.dtype)

@@ -1,7 +1,8 @@
 """Auto classes (port of ``transformers_tpu/models/auto``), for the families
 the port has: ``llama`` and the families built on its skeleton, ``mistral``,
 ``qwen2``, ``qwen3``, ``phi3``, ``gemma``, ``gemma2`` and ``gemma3_text``, and
-the mixture-of-experts ``mixtral``, ``qwen2_moe`` and ``qwen3_moe``."""
+the mixture-of-experts ``mixtral``, ``qwen2_moe``, ``qwen3_moe``, ``olmoe``,
+``phimoe``, ``laguna`` and ``gpt_oss``."""
 
 from __future__ import annotations
 
@@ -12,10 +13,14 @@ from ...configuration_utils import CONFIG_NAME, PretrainedConfig
 from ..gemma import GemmaConfig, GemmaForCausalLM
 from ..gemma2 import Gemma2Config, Gemma2ForCausalLM
 from ..gemma3 import Gemma3ForCausalLM, Gemma3TextConfig
+from ..gpt_oss import GptOssConfig, GptOssForCausalLM
+from ..laguna import LagunaConfig, LagunaForCausalLM
 from ..llama import LlamaConfig, LlamaForCausalLM
 from ..mistral import MistralConfig, MistralForCausalLM
 from ..mixtral import MixtralConfig, MixtralForCausalLM
+from ..olmoe import OlmoeConfig, OlmoeForCausalLM
 from ..phi3 import Phi3Config, Phi3ForCausalLM
+from ..phimoe import PhimoeConfig, PhimoeForCausalLM
 from ..qwen2 import Qwen2Config, Qwen2ForCausalLM
 from ..qwen2_moe import Qwen2MoeConfig, Qwen2MoeForCausalLM
 from ..qwen3 import Qwen3Config, Qwen3ForCausalLM
@@ -25,13 +30,15 @@ CONFIG_MAPPING = {"llama": LlamaConfig, "mistral": MistralConfig, "qwen2": Qwen2
                   "qwen3": Qwen3Config, "phi3": Phi3Config, "gemma": GemmaConfig,
                   "gemma2": Gemma2Config, "gemma3_text": Gemma3TextConfig,
                   "mixtral": MixtralConfig, "qwen2_moe": Qwen2MoeConfig,
-                  "qwen3_moe": Qwen3MoeConfig}
+                  "qwen3_moe": Qwen3MoeConfig, "olmoe": OlmoeConfig, "phimoe": PhimoeConfig,
+                  "laguna": LagunaConfig, "gpt_oss": GptOssConfig}
 MODEL_FOR_CAUSAL_LM_MAPPING = {
     "llama": LlamaForCausalLM, "mistral": MistralForCausalLM, "qwen2": Qwen2ForCausalLM,
     "qwen3": Qwen3ForCausalLM, "phi3": Phi3ForCausalLM, "gemma": GemmaForCausalLM,
     "gemma2": Gemma2ForCausalLM, "gemma3_text": Gemma3ForCausalLM,
     "mixtral": MixtralForCausalLM, "qwen2_moe": Qwen2MoeForCausalLM,
-    "qwen3_moe": Qwen3MoeForCausalLM}
+    "qwen3_moe": Qwen3MoeForCausalLM, "olmoe": OlmoeForCausalLM, "phimoe": PhimoeForCausalLM,
+    "laguna": LagunaForCausalLM, "gpt_oss": GptOssForCausalLM}
 
 
 def _lookup(mapping: dict, model_type):

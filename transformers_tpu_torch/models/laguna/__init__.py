@@ -1,0 +1,9 @@
+from .configuration_laguna import LagunaConfig
+from .modeling_laguna import (
+    LagunaAttention,
+    LagunaDecoderLayer,
+    LagunaForCausalLM,
+    LagunaModel,
+    LagunaSparseMoeBlock,
+    LagunaTopKRouter,
+)

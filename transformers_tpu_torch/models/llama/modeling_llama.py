@@ -6,8 +6,8 @@ src/transformers/models/llama/modeling_llama.py: RMSNorm :53, rotary
 :347, ForCausalLM :421). BSHD attention layout, masks as data, f32 softmax
 and norms. Subclass hooks are kept as in the JAX skeleton
 (``build_projections``, ``project_qkv``, ``post_rope_qk``, ``rope_fn``,
-``extra_attn_kwargs``, ``q_norm``/``k_norm``, ``compute_rope``/``rope_for_layer``,
-``embed``).
+``extra_attn_kwargs``, ``q_norm``/``k_norm`` and ``norm_qk``, ``project_out``,
+``compute_rope``/``rope_for_layer``, ``embed``).
 
 Attention routing: a static prefill (``cache_position`` the int 0, S > 1)
 attends over the local k/v through the registry, whose default is the flash
@@ -121,7 +121,9 @@ class LlamaAttention(nn.Module):
         v = self.v_proj(hidden).reshape(b, s, self.num_kv_heads, self.head_dim)
         return q, k, v
 
-    def project_out(self, out):
+    def project_out(self, out, hidden):
+        """The output projection of the heads' output ``out`` [B, S, H·D];
+        ``hidden`` is the block's input (Laguna gates the heads with it)."""
         return self.o_proj(out)
 
     def extra_attn_kwargs(self) -> dict:
@@ -131,6 +133,15 @@ class LlamaAttention(nn.Module):
 
     def post_rope_qk(self, q, k):
         """Hook applied to q/k after rope (HunYuan post-rope head norms)."""
+        return q, k
+
+    def norm_qk(self, q, k):
+        """The per-head ``q_norm``/``k_norm`` on q/k [B, S, heads, D], where the
+        family has them (OLMoE normalizes the full width in ``project_qkv``)."""
+        if self.q_norm is not None:
+            q = self.q_norm(q)
+        if self.k_norm is not None:
+            k = self.k_norm(k)
         return q, k
 
     def _fused_decode(self, q, k, v, cos, sin, kwargs, cache, cache_position):
@@ -182,10 +193,7 @@ class LlamaAttention(nn.Module):
                 attn_args: dict[str, Any], cache, cache_position) -> torch.Tensor:
         b, s, _ = hidden.shape
         q, k, v = self.project_qkv(hidden)
-        if self.q_norm is not None:
-            q = self.q_norm(q)
-        if self.k_norm is not None:
-            k = self.k_norm(k)
+        q, k = self.norm_qk(q, k)
 
         kwargs = dict(attn_args)
         kwargs["sliding_window"] = self.sliding_window
@@ -226,7 +234,7 @@ class LlamaAttention(nn.Module):
                 k_full, v_full = cache.layer(self.layer_idx)
                 out = cached_attention_bhsd(q, k_full.to(self.dtype), v_full.to(self.dtype),
                                             scale=self.scale, **kwargs)
-        return self.project_out(out.reshape(b, s, self.num_heads * self.head_dim))
+        return self.project_out(out.reshape(b, s, self.num_heads * self.head_dim), hidden)
 
 
 class LlamaDecoderLayer(nn.Module):

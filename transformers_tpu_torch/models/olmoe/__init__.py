@@ -1,0 +1,8 @@
+from .configuration_olmoe import OlmoeConfig
+from .modeling_olmoe import (
+    OlmoeAttention,
+    OlmoeDecoderLayer,
+    OlmoeForCausalLM,
+    OlmoeModel,
+    OlmoeSparseMoeBlock,
+)

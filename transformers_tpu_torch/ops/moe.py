@@ -193,9 +193,10 @@ class Experts(nn.Module):
 
 
 class SparseMoeBlock(nn.Module):
-    """Router (``gate``, a bias-free Linear to E logits) and ``experts``:
-    top-k routing in float32, then the route the config's
-    ``experts_implementation`` names, read at every call."""
+    """Router (``gate``, a bias-free Linear to E logits) and ``experts``: the
+    routing (``route``; top-k in float32 unless the family routes otherwise),
+    then the route the config's ``experts_implementation`` names, read at
+    every call."""
 
     def __init__(self, config, num_experts: int, intermediate_size: int, renormalize: bool,
                  names=("gate_proj", "up_proj", "down_proj"), *, dtype, param_dtype, device):
@@ -209,9 +210,15 @@ class SparseMoeBlock(nn.Module):
         self.experts = Experts(num_experts, config.hidden_size, intermediate_size,
                                config.hidden_act, names, **kw)
 
+    def route(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(weights [T, k], indices [T, k]) for tokens x [T, H]; a family with
+        a router of its own (Phi-3.5-MoE's sparsemixer, Laguna's sigmoid
+        scores) overrides this."""
+        return topk_routing(self.gate(x), self.top_k, renormalize=self.renormalize)
+
     def routed(self, x: torch.Tensor) -> torch.Tensor:
         """The experts' weighted sum for tokens x [T, H]."""
-        weights, idx = topk_routing(self.gate(x), self.top_k, renormalize=self.renormalize)
+        weights, idx = self.route(x)
         return self.experts(x, weights, idx, getattr(self.config, "experts_implementation", None))
 
     def forward(self, hidden: torch.Tensor) -> torch.Tensor:
