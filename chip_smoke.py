@@ -67,7 +67,10 @@ Phases, in order; any failure exits non-zero:
     (Qwen3-30B-A3B: 32 query heads over 4 kv heads, a group of 8, head_dim
     128) and phase (k)'s (OLMoE-1B-7B's group of 1, 16 heads over 16, at
     phase (c)'s shapes; Laguna's group of 6, 48 over 8, with its 512-slot
-    window at Gemma-3-12B's long contexts). The mixture-of-experts products
+    window at Gemma-3-12B's long contexts) and phase (l)'s (K1 and K6 at
+    ERNIE-4.5-21B-A3B's odd group of 5, 20 heads over 4, and at Command-R7B's
+    4096-slot window over prompts of 5120 and contexts of 4633-5131; K2 at
+    MiniMax-M2's group of 6 with no window). The mixture-of-experts products
     (``ops/moe.py``; library calls, no kernel of the port) are held at
     Qwen3-30B-A3B's layer (128 experts of 768 over hidden 2048, 8 a token)
     at 8 and 1024 rows: the ``dense`` and
@@ -198,9 +201,10 @@ Phases, in order; any failure exits non-zero:
     against step loop, K1 16 per prefill and K2 16 per step, timed,
     profiled, split by span), the routes' logits, continuous batching on
     the ragged route (K1, K6 exact), the tokens teacher-forced against
-    float32. gpt-oss-20b at full width and depth (openai/gpt-oss-20b: 24
-    layers alternating window 128 and full, 64 over 8 heads at head_dim 64,
-    sinks, 32 experts of 2880, 4 a token, yarn; 41.8 GB): the round trip
+    float32. gpt-oss-20b at full width, its depth cut to 8 of 24 layers
+    (openai/gpt-oss-20b: layers alternating window 128 and full, 64 over 8
+    heads at head_dim 64, sinks, 32 experts of 2880, 4 a token, yarn; 41.8
+    GB at 24 layers, ~15 GB at 8): the round trip
     (its stacked experts whole), static generate graph against step loop
     with no kernel launched (no kernel takes its sinks, as in the JAX
     package), timed, profiled and split by span with the eager attention
@@ -209,6 +213,23 @@ Phases, in order; any failure exits non-zero:
     rope keeps its decode step off K2; layer 0 dense) at 4 layers of their
     widths, as phase (i)'s families. Each MoE teacher-force also prints how
     often the bf16 path's router picks other experts than float32's;
+(l) (run after (k), when no other model is held) the MoE families that
+    needed a dense base first, and the bases. ERNIE-4.5-21B-A3B at full width
+    and depth (baidu/ERNIE-4.5-21B-A3B-PT: 28 layers, 20 over 4 heads, layer
+    0 dense, 64 experts of 1536, 6 a token, 2 shared experts, a float32
+    router, interleaved rope; 43.7 GB) as phase (k)'s OLMoE: static generate
+    under both routes (K1 28 per prefill; K2 never, as the JAX package keeps
+    interleaved rope off its fused decode: the eager cached attention), the
+    routes' logits, continuous batching, teacher-forced. Command-R7B at full
+    width and depth (CohereForAI/c4ai-command-r7b-12-2024: 32 layers, window
+    4096 on three of each four, the fourth with no rope; logit_scale 0.25;
+    tied 256000-token vocabulary): static generate at batch 2 over 5120-slot
+    prompts left-padded by 0 and 512, 32 new (K1 32, K2 never), timed,
+    profiled, split by span, peak memory; continuous batching of 8 requests
+    of 4600-5100 tokens (K1 and K6 with the window); teacher-forced. Then
+    OLMo-2-1124-7B, MiniMax-M2, Command-R v01, Cohere2-MoE, HunYuan-7B (alpha
+    rope) and Hunyuan-A13B at 4 layers of their widths and ERNIE-4.5-0.3B at
+    its 18, as phase (i)'s families (K2 only for OLMo-2 and MiniMax-M2);
 (e) training at the same width, depth cut to 4 layers (f32 weights, bf16
     compute, random from ``--seed``), after (c)/(d)'s model is freed: layer 0's
     q/k/v gradients and the loss of one row through the kernel path held
@@ -3321,9 +3342,13 @@ def _graph_vs_step_loop(label, model, graph, eager, expected, new: int = NEW,
 def kernel_layers(model) -> tuple:
     """(layers whose static prefill takes K1, layers whose static decode step
     takes K2), as the skeleton routes them: no kernel takes gpt-oss's sinks
-    (the JAX package sends them to its XLA path), and K2 takes no softcap
-    (Gemma-2) and no rope table narrower than the head (Laguna's full
-    layers, as the JAX package's fused-decode gate)."""
+    (the JAX package sends them to its XLA path), and K2 takes, as the JAX
+    package's fused-decode gate, no softcap (Gemma-2), no rope table narrower
+    than the head (Laguna's full layers), no layer without rope (Cohere2's
+    full layers), and no family that rotates otherwise (ERNIE-4.5 and
+    Cohere's interleaved pairs) or normalizes q/k after rope (HunYuan)."""
+    from transformers_tpu_torch.models.llama.modeling_llama import LlamaAttention
+
     rope = model.model.compute_rope(torch.zeros((1, 1), dtype=torch.long, device=model.device))
     k1 = k2 = 0
     for i, layer in enumerate(model.model.layers):
@@ -3332,7 +3357,10 @@ def kernel_layers(model) -> tuple:
             continue
         k1 += 1
         cos = model.model.rope_for_layer(rope, i)[0]
-        k2 += attn.logit_cap is None and cos.shape[-1] == attn.head_dim
+        k2 += (attn.logit_cap is None and cos.shape[-1] == attn.head_dim
+               and getattr(attn, "apply_rope", True)
+               and type(attn).rope_fn is LlamaAttention.rope_fn
+               and type(attn).post_rope_qk is LlamaAttention.post_rope_qk)
     return k1, k2
 
 
@@ -3985,6 +4013,9 @@ GPT_OSS = dict(vocab_size=201088, hidden_size=2880, intermediate_size=2880, num_
                              "original_max_position_embeddings": 4096},
                rms_norm_eps=1e-5, attention_bias=True, max_position_embeddings=131072,
                tie_word_embeddings=False)
+# its depth cut to 8 of 24 (4 sliding, 4 full), which keeps the whole smoke
+# near 900 s beside phase (l)
+GPT_OSS_LAYERS = 8
 # Phi-3.5-MoE and Laguna at 4 layers of their widths, through check_families
 MOE_FAMILY_GEOMETRIES = {
     # PhimoeConfig's defaults are microsoft/Phi-3.5-MoE-instruct's widths (16
@@ -4007,6 +4038,83 @@ MOE_FAMILY_GEOMETRIES = {
         shared_expert_intermediate_size=512, max_position_embeddings=131072,
         tie_word_embeddings=False)),
 }
+# --------------------------------------------------------------------- (l)
+# ERNIE-4.5-21B-A3B at full width and depth: baidu/ERNIE-4.5-21B-A3B-PT's
+# config.json (28 layers, 20 over 4 heads at head_dim 128, layer 0 dense at
+# 12288, 27 MoE layers of 64 experts of 1536, top 6, 2 shared experts, tied
+# 103424-token vocabulary, interleaved rope at theta 500000): 21.83e9
+# parameters, 43.7 GB in bf16
+ERNIE_MOE_SOURCE = "baidu/ERNIE-4.5-21B-A3B-PT"
+ERNIE_MOE = dict(vocab_size=103424, hidden_size=2560, intermediate_size=12288,
+                 num_hidden_layers=28, num_attention_heads=20, num_key_value_heads=4,
+                 head_dim=128, rms_norm_eps=1e-5, rope_theta=500000.0,
+                 max_position_embeddings=131072, use_bias=False, tie_word_embeddings=True,
+                 moe_num_experts=64, moe_k=6, moe_intermediate_size=1536,
+                 moe_num_shared_experts=2, moe_layer_start_index=1, moe_layer_end_index=27,
+                 moe_layer_interval=1)
+# Command-R7B at full width and depth: CohereForAI/c4ai-command-r7b-12-2024's
+# config.json (32 layers, every fourth full attention with no rope, the others
+# sliding at 4096 with interleaved rope; 32 over 8 heads at head_dim 128;
+# logit_scale 0.25; tied 256000-token vocabulary): 8.03e9 parameters
+CR7B_SOURCE = "CohereForAI/c4ai-command-r7b-12-2024"
+CR7B = dict(vocab_size=256000, hidden_size=4096, intermediate_size=14336, num_hidden_layers=32,
+            num_attention_heads=32, num_key_value_heads=8, layer_norm_eps=1e-5,
+            rope_theta=50000.0, sliding_window=4096, sliding_window_pattern=4,
+            logit_scale=0.25, max_position_embeddings=132096, tie_word_embeddings=True)
+# static generate: 2 prompts of 5120 slots left-padded by 0 and 512, 32 new;
+# CB: 8 requests of 4600-5100 tokens, 32 new, 16 steps a sync, pages of 32
+CR7B_PROMPT, CR7B_NEW, CR7B_PADS = 5120, 32, (0, 512)
+CR7B_CB_REQUESTS, CR7B_CB_NEW, CR7B_CB_LENS = 8, 32, (4600, 5100)
+CR7B_CB_ENGINE = dict(block_size=32, max_batch=8, token_budget=512, num_blocks=1320,
+                      max_context=5152)
+# phase (b)'s K6 contexts in that traffic's range (prompt + new tokens)
+CR7B_CB_CONTEXTS = (4633, 4702, 4788, 4851, 4906, 4977, 5044, 5131)
+# the 4-layer families of this phase, through check_families (ERNIE-4.5-0.3B
+# at its full 18 layers: FULL_DEPTH)
+BASE_FAMILY_GEOMETRIES = {
+    "olmo2": ("allenai/OLMo-2-1124-7B", dict(
+        vocab_size=100352, hidden_size=4096, intermediate_size=11008, num_hidden_layers=32,
+        num_attention_heads=32, num_key_value_heads=32, rms_norm_eps=1e-6,
+        rope_theta=500000.0, max_position_embeddings=4096, tie_word_embeddings=False)),
+    # MiniMaxM2Config's defaults are the published widths (62 layers, 48 over
+    # 8 heads, 256 experts of 1536, top 8): at 4 layers ~29 GB of experts
+    "minimax_m2": ("MiniMaxM2Config's defaults (MiniMaxAI/MiniMax-M2)", dict(
+        vocab_size=200064, hidden_size=3072, intermediate_size=1536, num_hidden_layers=62,
+        num_attention_heads=48, num_key_value_heads=8, head_dim=128, rms_norm_eps=1e-6,
+        num_local_experts=256, num_experts_per_tok=8, rope_theta=5_000_000.0,
+        max_position_embeddings=196608, tie_word_embeddings=False)),
+    # CohereConfig's defaults are Command-R v01's widths (64 heads, no GQA)
+    "cohere": ("CohereConfig's defaults (CohereForAI/c4ai-command-r-v01)", dict(
+        vocab_size=256000, hidden_size=8192, intermediate_size=22528, num_hidden_layers=40,
+        num_attention_heads=64, logit_scale=0.0625, layer_norm_eps=1e-5,
+        max_position_embeddings=8192, tie_word_embeddings=True)),
+    # Cohere2MoeConfig's defaults: 8 experts of 22528, top 2, every layer sparse,
+    # window 4096 on three of each four layers
+    "cohere2_moe": ("Cohere2MoeConfig's defaults", dict(
+        vocab_size=256000, hidden_size=8192, intermediate_size=22528, num_hidden_layers=40,
+        num_attention_heads=64, num_experts=8, num_experts_per_tok=2, sliding_window=4096,
+        sliding_window_pattern=4, logit_scale=0.0625, max_position_embeddings=8192,
+        tie_word_embeddings=True)),
+    "ernie4_5": ("baidu/ERNIE-4.5-0.3B-PT", dict(
+        vocab_size=103424, hidden_size=1024, intermediate_size=3072, num_hidden_layers=18,
+        num_attention_heads=16, num_key_value_heads=2, head_dim=128, rms_norm_eps=1e-5,
+        rope_theta=500000.0, max_position_embeddings=131072, use_bias=False,
+        tie_word_embeddings=True)),
+    # HunYuanDenseV1Config's defaults (Hunyuan-7B's widths) with the alpha rope
+    "hunyuan_v1_dense": ("HunYuanDenseV1Config's defaults, alpha 50 (tencent/Hunyuan-7B)", dict(
+        vocab_size=290943, hidden_size=4096, intermediate_size=11008, num_hidden_layers=32,
+        num_attention_heads=32, rms_norm_eps=1e-5, rope_scaling={"type": "dynamic",
+                                                                  "alpha": 50.0},
+        max_position_embeddings=2048, tie_word_embeddings=False)),
+    # 64 experts of 3072, top 8, and one shared MLP of 3072 in every layer
+    "hunyuan_v1_moe": ("tencent/Hunyuan-A13B-Instruct", dict(
+        vocab_size=128167, hidden_size=4096, intermediate_size=3072, num_hidden_layers=32,
+        num_attention_heads=32, num_key_value_heads=8, head_dim=128, rms_norm_eps=1e-5,
+        num_experts=64, moe_topk=8, rope_theta=10000.0,
+        rope_scaling={"type": "dynamic", "alpha": 1000.0}, max_position_embeddings=32768,
+        tie_word_embeddings=False)),
+}
+FULL_DEPTH = ("ernie4_5",)
 # the families' shapes at which phase (b) holds and times K1, K2 and K6
 FAMILY_KERNEL_SHAPES = {
     # K1: (b, s, h, kvh, d, left pads, window)
@@ -4020,6 +4128,11 @@ FAMILY_KERNEL_SHAPES = {
         # prompts, so that its 512-slot window bites)
         "olmoe_1b_7b_prefill": (BATCH, PROMPT, 16, 16, 128, PADS, None),
         "laguna_prefill_window_512": (len(G3_PADS), G3_PROMPT, 48, 8, 128, G3_PADS, 512),
+        # phase (l)'s odd group of 5 (ERNIE-4.5-21B-A3B, 20 over 4) and the
+        # 4096-slot window over Command-R7B's 5120-slot prompts
+        "ernie4_5_21b_a3b_prefill": (BATCH, PROMPT, 20, 4, 128, PADS, None),
+        "command_r7b_prefill_window_4096": (len(CR7B_PADS), CR7B_PROMPT, 32, 8, 128, CR7B_PADS,
+                                            4096),
     },
     # K2: (b, h, kvh, d, s, pos, starts, window)
     "fused_decode": {
@@ -4032,6 +4145,9 @@ FAMILY_KERNEL_SHAPES = {
         "olmoe_1b_7b_decode": (BATCH, 16, 16, 128, PROMPT + NEW, PROMPT + NEW - 1, PADS, None),
         "laguna_decode_window_512": (len(G3_PADS), 48, 8, 128, G3_PROMPT + G3_NEW,
                                      G3_PROMPT + G3_NEW - 1, G3_PADS, 512),
+        # MiniMax-M2's group of 6 with no window (phase l, 4 layers)
+        "minimax_m2_decode": (len(FAMILY_PADS), 48, 8, 128, FAMILY_PROMPT + FAMILY_NEW,
+                              FAMILY_PROMPT + FAMILY_NEW - 1, FAMILY_PADS, None),
     },
     # K6: (n, h, kvh, d, block size, context lengths (None: drawn in G3_CB_LENS), window)
     "paged_decode": {
@@ -4040,6 +4156,8 @@ FAMILY_KERNEL_SHAPES = {
         "qwen3_30b_a3b_cb": (len(MOE_CB_CONTEXTS), 32, 4, 128, 32, MOE_CB_CONTEXTS, None),
         "olmoe_1b_7b_cb": (len(MOE_CB_CONTEXTS), 16, 16, 128, 32, MOE_CB_CONTEXTS, None),
         "laguna_cb_window_512": (G3_CB_REQUESTS, 48, 8, 128, 32, None, 512),
+        "ernie4_5_21b_a3b_cb": (len(MOE_CB_CONTEXTS), 20, 4, 128, 32, MOE_CB_CONTEXTS, None),
+        "command_r7b_cb_window_4096": (CR7B_CB_REQUESTS, 32, 8, 128, 32, CR7B_CB_CONTEXTS, 4096),
     },
 }
 
@@ -4375,17 +4493,19 @@ def moe_family_times(label: str, model, ids, mask, new: int, hbm: float, card: s
 def check_families(seed: int, card: str, geometries: dict = FAMILY_GEOMETRIES) -> dict:
     """Phase (i), part 2 (and phase (k)'s ``MOE_FAMILY_GEOMETRIES``): each
     family at 4 layers of its published width (bf16, random weights; the MoE
-    families on the default dense route): static generate at batch 4,
-    prompt 128, 16 new tokens, graph against step loop bitwise with exact
-    launches (``kernel_layers``: K2 never for Gemma2, whose softcap keeps
-    decode on the plain path, nor on Laguna's full layers), then the tokens
-    teacher-forced; an MoE family is also timed (``moe_family_times``).
+    families on the default dense route; a family in ``FULL_DEPTH`` at all
+    its layers): static generate at batch 4, prompt 128, 16 new tokens,
+    graph against step loop bitwise with exact launches (``kernel_layers``:
+    K2 never for Gemma2, whose softcap keeps decode on the plain path, nor on
+    Laguna's full layers, nor for the families whose rope or post-rope norms
+    JAX keeps off its fused decode), then the tokens teacher-forced; an MoE
+    family is also timed (``moe_family_times``).
     Returns each family's launch counts."""
     paths, hbm = {}, None
     for model_type, (source, geometry) in geometries.items():
         t0 = time.perf_counter()
-        model = build_decoder(geometry, FAMILY_LAYERS, torch.bfloat16, seed,
-                              model_type=model_type)
+        layers = (geometry["num_hidden_layers"] if model_type in FULL_DEPTH else FAMILY_LAYERS)
+        model = build_decoder(geometry, layers, torch.bfloat16, seed, model_type=model_type)
         ids, mask = generate_inputs(seed, model.config.vocab_size, FAMILY_PROMPT, FAMILY_PADS)
         head_dim = model.model.layers[0].self_attn.head_dim
         out, counts = generate_graph_vs_loop(model_type, model, ids, mask, FAMILY_NEW, card)
@@ -4393,13 +4513,16 @@ def check_families(seed: int, card: str, geometries: dict = FAMILY_GEOMETRIES) -
         if moe:
             hbm = hbm or measured_hbm_rate()
             moe_family_times(model_type, model, ids, mask, FAMILY_NEW, hbm, card)
+        # an MoE family's float32 run widens its bf16 weights at each call:
+        # a float32 copy of MiniMax-M2's or Cohere2-MoE's 4 layers would not fit
         force = teacher_force_moe if moe else teacher_force
-        force(model, out, mask, prompt=FAMILY_PROMPT, label=f"{model_type} teacher-force")
+        force(model, out, mask, prompt=FAMILY_PROMPT, label=f"{model_type} teacher-force",
+              f32_in_place=moe)
         paths[f"{model_type}_generate"] = counts
         del model
         gc.collect()
         torch.cuda.empty_cache()
-        print(f"[families] {model_type} ({source}, {FAMILY_LAYERS} of "
+        print(f"[families] {model_type} ({source}, {layers} of "
               f"{geometry['num_hidden_layers']} layers, head_dim {head_dim}; K1 on "
               f"{counts['flash_fwd']} layers, K2 on {counts['fused_decode'] // (FAMILY_NEW - 1)}): "
               f"{time.perf_counter() - t0:.1f} s")
@@ -4436,7 +4559,8 @@ def expert_modules() -> tuple:
 
 def moe_stream(model, run, rows: int = BATCH) -> dict:
     """The decode step's weight stream: every weight but the embedding table
-    (a few rows read) and the experts (``fixed`` bytes), one expert's bytes,
+    (a few rows read; counted where it is also the tied lm_head, read whole)
+    and the experts (``fixed`` bytes), one expert's bytes,
     the number of expert blocks (``blocks``), and the experts a block each
     route reads: all on the dense route, and on the ragged one as many as a
     decode step's ``rows`` pick, on average over one uncaptured ``run``
@@ -4446,11 +4570,12 @@ def moe_stream(model, run, rows: int = BATCH) -> dict:
     e = next(iter(blocks[0].parameters())).shape[0]
     params = sum(p.numel() for p in model.parameters())
     itemsize = model.model.embed_tokens.weight.element_size()
+    table = 0 if model.config.tie_word_embeddings else model.model.embed_tokens.weight.numel()
     picked = experts_touched(run, rows)
     print(f"[moe stream] decode steps' rows touch {min(picked)}-{max(picked)} experts a layer, "
           f"{sum(picked) / len(picked):.2f} on average, of {e} (the dense route reads all); "
           f"the KV cache is left out of the bound")
-    return dict(fixed=itemsize * (params - in_experts - model.model.embed_tokens.weight.numel()),
+    return dict(fixed=itemsize * (params - in_experts - table),
                 expert=itemsize * in_experts / (len(blocks) * e), blocks=len(blocks),
                 touched={"dense": e, "ragged": sum(picked) / len(picked)})
 
@@ -4502,20 +4627,23 @@ SPAN = "span::"
 PHASE = "phase::"
 OUR_KERNELS = re.compile(r"(flash_fwd|fused_decode|paged_split|paged_combine)\w*kernel")
 GEMM_KERNELS = re.compile(r"gemm|cutlass|xmma|cublas|nvjet", re.I)
-SPAN_NAMES = ("experts", "router", "attention", "eager attention", "norms", "lm_head", "other")
+SPAN_NAMES = ("experts", "shared experts", "router", "attention", "eager attention", "norms",
+              "lm_head", "other")
+SHARED_EXPERTS = ("shared_experts", "shared_expert", "shared_mlp")  # an MoE block's children
 
 
 @contextlib.contextmanager
-def labelled_spans(phases: dict):
+def labelled_spans(phases: dict, model=None):
     """Each call of the attention block, the eager attention inside it (where
-    no kernel takes the call: gpt-oss's sinks), the MoE block (the router and
-    the experts' call), the experts, every RMSNorm and the lm_head runs inside
-    a ``record_function`` span named for it, and each of ``phases`` ((name,
-    object, method) triples) inside one named for the phase, so that a
-    profile can credit each kernel to the innermost span and the phase that
-    launched it."""
+    no kernel takes the call: gpt-oss's sinks, the static decode of families
+    that K2 does not take), the MoE block (the router and the experts' call),
+    the experts, ``model``'s shared experts (``SHARED_EXPERTS``), every norm
+    and the lm_head runs inside a ``record_function`` span named for it, and
+    each of ``phases`` ((name, object, method) triples) inside one named for
+    the phase, so that a profile can credit each kernel to the innermost span
+    and the phase that launched it."""
     from torch.profiler import record_function
-    from transformers_tpu_torch.core.module import RMSNorm
+    from transformers_tpu_torch.core.module import HeadwiseLayerNorm, LayerNorm, RMSNorm
     from transformers_tpu_torch.models.gpt_oss.modeling_gpt_oss import GptOssExperts, GptOssMLP
     from transformers_tpu_torch.models.llama import modeling_llama
     from transformers_tpu_torch.models.llama.modeling_llama import (LlamaAttention,
@@ -4536,9 +4664,14 @@ def labelled_spans(phases: dict):
                (SparseMoeBlock, "forward", SPAN + "router"),
                (GptOssMLP, "forward", SPAN + "router"),
                (Experts, "forward", SPAN + "experts"), (GptOssExperts, "forward", SPAN + "experts"),
-               (RMSNorm, "forward", SPAN + "norms"),
+               (RMSNorm, "forward", SPAN + "norms"), (LayerNorm, "forward", SPAN + "norms"),
+               (HeadwiseLayerNorm, "forward", SPAN + "norms"),
                (LlamaForCausalLM, "compute_logits", SPAN + "lm_head")]
     targets += [(owner, method, PHASE + phase) for phase, owner, method in phases]
+    blocks = [m for m in (model.modules() if model is not None else ())
+              if isinstance(m, (SparseMoeBlock, GptOssMLP))]
+    targets += [(getattr(m, name), "forward", SPAN + "shared experts") for m in blocks
+                for name in SHARED_EXPERTS if getattr(m, name, None) is not None]
     patched = []
     for owner, method, name in targets:
         own = method in vars(owner)  # else an instance's bound method, or inherited
@@ -4554,7 +4687,7 @@ def labelled_spans(phases: dict):
                 setattr(owner, method, fn)
 
 
-def moe_breakdown(label: str, run, phases: list, card: str) -> dict:
+def moe_breakdown(label: str, run, phases: list, card: str, model=None) -> dict:
     """Device time of one uncaptured ``run`` (a captured graph replays the
     same kernels) by phase and by what launched each kernel (``SPAN_NAMES``):
     the attention block, the router (the gate and top-k; the rest of the MoE
@@ -4571,7 +4704,7 @@ def moe_breakdown(label: str, run, phases: list, card: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with labelled_spans(phases), profile(activities=[ProfilerActivity.CPU,
+    with labelled_spans(phases, model), profile(activities=[ProfilerActivity.CPU,
                                                      ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
@@ -4681,7 +4814,8 @@ def moe_generate_route(label: str, model, route: str, ids, mask, stream_bytes, h
           f"{nbytes / hbm * 1e3 / step:.2f} of the step's time (at the published "
           f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s: {nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms) ({card})")
     moe_breakdown(f"{label} {route}", lambda: eager(max_new_tokens=MOE_SPLIT_NEW),
-                  [("prefill", StaticDecode, "prefill"), ("decode", StaticDecode, "step")], card)
+                  [("prefill", StaticDecode, "prefill"), ("decode", StaticDecode, "step")], card,
+                  model)
     return out, counts
 
 
@@ -4747,53 +4881,57 @@ def check_qwen3_moe(seed: int, card: str) -> dict:
 
 # --------------------------------------------------------------------- (k)
 def _moe_model(label: str, source: str, geometry: dict, model_type: str, seed: int,
-               hbm: float, card: str):
-    """``geometry`` at full depth in bf16, random weights from ``seed``;
-    prints its size."""
-    model = build_decoder(geometry, geometry["num_hidden_layers"], torch.bfloat16, seed,
-                          model_type=model_type)
+               hbm: float, card: str, layers: int = 0):
+    """``geometry`` in bf16, random weights from ``seed``, at ``layers`` layers
+    (0: its full depth); prints its size."""
+    full = geometry["num_hidden_layers"]
+    model = build_decoder(geometry, layers or full, torch.bfloat16, seed, model_type=model_type)
     blocks = [m for m in model.modules() if isinstance(m, expert_modules())]
     experts = sum(p.numel() for m in blocks for p in m.parameters())
     params = sum(p.numel() for p in model.parameters())
-    print(f"[{label}] {source}: {model.config.num_hidden_layers} layers (no cut), "
+    depth = "no cut" if model.config.num_hidden_layers == full else f"cut from {full}"
+    print(f"[{label}] {source}: {model.config.num_hidden_layers} layers ({depth}), "
           f"{params / 1e9:.3f} B parameters ({experts / 1e9:.3f} B in the experts), "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated; HBM copy rate measured "
           f"{hbm / 1e12:.3f} TB/s ({card})")
     return model
 
 
-def check_olmoe(seed: int, card: str, hbm: float) -> dict:
-    """Phase (k), OLMoE-1B-7B at full width and depth (bf16, random weights
-    from ``seed``): the 2-layer checkpoint round trip (one tensor per expert);
-    static generate at phase (c)'s shape under each route, graph against step
-    loop, timed, profiled and split by span; the routes' prompt logits
-    against each other and float32; continuous batching on the ragged route
-    (phase (j)'s traffic), graph engine against uncaptured; the generated
-    tokens teacher-forced against float32 from the same bf16 weights. Returns
-    the paths' launches."""
-    check_load_path(seed, card, "olmoe", OLMOE)
-    model = _moe_model("olmoe", OLMOE_SOURCE, OLMOE, "olmoe", seed, hbm, card)
+def check_moe_model(label: str, source: str, geometry: dict, seed: int, card: str,
+                    hbm: float) -> dict:
+    """A ``label`` (its ``model_type``) MoE model at full width and depth (bf16,
+    random weights from ``seed``; phase (k)'s OLMoE-1B-7B, phase (l)'s
+    ERNIE-4.5-21B-A3B): the 2-layer checkpoint round trip (one tensor per
+    expert); static generate at phase (c)'s shape under each route, graph
+    against step loop, timed, profiled and split by span; the routes' prompt
+    logits against each other and float32; continuous batching on the ragged
+    route (phase (j)'s traffic), graph engine against uncaptured; the
+    generated tokens teacher-forced against float32 from the same bf16
+    weights. Returns the paths' launches."""
+    check_load_path(seed, card, label, geometry)
+    model = _moe_model(label, source, geometry, label, seed, hbm, card)
     vocab = model.config.vocab_size
     ids, mask = generate_inputs(seed, vocab)
     eager = _generate_runs(model, ids, mask, NEW)[1]
     stream = moe_stream(model, lambda: eager(max_new_tokens=NEW))
-    runs = {route: moe_generate_route("olmoe", model, route, ids, mask, stream, hbm, card)
+    runs = {route: moe_generate_route(label, model, route, ids, mask, stream, hbm, card)
             for route in MOE_ROUTES}
     same = int((runs["dense"][0][:, PROMPT:] == runs["ragged"][0][:, PROMPT:]).sum())
-    print(f"[olmoe routes] greedy tokens: {same} of {BATCH * NEW} equal between the routes "
+    print(f"[{label} routes] greedy tokens: {same} of {BATCH * NEW} equal between the routes "
           f"(bf16 near-ties of random weights)")
-    moe_routes_logits("olmoe", model, ids, mask)
+    moe_routes_logits(label, model, ids, mask)
     model._decode_program = None
     gc.collect()
     torch.cuda.empty_cache()
     model.config.experts_implementation = "ragged"
-    cb = cb_graph_vs_uncaptured("olmoe cb", model, moe_cb_prompts(seed, vocab), 16, card,
+    cb = cb_graph_vs_uncaptured(f"{label} cb", model, moe_cb_prompts(seed, vocab), 16, card,
                                 new=MOE_CB_NEW)
-    paths = {"olmoe_generate": runs["ragged"][1], "olmoe_continuous_batching": cb["counts"]}
+    paths = {f"{label}_generate": runs["ragged"][1],
+             f"{label}_continuous_batching": cb["counts"]}
     del cb
     gc.collect()
     torch.cuda.empty_cache()
-    teacher_force_moe(model, runs["ragged"][0], mask, label="olmoe teacher-force",
+    teacher_force_moe(model, runs["ragged"][0], mask, label=f"{label} teacher-force",
                       f32_in_place=True)
     del model, runs
     gc.collect()
@@ -4802,16 +4940,18 @@ def check_olmoe(seed: int, card: str, hbm: float) -> dict:
 
 
 def check_gpt_oss(seed: int, card: str, hbm: float) -> dict:
-    """Phase (k), gpt-oss-20b at full width and depth (bf16, random weights
-    from ``seed``): the 2-layer checkpoint round trip (the experts' stacked
+    """Phase (k), gpt-oss-20b at full width, its depth cut to ``GPT_OSS_LAYERS``
+    (bf16, random weights from ``seed``): the 2-layer checkpoint round trip (the experts' stacked
     tensors whole); static generate at phase (c)'s shape, graph against step
     loop with no kernel launched (its sinks keep every attention call on the
     eager path, as the JAX package keeps them off its Pallas kernels), timed,
     profiled and split by span (the eager attention apart); the generated
     tokens teacher-forced against float32 from the same bf16 weights (a
-    float32 copy would take 84 GB). Returns the path's launches."""
+    float32 copy of all 24 layers would take 84 GB). Returns the path's
+    launches."""
     check_load_path(seed, card, "gpt_oss", GPT_OSS)
-    model = _moe_model("gpt_oss", GPT_OSS_SOURCE, GPT_OSS, "gpt_oss", seed, hbm, card)
+    model = _moe_model("gpt_oss", GPT_OSS_SOURCE, GPT_OSS, "gpt_oss", seed, hbm, card,
+                       GPT_OSS_LAYERS)
     ids, mask = generate_inputs(seed, model.config.vocab_size)
     eager = _generate_runs(model, ids, mask, NEW)[1]
     stream = moe_stream(model, lambda: eager(max_new_tokens=NEW))
@@ -4827,12 +4967,110 @@ def check_gpt_oss(seed: int, card: str, hbm: float) -> dict:
 
 
 def check_moe_families(seed: int, card: str) -> dict:
-    """Phase (k): OLMoE-1B-7B and gpt-oss-20b at full depth, then Phi-3.5-MoE
+    """Phase (k): OLMoE-1B-7B at full depth, gpt-oss-20b at 8 layers, then Phi-3.5-MoE
     and Laguna at 4 layers (``check_families``). Returns the paths' launches."""
     hbm = measured_hbm_rate()
-    paths = check_olmoe(seed, card, hbm)
+    paths = check_moe_model("olmoe", OLMOE_SOURCE, OLMOE, seed, card, hbm)
     paths.update(check_gpt_oss(seed, card, hbm))
     paths.update(check_families(seed, card, MOE_FAMILY_GEOMETRIES))
+    return paths
+
+
+# --------------------------------------------------------------------- (l)
+def cr7b_cb_prompts(seed: int, vocab: int) -> list:
+    rng = np.random.default_rng(seed + 16)
+    lo, hi = CR7B_CB_LENS
+    return [[int(t) for t in rng.integers(1, vocab, size=int(rng.integers(lo, hi + 1)))]
+            for _ in range(CR7B_CB_REQUESTS)]
+
+
+def check_command_r7b(seed: int, card: str, hbm: float) -> dict:
+    """Phase (l), Command-R7B at full width and depth (bf16, random weights
+    from ``seed``, ~16 GB): the 2-layer checkpoint round trip (tied: no
+    ``lm_head`` in the file); static generate at batch 2 over 5120-slot
+    prompts left-padded by 0 and 512 (the window cuts every sliding layer's
+    range), 32 new, graph against step loop bitwise (K1 32 per prefill, K2
+    never: interleaved rope and the NoPE full layers keep the decode step on
+    the eager cached attention), the graph path timed beside the step's
+    bound at the copy rate ``hbm``, profiled, split by span, with its peak
+    memory; continuous batching of 8 requests of 4600-5100 tokens (K1
+    per prefill chunk, K6 per decode step, with the window), graph engine
+    against uncaptured; then the generated tokens teacher-forced against
+    float32 from the same bf16 weights. Returns the paths' launches."""
+    from transformers_tpu_torch.generation.utils import StaticDecode
+
+    check_load_path(seed, card, "cohere2", CR7B)
+    model = build_decoder(CR7B, CR7B["num_hidden_layers"], torch.bfloat16, seed,
+                          model_type="cohere2")
+    cfg = model.config
+    full = [i for i, t in enumerate(cfg.layer_types) if t == "full_attention"]
+    print(f"[command_r7b] {CR7B_SOURCE}: {cfg.num_hidden_layers} layers (no cut), full attention "
+          f"with no rope at {full}, the others sliding at {cfg.sliding_window}; "
+          f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B parameters, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated ({card})")
+    ids, mask = generate_inputs(seed, cfg.vocab_size, CR7B_PROMPT, CR7B_PADS)
+    torch.cuda.reset_peak_memory_stats()
+    out, counts = generate_graph_vs_loop("command_r7b", model, ids, mask, CR7B_NEW, card)
+    graph, eager = _generate_runs(model, ids, mask, CR7B_NEW)
+    prefill = _median_ms(lambda: graph(max_new_tokens=1))
+    total = _median_ms(lambda: graph(max_new_tokens=CR7B_NEW))
+    step = (total - prefill) / (CR7B_NEW - 1)
+    kernels = profile_run("command_r7b (graph)", lambda: graph(max_new_tokens=CR7B_NEW), total,
+                          card)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    # a step reads every weight (the tied table whole, for the logits) and,
+    # per row, the kv slots each layer sees: the window, or the whole context
+    ctx = CR7B_PROMPT + CR7B_NEW
+    seen = sum(min(ctx, cfg.sliding_window) if t == "sliding_attention" else ctx
+               for t in cfg.layer_types)
+    head_dim = model.model.layers[0].self_attn.head_dim
+    kv = len(CR7B_PADS) * seen * 2 * cfg.num_key_value_heads * head_dim * 2
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters()) + kv
+    b = len(CR7B_PADS)
+    print(f"[command_r7b] graph: B={b} prompt={CR7B_PROMPT} new={CR7B_NEW} bf16, "
+          f"{cfg.num_hidden_layers} layers: prefill {prefill:.2f} ms, decode {step:.3f} ms/step, "
+          f"{b * 1e3 / step:.1f} decode tokens/s, {b * CR7B_NEW * 1e3 / total:.1f} tokens/s over "
+          f"the whole generate (medians of 3); device idle share {1 - busy / total:.3f}; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; the step's stream "
+          f"{nbytes / 1e9:.2f} GB (weights, and {kv / 1e9:.3f} GB of kv slots in the windows) over the measured "
+          f"{hbm / 1e12:.3f} TB/s: bound {nbytes / hbm * 1e3:.3f} ms/step, "
+          f"{nbytes / hbm * 1e3 / step:.2f} of the step's time ({card})")
+    moe_breakdown("command_r7b", lambda: eager(max_new_tokens=MOE_SPLIT_NEW),
+                  [("prefill", StaticDecode, "prefill"), ("decode", StaticDecode, "step")], card,
+                  model)
+    paths = {"command_r7b_generate": counts}
+    model._decode_program = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cb = cb_graph_vs_uncaptured("command_r7b cb", model, cr7b_cb_prompts(seed, cfg.vocab_size),
+                                16, card, new=CR7B_CB_NEW, settings=CR7B_CB_ENGINE)
+    print(f"[command_r7b cb] peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"({CR7B_CB_ENGINE['num_blocks']} pages of {CR7B_CB_ENGINE['block_size']}) ({card})")
+    paths["command_r7b_continuous_batching"] = cb["counts"]
+    del cb
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    teacher_force(model, out, mask, prompt=CR7B_PROMPT, label="command_r7b teacher-force",
+                  f32_in_place=True)
+    print(f"[command_r7b teacher-force] peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+          f"GB (the plain path's logits at every position of a 256000-token vocabulary) ({card})")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def check_moe_bases(seed: int, card: str) -> dict:
+    """Phase (l): ERNIE-4.5-21B-A3B (``check_moe_model``) and Command-R7B at
+    full depth, then OLMo-2, MiniMax-M2, Command-R, Cohere2-MoE, HunYuan
+    dense and MoE at 4 layers and ERNIE-4.5-0.3B at its 18 (``check_families``).
+    Returns the paths' launches."""
+    hbm = measured_hbm_rate()
+    paths = check_moe_model("ernie4_5_moe", ERNIE_MOE_SOURCE, ERNIE_MOE, seed, card, hbm)
+    paths.update(check_command_r7b(seed, card, hbm))
+    paths.update(check_families(seed, card, BASE_FAMILY_GEOMETRIES))
     return paths
 
 
@@ -4911,6 +5149,8 @@ def main() -> int:
     lap("phase (j), Qwen3-30B-A3B")
     paths.update(check_moe_families(args.seed, card))
     lap("phase (k), OLMoE-1B-7B, gpt-oss-20b, Phi-3.5-MoE and Laguna")
+    paths.update(check_moe_bases(args.seed, card))
+    lap("phase (l), ERNIE-4.5-21B-A3B, Command-R7B and the families on new bases")
     paths["train"] = check_train(args.seed, card)
     lap("phase (e), training at the Llama-3-8B width")
     paths["train_gemma3"] = check_train_gemma3(args.seed, card)

@@ -77,7 +77,9 @@ def test_every_kernel_module_is_checked():
                  *(f"transformers_tpu_torch.models.{family}.{kind}_{family}"
                    for family in ("mistral", "qwen2", "qwen3", "phi3", "gemma", "gemma2",
                                   "gemma3", "mixtral", "qwen2_moe", "qwen3_moe", "olmoe",
-                                  "phimoe", "laguna", "gpt_oss")
+                                  "phimoe", "laguna", "gpt_oss", "olmo2", "minimax_m2",
+                                  "ernie4_5", "ernie4_5_moe", "cohere", "cohere2",
+                                  "cohere2_moe", "hunyuan_v1_dense", "hunyuan_v1_moe")
                    for kind in ("configuration", "modeling"))):
         assert name in MODULES
     # the flash backward (K5 dQ, K4 dK/dV) lives in ops.flash_attention,

@@ -10,14 +10,23 @@ from .convert import params_from_jax
 from .generation import GenerationConfig
 from .modeling_utils import PreTrainedModel
 from .models.auto import AutoConfig, AutoModelForCausalLM
+from .models.cohere import CohereConfig, CohereForCausalLM
+from .models.cohere2 import Cohere2Config, Cohere2ForCausalLM
+from .models.cohere2_moe import Cohere2MoeConfig, Cohere2MoeForCausalLM
+from .models.ernie4_5 import Ernie4_5Config, Ernie4_5ForCausalLM
+from .models.ernie4_5_moe import Ernie4_5_MoeConfig, Ernie4_5_MoeForCausalLM
 from .models.gemma import GemmaConfig, GemmaForCausalLM
 from .models.gemma2 import Gemma2Config, Gemma2ForCausalLM
 from .models.gemma3 import Gemma3ForCausalLM, Gemma3TextConfig
 from .models.gpt_oss import GptOssConfig, GptOssForCausalLM
+from .models.hunyuan_v1_dense import HunYuanDenseV1Config, HunYuanDenseV1ForCausalLM
+from .models.hunyuan_v1_moe import HunYuanMoEV1Config, HunYuanMoEV1ForCausalLM
 from .models.laguna import LagunaConfig, LagunaForCausalLM
 from .models.llama import LlamaConfig, LlamaForCausalLM
+from .models.minimax_m2 import MiniMaxM2Config, MiniMaxM2ForCausalLM
 from .models.mistral import MistralConfig, MistralForCausalLM
 from .models.mixtral import MixtralConfig, MixtralForCausalLM
+from .models.olmo2 import Olmo2Config, Olmo2ForCausalLM
 from .models.olmoe import OlmoeConfig, OlmoeForCausalLM
 from .models.phi3 import Phi3Config, Phi3ForCausalLM
 from .models.phimoe import PhimoeConfig, PhimoeForCausalLM

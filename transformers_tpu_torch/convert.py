@@ -26,9 +26,17 @@ stacked parameter per projection, ``experts.w1`` ``[E, out, in]``
 kernel transposed. gpt-oss's experts are raw stacked ``[E, in, out]``
 parameters on both sides (``experts.gate_up_proj``, its ``_bias``), so they
 pass as they are; its router ``weight`` is a 2-D kernel like any other.
-OLMoE's full-width q/k norms, ``self_attn.full_q_norm`` / ``full_k_norm`` in
-the JAX package, are the port's ``self_attn.q_norm`` / ``k_norm``, the
-checkpoint's names.
+Cohere2-MoE's experts are raw stacked parameters in the hub's MixtralExperts
+layout (``experts.gate_up_proj`` ``[E, 2I, H]``, ``experts.down_proj``
+``[E, H, I]``, no biases): ``gate_up_proj`` is split at I into the port's
+``gate_proj`` and ``up_proj``. OLMoE's full-width q/k norms,
+``self_attn.full_q_norm`` / ``full_k_norm`` in the JAX package, are the port's
+``self_attn.q_norm`` / ``k_norm``, the checkpoint's names.
+
+Two 2-D ``weight``s are no kernels and keep their layout: a norm's (Cohere's
+head-wise q/k LayerNorm, ``[heads, D]``) and ERNIE-4.5 MoE's router
+``mlp.gate.weight``, which the JAX package keeps as the hub's float32
+``[E, H]`` (the block beside it holds ``moe_statics``).
 """
 
 from __future__ import annotations
@@ -65,6 +73,11 @@ def _stack_experts(tree: dict) -> dict:
                 experts = [value[str(e)] for e in range(len(value))]
                 value = {proj: np.stack([np.asarray(x[proj]["weight"]).T for x in experts])
                          for proj in experts[0]}
+            elif name == "experts" and set(value) == {"gate_up_proj", "down_proj"}:
+                gate_up = np.asarray(value["gate_up_proj"])
+                inner = gate_up.shape[1] // 2
+                value = {"gate_proj": gate_up[:, :inner], "up_proj": gate_up[:, inner:],
+                         "down_proj": value["down_proj"]}
             else:
                 value = _stack_experts(value)
         out[name] = value
@@ -76,13 +89,25 @@ _RENAMES = ((".self_attn.full_q_norm.", ".self_attn.q_norm."),
             (".self_attn.full_k_norm.", ".self_attn.k_norm."))
 
 
+def _is_kernel(key: str, keys) -> bool:
+    """Whether a 2-D ``weight`` is a JAX ``[in, out]`` kernel to transpose."""
+    module = key[:-len(".weight")]
+    if module.endswith("embed_tokens") or module.endswith("norm"):
+        return False
+    # ERNIE-4.5 MoE's router, kept in the hub's layout beside moe_statics
+    block, _, leaf = module.rpartition(".")
+    statics = (block + "." if block else "") + "moe_statics.e_score_correction_bias"
+    return not (leaf == "gate" and statics in keys)
+
+
 def params_from_jax(jax_params_numpy: dict) -> dict[str, torch.Tensor]:
+    flat = dict(_flatten(_stack_experts(jax_params_numpy)))
     state_dict = {}
-    for key, value in _flatten(_stack_experts(jax_params_numpy)):
+    for key, value in flat.items():
+        t = _to_torch(np.asarray(value))
+        if key.endswith(".weight") and t.ndim == 2 and _is_kernel(key, flat):
+            t = t.T.contiguous()
         for jax_part, port_part in _RENAMES:
             key = key.replace(jax_part, port_part)
-        t = _to_torch(np.asarray(value))
-        if key.endswith(".weight") and t.ndim == 2 and not key.endswith("embed_tokens.weight"):
-            t = t.T.contiguous()
         state_dict[key] = t
     return state_dict

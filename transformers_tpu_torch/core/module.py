@@ -1,4 +1,4 @@
-"""Leaf modules of the port: Linear, Embedding, RMSNorm, LayerNorm.
+"""Leaf modules of the port: Linear, Embedding, RMSNorm, LayerNorm, HeadwiseLayerNorm.
 
 Port of the leaf modules in ``transformers_tpu/core/module.py`` as
 ``nn.Module``s. Parameters are created on the given device, uninitialised;
@@ -140,18 +140,19 @@ class RMSNorm(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """Layer norm with a scale and a bias (JAX ``LayerNorm``, torch-compatible):
-    mean, variance and the affine map in float32, then one cast to the
-    compute dtype."""
+    """Layer norm (JAX ``LayerNorm``, torch-compatible): mean, variance and the
+    affine map in float32, then one cast to the compute dtype. ``use_bias``
+    False (Cohere's norm) keeps no bias parameter at all."""
 
-    def __init__(self, dim: int, eps: float = 1e-5, *, dtype=torch.float32,
-                 param_dtype=torch.float32, device=None):
+    def __init__(self, dim: int, eps: float = 1e-5, *, use_bias: bool = True,
+                 dtype=torch.float32, param_dtype=torch.float32, device=None):
         super().__init__()
         self.dim = dim
         self.eps = eps
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty((dim,), dtype=param_dtype, device=device))
-        self.bias = nn.Parameter(torch.empty((dim,), dtype=param_dtype, device=device))
+        self.bias = (nn.Parameter(torch.empty((dim,), dtype=param_dtype, device=device))
+                     if use_bias else None)
 
     @torch.no_grad()
     def init_parameter(self, name: str, generator: torch.Generator) -> None:
@@ -161,5 +162,32 @@ class LayerNorm(nn.Module):
         h = x.float()
         mean = h.mean(dim=-1, keepdim=True)
         var = (h - mean).square().mean(dim=-1, keepdim=True)
-        h = (h - mean) * torch.rsqrt(var + self.eps) * self.weight.float() + self.bias.float()
+        h = (h - mean) * torch.rsqrt(var + self.eps) * self.weight.float()
+        if self.bias is not None:
+            h = h + self.bias.float()
         return h.to(self.dtype)
+
+
+class HeadwiseLayerNorm(nn.Module):
+    """Layer norm over the head dim of x [B, S, heads, D] with a ``[heads, D]``
+    weight and no bias (Cohere's q/k norm, JAX
+    ``models/cohere/modeling_cohere.py:30-50``): float32 inside, the result in
+    x's dtype."""
+
+    def __init__(self, num_heads: int, head_dim: int, eps: float = 1e-5, *,
+                 dtype=torch.float32, param_dtype=torch.float32, device=None):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty((num_heads, head_dim), dtype=param_dtype,
+                                               device=device))
+
+    @torch.no_grad()
+    def init_parameter(self, name: str, generator: torch.Generator) -> None:
+        self.weight.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x.float()
+        mean = h.mean(dim=-1, keepdim=True)
+        var = (h - mean).square().mean(dim=-1, keepdim=True)
+        return ((h - mean) * torch.rsqrt(var + self.eps) * self.weight.float()).to(x.dtype)

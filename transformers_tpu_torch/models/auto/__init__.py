@@ -2,7 +2,10 @@
 the port has: ``llama`` and the families built on its skeleton, ``mistral``,
 ``qwen2``, ``qwen3``, ``phi3``, ``gemma``, ``gemma2`` and ``gemma3_text``, and
 the mixture-of-experts ``mixtral``, ``qwen2_moe``, ``qwen3_moe``, ``olmoe``,
-``phimoe``, ``laguna`` and ``gpt_oss``."""
+``phimoe``, ``laguna`` and ``gpt_oss``; the dense bases ``olmo2``,
+``ernie4_5``, ``cohere``, ``cohere2`` and ``hunyuan_v1_dense`` and their
+mixture-of-experts families ``minimax_m2``, ``ernie4_5_moe``,
+``cohere2_moe`` and ``hunyuan_v1_moe``."""
 
 from __future__ import annotations
 
@@ -10,14 +13,23 @@ import json
 import os
 
 from ...configuration_utils import CONFIG_NAME, PretrainedConfig
+from ..cohere import CohereConfig, CohereForCausalLM
+from ..cohere2 import Cohere2Config, Cohere2ForCausalLM
+from ..cohere2_moe import Cohere2MoeConfig, Cohere2MoeForCausalLM
+from ..ernie4_5 import Ernie4_5Config, Ernie4_5ForCausalLM
+from ..ernie4_5_moe import Ernie4_5_MoeConfig, Ernie4_5_MoeForCausalLM
 from ..gemma import GemmaConfig, GemmaForCausalLM
 from ..gemma2 import Gemma2Config, Gemma2ForCausalLM
 from ..gemma3 import Gemma3ForCausalLM, Gemma3TextConfig
 from ..gpt_oss import GptOssConfig, GptOssForCausalLM
+from ..hunyuan_v1_dense import HunYuanDenseV1Config, HunYuanDenseV1ForCausalLM
+from ..hunyuan_v1_moe import HunYuanMoEV1Config, HunYuanMoEV1ForCausalLM
 from ..laguna import LagunaConfig, LagunaForCausalLM
 from ..llama import LlamaConfig, LlamaForCausalLM
+from ..minimax_m2 import MiniMaxM2Config, MiniMaxM2ForCausalLM
 from ..mistral import MistralConfig, MistralForCausalLM
 from ..mixtral import MixtralConfig, MixtralForCausalLM
+from ..olmo2 import Olmo2Config, Olmo2ForCausalLM
 from ..olmoe import OlmoeConfig, OlmoeForCausalLM
 from ..phi3 import Phi3Config, Phi3ForCausalLM
 from ..phimoe import PhimoeConfig, PhimoeForCausalLM
@@ -31,14 +43,23 @@ CONFIG_MAPPING = {"llama": LlamaConfig, "mistral": MistralConfig, "qwen2": Qwen2
                   "gemma2": Gemma2Config, "gemma3_text": Gemma3TextConfig,
                   "mixtral": MixtralConfig, "qwen2_moe": Qwen2MoeConfig,
                   "qwen3_moe": Qwen3MoeConfig, "olmoe": OlmoeConfig, "phimoe": PhimoeConfig,
-                  "laguna": LagunaConfig, "gpt_oss": GptOssConfig}
+                  "laguna": LagunaConfig, "gpt_oss": GptOssConfig, "olmo2": Olmo2Config,
+                  "minimax_m2": MiniMaxM2Config, "ernie4_5": Ernie4_5Config,
+                  "ernie4_5_moe": Ernie4_5_MoeConfig, "cohere": CohereConfig,
+                  "cohere2": Cohere2Config, "cohere2_moe": Cohere2MoeConfig,
+                  "hunyuan_v1_dense": HunYuanDenseV1Config,
+                  "hunyuan_v1_moe": HunYuanMoEV1Config}
 MODEL_FOR_CAUSAL_LM_MAPPING = {
     "llama": LlamaForCausalLM, "mistral": MistralForCausalLM, "qwen2": Qwen2ForCausalLM,
     "qwen3": Qwen3ForCausalLM, "phi3": Phi3ForCausalLM, "gemma": GemmaForCausalLM,
     "gemma2": Gemma2ForCausalLM, "gemma3_text": Gemma3ForCausalLM,
     "mixtral": MixtralForCausalLM, "qwen2_moe": Qwen2MoeForCausalLM,
     "qwen3_moe": Qwen3MoeForCausalLM, "olmoe": OlmoeForCausalLM, "phimoe": PhimoeForCausalLM,
-    "laguna": LagunaForCausalLM, "gpt_oss": GptOssForCausalLM}
+    "laguna": LagunaForCausalLM, "gpt_oss": GptOssForCausalLM, "olmo2": Olmo2ForCausalLM,
+    "minimax_m2": MiniMaxM2ForCausalLM, "ernie4_5": Ernie4_5ForCausalLM,
+    "ernie4_5_moe": Ernie4_5_MoeForCausalLM, "cohere": CohereForCausalLM,
+    "cohere2": Cohere2ForCausalLM, "cohere2_moe": Cohere2MoeForCausalLM,
+    "hunyuan_v1_dense": HunYuanDenseV1ForCausalLM, "hunyuan_v1_moe": HunYuanMoEV1ForCausalLM}
 
 
 def _lookup(mapping: dict, model_type):

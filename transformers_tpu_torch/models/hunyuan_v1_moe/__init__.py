@@ -1,0 +1,7 @@
+from .configuration_hunyuan_v1_moe import HunYuanMoEV1Config
+from .modeling_hunyuan_v1_moe import (
+    HunYuanMoEV1DecoderLayer,
+    HunYuanMoEV1ForCausalLM,
+    HunYuanMoEV1Model,
+    HunYuanMoEV1Moe,
+)

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...core.module import Linear, RMSNorm
-from ...ops.moe import SparseMoeBlock, _top_k
+from ...ops.moe import SparseMoeBlock, biased_topk_routing
 from ...ops.rope import _default_inv_freq, compute_cos_sin
 from ..llama.modeling_llama import (
     LlamaAttention,
@@ -90,10 +90,9 @@ class LagunaTopKRouter(nn.Module):
         logits = self.gate(x).float()
         if self.softcap and self.softcap > 0.0:
             logits = torch.tanh(logits / self.softcap) * self.softcap
-        scores = torch.sigmoid(logits)
-        _, idx = _top_k(scores + self.e_score_correction_bias, self.top_k)
-        weights = scores.gather(-1, idx)
-        return (weights / weights.sum(dim=-1, keepdim=True)).to(x.dtype), idx
+        weights, idx = biased_topk_routing(torch.sigmoid(logits), self.e_score_correction_bias,
+                                           self.top_k)
+        return weights.to(x.dtype), idx
 
 
 class LagunaSparseMoeBlock(SparseMoeBlock):

@@ -54,9 +54,10 @@ from .configuration_llama import LlamaConfig
 class LlamaMLP(nn.Module):
     """Gated SwiGLU MLP (reference modeling_llama.py:163)."""
 
-    def __init__(self, config, *, dtype, param_dtype, device, intermediate_size=None):
+    def __init__(self, config, *, dtype, param_dtype, device, intermediate_size=None,
+                 bias=None):
         super().__init__()
-        bias = getattr(config, "mlp_bias", False)
+        bias = getattr(config, "mlp_bias", False) if bias is None else bias
         inner = intermediate_size or config.intermediate_size
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device,
                   init_std=config.initializer_range)

@@ -1,0 +1,2 @@
+from .configuration_olmo2 import Olmo2Config
+from .modeling_olmo2 import Olmo2Attention, Olmo2DecoderLayer, Olmo2ForCausalLM, Olmo2Model

@@ -61,6 +61,17 @@ def topk_routing(router_logits: torch.Tensor, top_k: int, *, renormalize: bool =
     return weights, idx
 
 
+def biased_topk_routing(scores: torch.Tensor, bias: torch.Tensor, top_k: int,
+                        norm_min: float = 0.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """The top k of ``scores + bias`` [T, E] picked, the unbiased ``scores``
+    there divided by ``max(their sum, norm_min)``: a bias that picks but does
+    not weigh (Laguna's and MiniMax-M2's sigmoid scores, ERNIE-4.5's softmax
+    with its ``moe_norm_min``). Returns (weights [T, k], indices [T, k])."""
+    _, idx = _top_k(scores + bias, top_k)
+    weights = scores.gather(-1, idx)
+    return weights / weights.sum(dim=-1, keepdim=True).clamp_min(norm_min), idx
+
+
 def dense_experts_forward(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
                           w_down: torch.Tensor, routing_weights: torch.Tensor,
                           routing_idx: torch.Tensor, act: Callable) -> torch.Tensor:
@@ -194,15 +205,17 @@ class Experts(nn.Module):
 
 class SparseMoeBlock(nn.Module):
     """Router (``gate``, a bias-free Linear to E logits) and ``experts``: the
-    routing (``route``; top-k in float32 unless the family routes otherwise),
+    routing (``route``; top-k in float32, ``top_k`` or the config's
+    ``num_experts_per_tok`` a token, unless the family routes otherwise),
     then the route the config's ``experts_implementation`` names, read at
     every call."""
 
     def __init__(self, config, num_experts: int, intermediate_size: int, renormalize: bool,
-                 names=("gate_proj", "up_proj", "down_proj"), *, dtype, param_dtype, device):
+                 names=("gate_proj", "up_proj", "down_proj"), *, dtype, param_dtype, device,
+                 top_k: Optional[int] = None):
         super().__init__()
         self.config = config
-        self.top_k = config.num_experts_per_tok
+        self.top_k = config.num_experts_per_tok if top_k is None else top_k
         self.renormalize = renormalize
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device,
                   init_std=config.initializer_range)

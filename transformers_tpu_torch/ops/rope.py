@@ -1,8 +1,11 @@
 """Rotary position embedding.
 
 Port of ``transformers_tpu/ops/rope.py``: the frequency tables of every rope
-type (default, linear, dynamic NTK, yarn, longrope, llama3) are host numpy,
-computed once from the config; the positional application is PyTorch.
+type (default, linear, dynamic NTK and its HunYuan alpha variant, yarn,
+longrope, llama3) are host numpy, computed once from the config; the
+positional application is PyTorch, in the Llama layout (each half of the
+rotated dims one member of a pair) or the interleaved one (ERNIE-4.5,
+Cohere: pairs of adjacent dims).
 """
 
 from __future__ import annotations
@@ -33,8 +36,13 @@ def _rope_params_linear(config, **kwargs):
 
 
 def _rope_params_dynamic(config, seq_len: Optional[int] = None, **kwargs):
-    """Dynamic NTK (reference modeling_rope_utils.py:269). Uses max training len."""
+    """Dynamic NTK (reference modeling_rope_utils.py:269). Uses max training len.
+    With an ``alpha`` (HunYuan: ``{"type": "dynamic", "alpha": a}``), the base
+    is ``rope_theta * a ** (d / (d - 2))`` over the whole head dim and the
+    scaling 1.0 (JAX ``models/hunyuan_v1_dense/modeling_hunyuan_v1_dense.py:44-57``)."""
     scaling = config.rope_scaling
+    if scaling.get("alpha"):
+        return _rope_params_dynamic_alpha(config)
     factor = scaling["factor"]
     base = getattr(config, "rope_theta", 10000.0)
     head_dim = getattr(config, "head_dim", None) or config.hidden_size // config.num_attention_heads
@@ -45,6 +53,13 @@ def _rope_params_dynamic(config, seq_len: Optional[int] = None, **kwargs):
     base = base * ((factor * seq_len / max_pos) - (factor - 1)) ** (dim / (dim - 2))
     inv_freq = 1.0 / (base ** (np.arange(0, dim, 2, dtype=np.float64) / dim))
     return inv_freq, 1.0
+
+
+def _rope_params_dynamic_alpha(config):
+    dim = getattr(config, "head_dim", None) or config.hidden_size // config.num_attention_heads
+    alpha = config.rope_scaling["alpha"]
+    base = getattr(config, "rope_theta", 10000.0) * alpha ** (dim / (dim - 2))
+    return 1.0 / (base ** (np.arange(0, dim, 2, dtype=np.float64) / dim)), 1.0
 
 
 def _rope_params_yarn(config, **kwargs):
@@ -185,6 +200,47 @@ def compute_cos_sin(position_ids: torch.Tensor, inv_freq: np.ndarray,
     cos = torch.cos(emb) * attention_scaling
     sin = torch.sin(emb) * attention_scaling
     return cos.to(dtype), sin.to(dtype)
+
+
+def compute_cos_sin_interleaved(position_ids: torch.Tensor, inv_freq: np.ndarray,
+                                attention_scaling: float = 1.0,
+                                dtype: torch.dtype = torch.float32
+                                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Interleaved-layout cos/sin tables [B, S, dim]: each frequency repeated
+    twice in place (reference models/cohere/modeling_cohere.py:115), not the
+    Llama layout's two concatenated halves."""
+    inv = torch.as_tensor(inv_freq, dtype=torch.float32, device=position_ids.device)
+    freqs = position_ids.float()[..., None] * inv[None, None, :]
+    emb = torch.repeat_interleave(freqs, 2, dim=-1)
+    cos = torch.cos(emb) * attention_scaling
+    sin = torch.sin(emb) * attention_scaling
+    return cos.to(dtype), sin.to(dtype)
+
+
+def rotate_half_interleaved(x: torch.Tensor) -> torch.Tensor:
+    """Pairwise rotation (x0, x1) -> (-x1, x0) (reference cohere ``rotate_half``)."""
+    return torch.stack([-x[..., 1::2], x[..., ::2]], dim=-1).reshape(x.shape)
+
+
+def apply_rotary_pos_emb_interleaved(q, k, cos, sin):
+    """Interleaved rotary in BSHD layout, in float32 (the reference upcasts q/k
+    before rotating, cohere modeling_cohere.py:183), each result cast back to
+    its input's dtype. Partial rotary: D_rot < D rotates the leading slice."""
+    d_rot = cos.shape[-1]
+    cos = cos[:, :, None, :].float()
+    sin = sin[:, :, None, :].float()
+
+    def rot(x):
+        h = x.float()
+        if d_rot == x.shape[-1]:
+            out = (h * cos) + (rotate_half_interleaved(h) * sin)
+        else:
+            h_rot = h[..., :d_rot]
+            h_rot = (h_rot * cos) + (rotate_half_interleaved(h_rot) * sin)
+            out = torch.cat([h_rot, h[..., d_rot:]], dim=-1)
+        return out.to(x.dtype)
+
+    return rot(q), rot(k)
 
 
 def rotate_half(x: torch.Tensor) -> torch.Tensor:
