@@ -70,7 +70,9 @@ Phases, in order; any failure exits non-zero:
     window at Gemma-3-12B's long contexts) and phase (l)'s (K1 and K6 at
     ERNIE-4.5-21B-A3B's odd group of 5, 20 heads over 4, and at Command-R7B's
     4096-slot window over prompts of 5120 and contexts of 4633-5131; K2 at
-    MiniMax-M2's group of 6 with no window). The mixture-of-experts products
+    MiniMax-M2's group of 6 with no window) and phase (m)'s (K1 and K6 at
+    GLM-4.5-Air's group of 12, 96 heads over 8; K1 at Mistral4's decode
+    step, one query row over 144 slots). The mixture-of-experts products
     (``ops/moe.py``; library calls, no kernel of the port) are held at
     Qwen3-30B-A3B's layer (128 experts of 768 over hidden 2048, 8 a token)
     at 8 and 1024 rows: the ``dense`` and
@@ -158,15 +160,16 @@ Phases, in order; any failure exits non-zero:
     weights (graph against step loop, logits held) and with int8 weights
     over the int8 KV cache (``cache_implementation="quantized"``);
 (i) (run after (f), when no other model is held) the Llama-skeleton families.
-    Gemma-3-12B's text decoder at full width and depth (the text_config of
-    google/gemma-3-12b-it: 48 layers, 40 of them sliding with a 1024-slot
-    window and the local rope table, head_dim 256, tied 262208-token
-    vocabulary; bf16, random weights from ``--seed``, ~23.5 GB): a 2-layer
+    Gemma-3-12B's text decoder at full width, its depth cut to 24 of 48
+    layers (the text_config of google/gemma-3-12b-it: 5 of each
+    6 layers sliding with a 1024-slot window and the local rope table,
+    head_dim 256, tied 262208-token vocabulary; bf16, random weights from
+    ``--seed``, ~23.5 GB at 48 layers): a 2-layer
     checkpoint round trip through ``AutoModelForCausalLM`` (no ``lm_head`` in
     the file); static generate at batch 4 over 1536-slot prompts left-padded
     by 0/64/128/256 (every row's context past the window), 32 new tokens,
     greedy, graph against the uncaptured step loop bitwise under the sync
-    check, K1 48 per prefill and K2 48 per step, timed and profiled; CB with 8
+    check, K1 24 per prefill and K2 24 per step, timed and profiled; CB with 8
     requests of 1100-2000 tokens at 16 steps per sync, a graph engine and an
     uncaptured one (each warmed first, as in (d)) giving equal tokens,
     launches exact, the graph engine profiled; the generated tokens
@@ -177,13 +180,14 @@ Phases, in order; any failure exits non-zero:
     widths: static generate at batch 4, prompt 128, 16 new tokens, graph
     against step loop bitwise, launches exact by route (K2 never for Gemma-2,
     whose softcap keeps decode on the plain path), logits teacher-forced;
-(j) (run after (i), when no other model is held) Qwen3-30B-A3B at full width
-    and depth (48 layers, 128 experts of 768, 8 a token; bf16, random
-    weights from ``--seed``, 61 GB, built on the card): a 2-layer checkpoint
+(j) (run after (i), when no other model is held) Qwen3-30B-A3B at full width,
+    its depth cut to 24 of 48 layers (128 experts of 768, 8 a
+    token; bf16, random weights from ``--seed``, 61 GB at 48 layers, built
+    on the card): a 2-layer checkpoint
     round trip (one tensor per expert in the file); static generate at phase
     (c)'s shape under each experts route, ``dense`` and ``ragged``, graph
-    against step loop bitwise under the sync check, K1 48 per prefill and K2
-    48 per step; prefill ms, decode ms/step, tokens/s, idle share and peak
+    against step loop bitwise under the sync check, K1 24 per prefill and K2
+    24 per step; prefill ms, decode ms/step, tokens/s, idle share and peak
     memory per route beside the step's weight-stream bound (the experts the
     rows touch, over the HBM copy rate measured here), and the device time
     split by span (experts and their products, router, attention and its
@@ -192,7 +196,7 @@ Phases, in order; any failure exits non-zero:
     requests of 90-502 tokens, 16 steps per sync, ragged route), the graph
     engine against an uncaptured one, K1 and K6 exact, and its split by
     span; the generated tokens teacher-forced against float32 computed from
-    the same bf16 weights (a float32 copy would take 122 GB);
+    the same bf16 weights (a float32 copy of 48 layers would take 122 GB);
 (k) (run after (j), when no other model is held) the mixture-of-experts
     families whose bases the port has. OLMoE-1B-7B at full width and depth
     (allenai/OLMoE-1B-7B-0924: 16 layers, 16 over 16 heads, 64 experts of
@@ -230,6 +234,26 @@ Phases, in order; any failure exits non-zero:
     OLMo-2-1124-7B, MiniMax-M2, Command-R v01, Cohere2-MoE, HunYuan-7B (alpha
     rope) and Hunyuan-A13B at 4 layers of their widths and ERNIE-4.5-0.3B at
     its 18, as phase (i)'s families (K2 only for OLMo-2 and MiniMax-M2);
+(m) (run after (l), when no other model is held) the DeepSeek tree.
+    DeepSeek-V2-Lite at full width and depth (deepseek-ai/DeepSeek-V2-Lite:
+    27 layers, 16 heads of multi-head latent attention with a 512-wide kv
+    latent, q/k 128 + 64 rope and v 128, layer 0 dense, 64 experts of 1408,
+    6 a token by softmax, 2 shared, yarn factor 40; 31.4 GB) and
+    DeepSeek-V3 at full width cut to 4 layers (DeepseekV3Config's defaults:
+    3 dense layers, then 256 experts of 2048 in 8 groups, 8 a token from 4
+    groups by sigmoid scores and a choice bias, one shared; ~30 GB): the
+    2-layer round trip, the CB engine's refusal, static generate under
+    both routes, graph against step loop with no kernel launched (the
+    values are narrower than the keys: the eager attention, as in JAX),
+    timed against the weight stream, profiled, split by span with the MLA's
+    share of a decode step (its block, the history's re-expansion through
+    ``kv_b_proj``, the eager attention), the routes' logits, teacher-forced.
+    GLM-4.5-Air at full width cut to 4 layers (96 over 8 heads, half of
+    each head rotated, biases on q/k/v): static generate (K1 per layer; no
+    K2, as in JAX), CB (K1 and K6 at the group of 12), teacher-forced.
+    Then dots.llm1, Solar-Open and Mistral4 at 4 layers of their configs'
+    widths, as phase (i)'s families (Mistral4's MLA through K1 at the
+    prefill and at every decode step);
 (e) training at the same width, depth cut to 4 layers (f32 weights, bf16
     compute, random from ``--seed``), after (c)/(d)'s model is freed: layer 0's
     q/k/v gradients and the loss of one row through the kernel path held
@@ -605,18 +629,18 @@ def flash_timed(q, k, v, qpos, valid, window=None) -> dict:
     from transformers_tpu_torch.ops.flash_attention import (flash_attention,
                                                             flash_attention_plain)
 
-    b, s, h, d = q.shape
+    b, sq, h, d = q.shape
     kw = dict(scale=d ** -0.5, is_causal=True, sliding_window=window)
     ms = device_ms(lambda: flash_attention(q, k, v, q_positions=qpos, kv_valid=valid, **kw))
     plain_ms = device_ms(lambda: flash_attention_plain(q, k, v, qpos, valid, **kw))
-    slots = torch.arange(s, device="cuda")
+    slots = torch.arange(k.shape[1], device="cuda")
     mask = (valid != 0)[:, None, :] & (slots[None, None, :] <= qpos[:, :, None])
     if window:
         mask &= slots[None, None, :] > qpos[:, :, None] - window
     qt, kt, vt, m4 = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), mask[:, None]
     library_ms = device_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=m4, scale=kw["scale"], enable_gqa=True))
-    nbytes = (q.numel() * 2 + k.numel() + v.numel()) * 2 + b * h * s * 4 \
+    nbytes = (q.numel() * 2 + k.numel() + v.numel()) * 2 + b * h * sq * 4 \
         + (qpos.numel() + valid.numel()) * 4  # q, k, v and out; lse; mask data
     bms, by = bound_ms(nbytes, 4.0 * d * h * int(mask.sum()))
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms)
@@ -3341,18 +3365,32 @@ def _graph_vs_step_loop(label, model, graph, eager, expected, new: int = NEW,
 
 def kernel_layers(model) -> tuple:
     """(layers whose static prefill takes K1, layers whose static decode step
-    takes K2), as the skeleton routes them: no kernel takes gpt-oss's sinks
-    (the JAX package sends them to its XLA path), and K2 takes, as the JAX
-    package's fused-decode gate, no softcap (Gemma-2), no rope table narrower
-    than the head (Laguna's full layers), no layer without rope (Cohere2's
-    full layers), and no family that rotates otherwise (ERNIE-4.5 and
-    Cohere's interleaved pairs) or normalizes q/k after rope (HunYuan)."""
+    takes K2, layers whose static decode step takes K1), as the skeleton
+    routes them: no kernel takes gpt-oss's sinks (the JAX package sends them
+    to its XLA path), and K2 takes, as the JAX package's fused-decode gate,
+    no softcap (Gemma-2), no rope table narrower than the head (Laguna's full
+    layers, GLM-4.5's partial rotary), no layer without rope (Cohere2's full
+    layers), and no family that rotates otherwise (ERNIE-4.5 and Cohere's
+    interleaved pairs) or normalizes q/k after rope (HunYuan). Multi-head
+    latent attention re-expands its cached latents into per-head keys and
+    values and attends through the registry, at the prefill and at every
+    decode step: K1 where the values are as wide as the queries and keys
+    (Mistral4's 128), the eager attention where they are narrower
+    (DeepSeek-V2/V3's 128 against 192), as in the JAX package."""
+    from transformers_tpu_torch.models.deepseek_v3.modeling_deepseek_v3 import (
+        DeepseekV3Attention)
     from transformers_tpu_torch.models.llama.modeling_llama import LlamaAttention
+    from transformers_tpu_torch.ops.flash_attention import KERNEL_HEAD_DIMS
 
     rope = model.model.compute_rope(torch.zeros((1, 1), dtype=torch.long, device=model.device))
-    k1 = k2 = 0
+    k1 = k2 = k1_step = 0
     for i, layer in enumerate(model.model.layers):
         attn = layer.self_attn
+        if isinstance(attn, DeepseekV3Attention):
+            fits = attn.qk_head_dim == attn.v_head_dim and attn.v_head_dim in KERNEL_HEAD_DIMS
+            k1 += fits
+            k1_step += fits
+            continue
         if attn.extra_attn_kwargs().get("sinks") is not None:
             continue
         k1 += 1
@@ -3361,7 +3399,7 @@ def kernel_layers(model) -> tuple:
                and getattr(attn, "apply_rope", True)
                and type(attn).rope_fn is LlamaAttention.rope_fn
                and type(attn).post_rope_qk is LlamaAttention.post_rope_qk)
-    return k1, k2
+    return k1, k2, k1_step
 
 
 def generate_graph_vs_loop(label: str, model, ids, mask, new: int, card: str,
@@ -3376,8 +3414,8 @@ def generate_graph_vs_loop(label: str, model, ids, mask, new: int, card: str,
     layers, (b, prompt) = model.config.num_hidden_layers, ids.shape
     graph, eager = _generate_runs(model, ids, mask, new)
     first = _first_call(model, graph, new=new)
-    k1, k2 = kernel_layers(model)
-    expected = _expected(flash_fwd=k1, fused_decode=k2 * (new - 1))
+    k1, k2, k1_step = kernel_layers(model)
+    expected = _expected(flash_fwd=k1 + k1_step * (new - 1), fused_decode=k2 * (new - 1))
     out, counts = _graph_vs_step_loop(label, model, graph, eager, expected, new=new)
     if not torch.equal(out, first["first"]) or out.shape != (b, prompt + new) \
             or not torch.equal(out[:, :prompt], ids):
@@ -3922,6 +3960,9 @@ G3_PROMPT, G3_NEW, G3_PADS = 1536, 32, (0, 64, 128, 256)
 G3_CB_REQUESTS, G3_CB_NEW, G3_CB_LENS = 8, 32, (1100, 2000)
 G3_CB_ENGINE = dict(block_size=32, max_batch=8, token_budget=512, num_blocks=520,
                     max_context=2048)
+# its depth cut to 24 of 48 (four periods of five sliding layers and one
+# global), which keeps the whole smoke near 1000 s beside phase (m)
+G3_LAYERS = 24
 # the other families: 4 layers at the published widths of these configs
 FAMILY_LAYERS, FAMILY_PROMPT, FAMILY_NEW = 4, 128, 16
 FAMILY_PADS = (0, 5, 31, 64)
@@ -3982,6 +4023,9 @@ QWEN3_MOE = dict(vocab_size=151936, hidden_size=2048, intermediate_size=6144,
                  moe_intermediate_size=768, norm_topk_prob=True, decoder_sparse_step=1,
                  mlp_only_layers=[], use_sliding_window=False, max_window_layers=48,
                  tie_word_embeddings=False)
+# its depth cut to 24 of 48 (30.6 GB), which keeps the whole smoke near
+# 1000 s beside phase (m)
+QWEN3_MOE_LAYERS = 24
 MOE_ROUTES = ("dense", "ragged")
 # continuous batching: 8 requests of 90-502 tokens, 32 new each, 16 steps a sync
 MOE_CB_REQUESTS, MOE_CB_LENS, MOE_CB_NEW = 8, (90, 502), 32
@@ -4133,6 +4177,13 @@ FAMILY_KERNEL_SHAPES = {
         "ernie4_5_21b_a3b_prefill": (BATCH, PROMPT, 20, 4, 128, PADS, None),
         "command_r7b_prefill_window_4096": (len(CR7B_PADS), CR7B_PROMPT, 32, 8, 128, CR7B_PADS,
                                             4096),
+        # phase (m): GLM-4.5-Air's group of 12 (96 over 8), the widest yet,
+        # and Mistral4's decode step (its values as wide as its queries, so
+        # the latent cache's re-expanded history goes through K1 one row at
+        # a time: 32 over 32 heads at the 4-layer leg's last step)
+        "glm4_5_air_prefill": (BATCH, PROMPT, 96, 8, 128, PADS, None),
+        "mistral4_decode_step": (len(FAMILY_PADS), FAMILY_PROMPT + FAMILY_NEW, 32, 32, 128,
+                                 FAMILY_PADS, None, 1),
     },
     # K2: (b, h, kvh, d, s, pos, starts, window)
     "fused_decode": {
@@ -4158,6 +4209,7 @@ FAMILY_KERNEL_SHAPES = {
         "laguna_cb_window_512": (G3_CB_REQUESTS, 48, 8, 128, 32, None, 512),
         "ernie4_5_21b_a3b_cb": (len(MOE_CB_CONTEXTS), 20, 4, 128, 32, MOE_CB_CONTEXTS, None),
         "command_r7b_cb_window_4096": (CR7B_CB_REQUESTS, 32, 8, 128, 32, CR7B_CB_CONTEXTS, 4096),
+        "glm4_5_air_cb": (len(MOE_CB_CONTEXTS), 96, 8, 128, 32, MOE_CB_CONTEXTS, None),
     },
 }
 
@@ -4172,11 +4224,13 @@ def _family_hold(kernel: str, err: float, ratio: float) -> None:
                              f"{err:.3e}, grad_ratio {ratio:.4f}")
 
 
-def _flash_at(gen, b, s, h, kvh, d, pads, window) -> dict:
-    """K1 held to its plain version and timed at one family shape, bf16."""
+def _flash_at(gen, b, s, h, kvh, d, pads, window, sq=None) -> dict:
+    """K1 held to its plain version and timed at one family shape, bf16: ``sq``
+    query rows (all ``s`` when None) at the end of ``s`` slots."""
     from transformers_tpu_torch.ops.flash_attention import flash_attention
 
-    q, k, v, qpos, valid = _flash_inputs(gen, b=b, sq=s, skv=s, h=h, kvh=kvh, d=d, pads=pads)
+    sq = sq or s
+    q, k, v, qpos, valid = _flash_inputs(gen, b=b, sq=sq, skv=s, h=h, kvh=kvh, d=d, pads=pads)
     err, lse_err, ratio = _flash_errors(q, k, v, qpos, valid, scale=d ** -0.5, is_causal=True,
                                         sliding_window=window)
     _family_hold("flash", err, ratio)
@@ -4191,7 +4245,7 @@ def _flash_at(gen, b, s, h, kvh, d, pads, window) -> dict:
                                                  sliding_window=window), calls=64)
     return dict(max_abs_err=err, grad_ratio=ratio, lse_err=lse_err, **held, host_us=wrapper_us,
                 **flash_timed(q, k, v, qpos, valid, window),
-                shape=f"B={b} S={s} H={h} KVH={kvh} D={d} window={window}")
+                shape=f"B={b} Sq={sq} Skv={s} H={h} KVH={kvh} D={d} window={window}")
 
 
 def _decode_at(gen, b, h, kvh, d, s, pos, starts, window) -> dict:
@@ -4323,15 +4377,16 @@ MOE_PRODUCT_ROWS = (BATCH, BATCH * PROMPT)
 MOE_BF16_SCALE_TOL = 2.0 ** -5
 
 
-def moe_loop(x, wg, wu, wd, weights, idx) -> torch.Tensor:
+def moe_loop(x, wg, wu, wd, weights, idx, act=torch.nn.functional.silu) -> torch.Tensor:
     """The plain per-expert loop in float32 (reads the routing to the host):
-    each expert on the tokens that picked it, the weighted rows added."""
-    x, wg, wu, wd = (t.float() for t in (x, wg, wu, wd))
+    each expert on the tokens that picked it, its weights widened alone, the
+    weighted rows added."""
+    x = x.float()
     out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     for e in idx.unique().tolist():
         rows, slot = (idx == e).nonzero(as_tuple=True)
-        inner = torch.nn.functional.silu(x[rows] @ wg[e]) * (x[rows] @ wu[e])
-        out.index_add_(0, rows, (inner @ wd[e]) * weights[rows, slot, None])
+        inner = act(x[rows] @ wg[e].float()) * (x[rows] @ wu[e].float())
+        out.index_add_(0, rows, (inner @ wd[e].float()) * weights[rows, slot, None])
     return out
 
 
@@ -4444,16 +4499,17 @@ def check_gemma3_cb(model, seed: int, card: str) -> dict:
 
 
 def check_gemma3(seed: int, card: str) -> dict:
-    """Phase (i), part 1: Gemma-3-12B's text decoder at full width and depth
-    (bf16, random weights from ``seed``, about 23.5 GB): the 2-layer
+    """Phase (i), part 1: Gemma-3-12B's text decoder at full width, its depth
+    cut to ``G3_LAYERS`` (bf16, random weights from ``seed``, about 23.5 GB
+    at its 48 layers): the 2-layer
     checkpoint round trip, static generate (graph against step loop, timed,
     profiled), continuous batching, then the generated tokens teacher-forced
     (the model is freed there). Returns the paths' launch counts."""
     check_load_path(seed, card, "gemma3_text", GEMMA3_12B)
-    model = build_decoder(GEMMA3_12B, GEMMA3_12B["num_hidden_layers"], torch.bfloat16, seed,
-                          model_type="gemma3_text")
+    model = build_decoder(GEMMA3_12B, G3_LAYERS, torch.bfloat16, seed, model_type="gemma3_text")
     sliding = sum(t == "sliding_attention" for t in model.config.layer_types)
-    print(f"[gemma3] {GEMMA3_12B['num_hidden_layers']} layers, {sliding} of them sliding "
+    print(f"[gemma3] {G3_LAYERS} of {GEMMA3_12B['num_hidden_layers']} layers, {sliding} of them "
+          f"sliding "
           f"(window {GEMMA3_12B['sliding_window']}, local rope), "
           f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B parameters in bf16")
     ids, mask = generate_inputs(seed, model.config.vocab_size, G3_PROMPT, G3_PADS)
@@ -4507,7 +4563,9 @@ def check_families(seed: int, card: str, geometries: dict = FAMILY_GEOMETRIES) -
         layers = (geometry["num_hidden_layers"] if model_type in FULL_DEPTH else FAMILY_LAYERS)
         model = build_decoder(geometry, layers, torch.bfloat16, seed, model_type=model_type)
         ids, mask = generate_inputs(seed, model.config.vocab_size, FAMILY_PROMPT, FAMILY_PADS)
-        head_dim = model.model.layers[0].self_attn.head_dim
+        attn = model.model.layers[0].self_attn
+        head_dim = (getattr(attn, "head_dim", None)
+                    or f"{attn.qk_head_dim} (q/k), {attn.v_head_dim} (v)")
         out, counts = generate_graph_vs_loop(model_type, model, ids, mask, FAMILY_NEW, card)
         moe = any(isinstance(m, expert_modules()) for m in model.modules())
         if moe:
@@ -4523,8 +4581,9 @@ def check_families(seed: int, card: str, geometries: dict = FAMILY_GEOMETRIES) -
         gc.collect()
         torch.cuda.empty_cache()
         print(f"[families] {model_type} ({source}, {layers} of "
-              f"{geometry['num_hidden_layers']} layers, head_dim {head_dim}; K1 on "
-              f"{counts['flash_fwd']} layers, K2 on {counts['fused_decode'] // (FAMILY_NEW - 1)}): "
+              f"{geometry['num_hidden_layers']} layers, head_dim {head_dim}; K1 "
+              f"{counts['flash_fwd']} calls, K2 on {counts['fused_decode'] // (FAMILY_NEW - 1)} "
+              f"layers): "
               f"{time.perf_counter() - t0:.1f} s")
     return paths
 
@@ -4581,14 +4640,15 @@ def moe_stream(model, run, rows: int = BATCH) -> dict:
 
 
 def expert_calls(run) -> list:
-    """(rows, dtype of x, routing indices) of every call of an expert module
-    of any model over one ``run`` (uncaptured: a global hook reads the
-    routing back)."""
+    """(rows, dtype of x, routing indices, routing weights) of every call of
+    an expert module of any model over one ``run`` (uncaptured: a global hook
+    reads the routing back)."""
     kinds, calls = expert_modules(), []
 
     def hook(module, args, out):
         if isinstance(module, kinds):
-            calls.append((args[0].shape[0], args[0].dtype, args[2].detach().clone()))
+            calls.append((args[0].shape[0], args[0].dtype, args[2].detach().clone(),
+                           args[1].detach().clone()))
 
     handle = torch.nn.modules.module.register_module_forward_hook(hook)
     try:
@@ -4601,34 +4661,76 @@ def expert_calls(run) -> list:
 def experts_touched(run, rows: int = BATCH) -> list:
     """The distinct experts each decode step's ``rows`` pick in each layer,
     over one ``run``; a prefill's rows are left out."""
-    return [int(idx.unique().numel()) for n, _, idx in expert_calls(run) if n == rows]
+    return [int(idx.unique().numel()) for n, _, idx, _ in expert_calls(run) if n == rows]
 
 
-def teacher_force_moe(model, seq, prompt_mask, label: str, **kw) -> None:
-    """``teacher_force``, and how often the plain bf16 path's router picks
-    another set of experts for a token than the float32 run's, layer by layer
-    over the same full sequence: where the top k flips under bf16 rounding,
-    the two runs part by whole experts, which the logits' distance from
-    float32 then shows."""
+@contextlib.contextmanager
+def pinned_routing(layers: list, b: int, total: int):
+    """Every expert module's call takes, for its tokens, the routing in
+    ``layers`` ((indices, weights) of each MoE layer in call order over a
+    [b, total] sequence) in place of its router's: a call on all but the last
+    position (a prefill), on the last one (a decode step) or on all of them.
+    The routers still run; only what they hand the experts is replaced."""
+    kinds = expert_modules()
+    per_layer = [(idx.view(b, total, -1), w.view(b, total, -1)) for idx, w in layers]
+    seen = [0]
+
+    def hook(module, args):
+        if not isinstance(module, kinds):
+            return None
+        idx, w = per_layer[seen[0] % len(per_layer)]
+        seen[0] += 1
+        s = args[0].shape[0] // b
+        start = 0 if s == total - 1 else total - s
+        return (args[0], w[:, start:start + s].reshape(b * s, -1).to(args[1].dtype),
+                idx[:, start:start + s].reshape(b * s, -1), *args[3:])
+
+    handle = torch.nn.modules.module.register_module_forward_pre_hook(hook)
+    try:
+        yield
+    finally:
+        handle.remove()
+
+
+def teacher_force_moe(model, seq, prompt_mask, label: str, prompt: int = PROMPT,
+                      f32_in_place: bool = False) -> None:
+    """How often the plain bf16 path's router picks another set of experts
+    for a token than the float32 run's, layer by layer over the full
+    sequence; then ``teacher_force`` with every run's experts routed as the
+    float32 run routes them (``pinned_routing``). Where a top k flips under
+    bf16 rounding, two runs part by whole experts: at random weights' near
+    ties one flip in one row of the kernel path, and none in the plain path's,
+    moved Mistral4's last-position logits 0.70 from float32 against the plain
+    path's 0.27 while K1 agreed with its plain version within 0.0039 at that
+    step's shape. Pinned, the hold compares the kernels' numerics, not
+    which side of a tie bf16 noise fell on."""
+    b, total = seq.shape
     rows = seq.numel()
-    calls = expert_calls(lambda: teacher_force(model, seq, prompt_mask, label=label, **kw))
+    mask = torch.cat([prompt_mask, torch.ones((b, total - prompt), dtype=torch.int32,
+                                              device="cuda")], dim=1)
+    pos = (mask.cumsum(-1) - 1).clamp_min(0)
+    calls = expert_calls(lambda: plain_and_f32_logits(model, [(seq, mask, pos)],
+                                                      f32_in_place=f32_in_place))
 
     def picks(dtype):
-        return [idx.sort(dim=-1).values for r, d, idx in calls if r == rows and d == dtype]
+        return [(idx, w) for r, d, idx, w in calls if r == rows and d == dtype]
 
-    share = [float((a != b).any(dim=-1).float().mean())
-             for a, b in zip(picks(model.dtype), picks(torch.float32), strict=True)]
+    share = [float((a.sort(dim=-1).values != f.sort(dim=-1).values).any(dim=-1).float().mean())
+             for (a, _), (f, _) in zip(picks(model.dtype), picks(torch.float32), strict=True)]
     print(f"[{label}] routing of the {rows} teacher-forced tokens, plain bf16 path against "
           f"float32: {sum(share) / len(share):.4f} of tokens pick another set of experts, on "
           f"average over {len(share)} MoE layers (first {share[0]:.4f}, last {share[-1]:.4f})")
+    with pinned_routing(picks(torch.float32), b, total):
+        teacher_force(model, seq, prompt_mask, prompt=prompt, f32_in_place=f32_in_place,
+                      label=f"{label}, routing pinned to float32's")
 
 
 SPAN = "span::"
 PHASE = "phase::"
 OUR_KERNELS = re.compile(r"(flash_fwd|fused_decode|paged_split|paged_combine)\w*kernel")
 GEMM_KERNELS = re.compile(r"gemm|cutlass|xmma|cublas|nvjet", re.I)
-SPAN_NAMES = ("experts", "shared experts", "router", "attention", "eager attention", "norms",
-              "lm_head", "other")
+SPAN_NAMES = ("experts", "shared experts", "router", "attention", "eager attention",
+              "mla expansion", "norms", "lm_head", "other")
 SHARED_EXPERTS = ("shared_experts", "shared_expert", "shared_mlp")  # an MoE block's children
 
 
@@ -4636,7 +4738,9 @@ SHARED_EXPERTS = ("shared_experts", "shared_expert", "shared_mlp")  # an MoE blo
 def labelled_spans(phases: dict, model=None):
     """Each call of the attention block, the eager attention inside it (where
     no kernel takes the call: gpt-oss's sinks, the static decode of families
-    that K2 does not take), the MoE block (the router and the experts' call),
+    that K2 does not take, multi-head latent attention with values narrower
+    than its keys), the re-expansion of MLA's cached latents through
+    ``kv_b_proj`` (``mla expansion``), the MoE block (the router and the experts' call),
     the experts, ``model``'s shared experts (``SHARED_EXPERTS``), every norm
     and the lm_head runs inside a ``record_function`` span named for it, and
     each of ``phases`` ((name, object, method) triples) inside one named for
@@ -4644,6 +4748,8 @@ def labelled_spans(phases: dict, model=None):
     and the phase that launched it."""
     from torch.profiler import record_function
     from transformers_tpu_torch.core.module import HeadwiseLayerNorm, LayerNorm, RMSNorm
+    from transformers_tpu_torch.models.deepseek_v3.modeling_deepseek_v3 import (
+        DeepseekV3Attention, DeepseekV3MoE)
     from transformers_tpu_torch.models.gpt_oss.modeling_gpt_oss import GptOssExperts, GptOssMLP
     from transformers_tpu_torch.models.llama import modeling_llama
     from transformers_tpu_torch.models.llama.modeling_llama import (LlamaAttention,
@@ -4659,9 +4765,12 @@ def labelled_spans(phases: dict, model=None):
         return call
 
     targets = [(LlamaAttention, "forward", SPAN + "attention"),
+               (DeepseekV3Attention, "forward", SPAN + "attention"),
+               (DeepseekV3Attention, "expand_kv", SPAN + "mla expansion"),
                (attention, "eager_attention", SPAN + "eager attention"),
                (modeling_llama, "cached_attention_bhsd", SPAN + "eager attention"),
                (SparseMoeBlock, "forward", SPAN + "router"),
+               (DeepseekV3MoE, "forward", SPAN + "router"),
                (GptOssMLP, "forward", SPAN + "router"),
                (Experts, "forward", SPAN + "experts"), (GptOssExperts, "forward", SPAN + "experts"),
                (RMSNorm, "forward", SPAN + "norms"), (LayerNorm, "forward", SPAN + "norms"),
@@ -4788,7 +4897,7 @@ def moe_generate_route(label: str, model, route: str, ids, mask, stream_bytes, h
     loop (``generate_graph_vs_loop``, launches exact), then prefill ms and
     decode ms/step of the graph path (medians of 3), tokens/s, the profiled
     idle share, peak memory, the step's weight-stream bound (``moe_stream``)
-    and the breakdown by span. Returns (ids, launch counts)."""
+    and the breakdown by span. Returns (ids, launch counts, the breakdown)."""
     from transformers_tpu_torch.generation.utils import StaticDecode
 
     layers = model.config.num_hidden_layers
@@ -4813,15 +4922,16 @@ def moe_generate_route(label: str, model, route: str, ids, mask, stream_bytes, h
           f"measured {hbm / 1e12:.3f} TB/s: bound {nbytes / hbm * 1e3:.3f} ms/step, "
           f"{nbytes / hbm * 1e3 / step:.2f} of the step's time (at the published "
           f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s: {nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms) ({card})")
-    moe_breakdown(f"{label} {route}", lambda: eager(max_new_tokens=MOE_SPLIT_NEW),
-                  [("prefill", StaticDecode, "prefill"), ("decode", StaticDecode, "step")], card,
-                  model)
-    return out, counts
+    split = moe_breakdown(f"{label} {route}", lambda: eager(max_new_tokens=MOE_SPLIT_NEW),
+                          [("prefill", StaticDecode, "prefill"), ("decode", StaticDecode, "step")],
+                          card, model)
+    return out, counts, split
 
 
 def check_qwen3_moe(seed: int, card: str) -> dict:
-    """Phase (j): Qwen3-30B-A3B at full width and depth (bf16, random weights
-    from ``seed``, built on the card): the 2-layer checkpoint round trip (one
+    """Phase (j): Qwen3-30B-A3B at full width, its depth cut to
+    ``QWEN3_MOE_LAYERS`` (bf16, random weights from ``seed``, built on the
+    card): the 2-layer checkpoint round trip (one
     tensor per expert in the file); static generate at phase (c)'s shape under
     each route, graph against step loop, timed, profiled and broken down; the
     routes' prefill logits against each other and float32; continuous
@@ -4832,12 +4942,13 @@ def check_qwen3_moe(seed: int, card: str) -> dict:
 
     check_load_path(seed, card, "qwen3_moe", QWEN3_MOE)
     hbm = measured_hbm_rate()
-    model = build_decoder(QWEN3_MOE, QWEN3_MOE["num_hidden_layers"], torch.bfloat16, seed,
+    model = build_decoder(QWEN3_MOE, QWEN3_MOE_LAYERS, torch.bfloat16, seed,
                           model_type="qwen3_moe")
     cfg = model.config
     experts = sum(p.numel() for n, p in model.named_parameters() if ".experts." in n)
     params = sum(p.numel() for p in model.parameters())
-    print(f"[qwen3_moe] {QWEN3_MOE_SOURCE}: {cfg.num_hidden_layers} layers (no cut), "
+    print(f"[qwen3_moe] {QWEN3_MOE_SOURCE}: {cfg.num_hidden_layers} of "
+          f"{QWEN3_MOE['num_hidden_layers']} layers, "
           f"{params / 1e9:.3f} B parameters ({experts / 1e9:.3f} B in the experts), "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated; HBM copy rate measured "
           f"{hbm / 1e12:.3f} TB/s ({card})")
@@ -4955,7 +5066,8 @@ def check_gpt_oss(seed: int, card: str, hbm: float) -> dict:
     ids, mask = generate_inputs(seed, model.config.vocab_size)
     eager = _generate_runs(model, ids, mask, NEW)[1]
     stream = moe_stream(model, lambda: eager(max_new_tokens=NEW))
-    out, counts = moe_generate_route("gpt_oss", model, "dense", ids, mask, stream, hbm, card)
+    out, counts, _ = moe_generate_route("gpt_oss", model, "dense", ids, mask, stream, hbm,
+                                        card)
     model._decode_program = None
     gc.collect()
     torch.cuda.empty_cache()
@@ -5074,6 +5186,203 @@ def check_moe_bases(seed: int, card: str) -> dict:
     return paths
 
 
+# --------------------------------------------------------------------- (m)
+# DeepSeek-V2-Lite at full width and depth: deepseek-ai/DeepSeek-V2-Lite's
+# config.json (27 layers, hidden 2048, 16 heads of multi-head latent
+# attention: no q rank, kv rank 512, q/k 128 + 64 rope, v 128; layer 0 dense
+# at 10944, 26 MoE layers of 64 experts of 1408, top 6 by softmax, 2 shared;
+# 102400-token vocabulary; yarn factor 40): 15.7e9 parameters, 31.4 GB in bf16
+DSV2_LITE_SOURCE = "deepseek-ai/DeepSeek-V2-Lite"
+DSV2_LITE = dict(vocab_size=102400, hidden_size=2048, intermediate_size=10944,
+                 num_hidden_layers=27, num_attention_heads=16, num_key_value_heads=16,
+                 q_lora_rank=None, kv_lora_rank=512, qk_nope_head_dim=128, qk_rope_head_dim=64,
+                 v_head_dim=128, n_routed_experts=64, n_shared_experts=2, num_experts_per_tok=6,
+                 moe_intermediate_size=1408, first_k_dense_replace=1, topk_method="greedy",
+                 n_group=1, topk_group=1, routed_scaling_factor=1.0, norm_topk_prob=False,
+                 rms_norm_eps=1e-6, rope_theta=10000.0, max_position_embeddings=163840,
+                 rope_scaling={"type": "yarn", "factor": 40.0, "beta_fast": 32, "beta_slow": 1,
+                               "mscale": 0.707, "mscale_all_dim": 0.707,
+                               "original_max_position_embeddings": 4096},
+                 tie_word_embeddings=False)
+# DeepSeek-V3 at full width (DeepseekV3Config's defaults, the published
+# widths: hidden 7168, 128 heads, q rank 1536, kv rank 512, dense layers of
+# 18432, 256 routed experts of 2048 in 8 groups, top 8 from 4 groups, one
+# shared, 129280-token vocabulary), depth cut to 4 of 61: the 3 dense layers
+# and one MoE layer, ~30 GB in bf16
+DSV3_SOURCE = "DeepseekV3Config's defaults (deepseek-ai/DeepSeek-V3's widths)"
+DSV3 = dict(num_hidden_layers=61, max_position_embeddings=4096, tie_word_embeddings=False)
+DSV3_LAYERS = 4
+# GLM-4.5-Air at full width (Glm4MoeConfig's defaults: hidden 4096, 96 query
+# heads over 8 kv heads at head_dim 128, half of it rotated, layer 0 dense at
+# 10944, 128 experts of 1408, top 8, one shared; 151552-token vocabulary)
+# with biases on q/k/v, depth cut to 4 of 46
+GLM45_AIR_SOURCE = "Glm4MoeConfig's defaults (zai-org/GLM-4.5-Air's widths), attention_bias"
+GLM45_AIR = dict(num_hidden_layers=46, attention_bias=True, tie_word_embeddings=False)
+# the other families of the tree at 4 layers of their configs' widths,
+# through check_families
+DEEPSEEK_FAMILY_GEOMETRIES = {
+    # Dots1Config's defaults (hidden 4608, 32 over 32 heads) with its expert
+    # fields, None by default, filled as dots.llm1's (128 routed experts of
+    # 1408, 2 shared, top 6) and head_dim 128 (the default's 4608 / 32 = 144
+    # is no kernel's head_dim; dots.llm1's is 128)
+    "dots1": ("Dots1Config's defaults, experts and head_dim of rednote-hilab/dots.llm1", dict(
+        num_hidden_layers=62, n_routed_experts=128, n_shared_experts=2, num_experts_per_tok=6,
+        head_dim=128, tie_word_embeddings=False)),
+    # SolarOpenConfig's defaults: 64 over 8 heads (a group of 8), full rotary,
+    # 128 experts of 1280, top 8, one shared, every layer sparse
+    "solar_open": ("SolarOpenConfig's defaults (upstage/Solar-Open-100B)", dict(
+        num_hidden_layers=48, tie_word_embeddings=False)),
+    # Mistral4Config's defaults: 32 heads of MLA with q/k 64 + 64 and v 128
+    # (so K1 takes its attention), 128 experts of 2048, top 4, no shared
+    # experts, every layer sparse, llama-4's attention temperature
+    "mistral4": ("Mistral4Config's defaults", dict(num_hidden_layers=36,
+                                                   tie_word_embeddings=False)),
+}
+
+
+@contextlib.contextmanager
+def f32_experts_one_at_a_time():
+    """Stacked experts computing in float32 (a ``computing_in`` run) loop over
+    the experts the tokens picked, each expert's weights widened alone: both
+    routes widen a whole stacked parameter at once, and DeepSeek-V3's one
+    MoE layer holds 11.3e9 expert weights, 45 GB in float32, beside which
+    neither route's products fit on the card. Calls in another type take the
+    route as they are. Reads the routing to the host: uncaptured runs only."""
+    from transformers_tpu_torch.ops.moe import Experts
+
+    real = Experts.forward
+
+    def forward(self, x, routing_weights, routing_idx, implementation=None):
+        if self.dtype != torch.float32:
+            return real(self, x, routing_weights, routing_idx, implementation)
+        gate, up, down = (getattr(self, n).transpose(1, 2) for n in self.stacked_names)
+        return moe_loop(x, gate, up, down, routing_weights, routing_idx, self.act)
+
+    Experts.forward = forward
+    try:
+        yield
+    finally:
+        Experts.forward = real
+
+
+def mla_share(label: str, split: dict, steps: int) -> None:
+    """Of the decode steps' device time in ``split`` (``moe_breakdown``'s), the
+    multi-head latent attention's share: the block's own kernels (the
+    projections and the rope), the history's re-expansion through
+    ``kv_b_proj`` and the eager attention over it."""
+    row = split["decode"]
+    total = sum(row.get(n, 0.0) for n in SPAN_NAMES)
+    parts = {n: row.get(n, 0.0) for n in ("attention", "mla expansion", "eager attention")}
+    mla = sum(parts.values())
+    print(f"[{label} mla] decode: multi-head latent attention {mla / steps:.3f} ms of the "
+          f"step's {total / steps:.3f} ms device time ({mla / total:.3f}): the block's "
+          f"projections and rope {parts['attention'] / steps:.3f}, the history's re-expansion "
+          f"through kv_b_proj {parts['mla expansion'] / steps:.3f}, the eager attention "
+          f"{parts['eager attention'] / steps:.3f} ms a step (uncaptured steps)")
+
+
+def check_mla_model(label: str, source: str, geometry: dict, seed: int, card: str, hbm: float,
+                    layers: int = 0) -> dict:
+    """A multi-head latent attention model (``label`` its ``model_type``) at
+    full width, bf16, random weights from ``seed``, ``layers`` deep (0: all
+    of them): the 2-layer checkpoint round trip (one tensor per expert, the
+    router in the hub's layout); the continuous-batching engine's refusal;
+    static generate at phase (c)'s shape under each route, graph against
+    step loop (no kernel: the values are narrower than the keys, so every
+    attention call is the eager one, as in JAX), timed against the step's
+    weight stream, profiled, split by span with the MLA's share of a decode
+    step; the routes' prompt logits; the generated tokens teacher-forced
+    against float32 from the same bf16 weights, its experts computed one at
+    a time (``f32_experts_one_at_a_time``). Returns the path's launches."""
+    from transformers_tpu_torch.generation.continuous_batching import ContinuousBatchingEngine
+
+    check_load_path(seed, card, label, geometry)
+    model = _moe_model(label, source, geometry, label, seed, hbm, card, layers)
+    try:
+        ContinuousBatchingEngine(model, **CB_ENGINE)
+    except NotImplementedError as err:
+        print(f"[{label}] continuous batching refused at construction, as required: {err}")
+    else:
+        raise AssertionError(f"{label}: the continuous-batching engine took an MLA model")
+    cache = model.init_cache(BATCH, PROMPT + NEW)
+    print(f"[{label}] latent cache: {len(cache.keys)} layers of latents "
+          f"{tuple(cache.keys[0].shape)} and rope keys {tuple(cache.values[0].shape)}, "
+          f"{sum(t.numel() * t.element_size() for t in cache.keys + cache.values) / 1e6:.2f} MB "
+          f"for {BATCH} x {PROMPT + NEW} slots")
+    del cache
+    ids, mask = generate_inputs(seed, model.config.vocab_size)
+    eager = _generate_runs(model, ids, mask, NEW)[1]
+    stream = moe_stream(model, lambda: eager(max_new_tokens=NEW))
+    runs = {}
+    for route in MOE_ROUTES:
+        runs[route] = moe_generate_route(label, model, route, ids, mask, stream, hbm, card)
+        mla_share(f"{label} {route}", runs[route][2], MOE_SPLIT_NEW - 1)
+    same = int((runs["dense"][0][:, PROMPT:] == runs["ragged"][0][:, PROMPT:]).sum())
+    print(f"[{label} routes] greedy tokens: {same} of {BATCH * NEW} equal between the routes "
+          f"(bf16 near-ties of random weights)")
+    model._decode_program = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    with f32_experts_one_at_a_time():
+        moe_routes_logits(label, model, ids, mask)
+        model.config.experts_implementation = "ragged"
+        teacher_force_moe(model, runs["ragged"][0], mask, label=f"{label} teacher-force",
+                          f32_in_place=True)
+    paths = {f"{label}_generate": runs["ragged"][1]}
+    del model, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def check_glm4_5_air(seed: int, card: str, hbm: float) -> dict:
+    """GLM-4.5-Air at full width, 4 layers (bf16, random weights from
+    ``seed``): the 2-layer checkpoint round trip; static generate at phase
+    (c)'s shape on the dense route, graph against step loop (K1 per layer per
+    prefill at the group of 12; no K2: the half-width rope takes the eager
+    cached attention, as in JAX), timed beside the step's weight stream;
+    continuous batching (phase (j)'s traffic, the ragged route, K1 per chunk
+    and K6 per step at the group of 12), graph engine against uncaptured;
+    the generated tokens teacher-forced. Returns the paths' launches."""
+    check_load_path(seed, card, "glm4_moe", GLM45_AIR)
+    model = _moe_model("glm4_moe", GLM45_AIR_SOURCE, GLM45_AIR, "glm4_moe", seed, hbm, card,
+                       FAMILY_LAYERS)
+    vocab = model.config.vocab_size
+    ids, mask = generate_inputs(seed, vocab)
+    out, counts = generate_graph_vs_loop("glm4_moe", model, ids, mask, NEW, card)
+    moe_family_times("glm4_moe", model, ids, mask, NEW, hbm, card)
+    model._decode_program = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    model.config.experts_implementation = "ragged"
+    cb = cb_graph_vs_uncaptured("glm4_moe cb", model, moe_cb_prompts(seed, vocab), 16, card,
+                                new=MOE_CB_NEW)
+    paths = {"glm4_moe_generate": counts, "glm4_moe_continuous_batching": cb["counts"]}
+    del cb
+    gc.collect()
+    torch.cuda.empty_cache()
+    model.config.experts_implementation = None
+    teacher_force_moe(model, out, mask, label="glm4_moe teacher-force", f32_in_place=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def check_deepseek_tree(seed: int, card: str) -> dict:
+    """Phase (m): DeepSeek-V2-Lite at full depth and DeepSeek-V3 at full width
+    cut to 4 layers (``check_mla_model``), GLM-4.5-Air at 4 layers
+    (``check_glm4_5_air``), then dots.llm1, Solar-Open and Mistral4 at 4
+    layers (``check_families``). Returns the paths' launches."""
+    hbm = measured_hbm_rate()
+    paths = check_mla_model("deepseek_v2", DSV2_LITE_SOURCE, DSV2_LITE, seed, card, hbm)
+    paths.update(check_mla_model("deepseek_v3", DSV3_SOURCE, DSV3, seed, card, hbm,
+                                 DSV3_LAYERS))
+    paths.update(check_glm4_5_air(seed, card, hbm))
+    paths.update(check_families(seed, card, DEEPSEEK_FAMILY_GEOMETRIES))
+    return paths
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5151,6 +5460,8 @@ def main() -> int:
     lap("phase (k), OLMoE-1B-7B, gpt-oss-20b, Phi-3.5-MoE and Laguna")
     paths.update(check_moe_bases(args.seed, card))
     lap("phase (l), ERNIE-4.5-21B-A3B, Command-R7B and the families on new bases")
+    paths.update(check_deepseek_tree(args.seed, card))
+    lap("phase (m), DeepSeek-V2-Lite, DeepSeek-V3, GLM-4.5-Air and the DeepSeek tree")
     paths["train"] = check_train(args.seed, card)
     lap("phase (e), training at the Llama-3-8B width")
     paths["train_gemma3"] = check_train_gemma3(args.seed, card)

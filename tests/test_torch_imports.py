@@ -79,7 +79,9 @@ def test_every_kernel_module_is_checked():
                                   "gemma3", "mixtral", "qwen2_moe", "qwen3_moe", "olmoe",
                                   "phimoe", "laguna", "gpt_oss", "olmo2", "minimax_m2",
                                   "ernie4_5", "ernie4_5_moe", "cohere", "cohere2",
-                                  "cohere2_moe", "hunyuan_v1_dense", "hunyuan_v1_moe")
+                                  "cohere2_moe", "hunyuan_v1_dense", "hunyuan_v1_moe",
+                                  "deepseek_v3", "deepseek_v2", "mistral4", "glm4_moe",
+                                  "dots1", "solar_open")
                    for kind in ("configuration", "modeling"))):
         assert name in MODULES
     # the flash backward (K5 dQ, K4 dK/dV) lives in ops.flash_attention,

@@ -33,13 +33,20 @@ layout (``experts.gate_up_proj`` ``[E, 2I, H]``, ``experts.down_proj``
 ``self_attn.full_q_norm`` / ``full_k_norm`` in the JAX package, are the port's
 ``self_attn.q_norm`` / ``k_norm``, the checkpoint's names.
 
-Two 2-D ``weight``s are no kernels and keep their layout: a norm's (Cohere's
-head-wise q/k LayerNorm, ``[heads, D]``) and ERNIE-4.5 MoE's router
+Some 2-D ``weight``s are no kernels and keep their layout: a norm's (Cohere's
+head-wise q/k LayerNorm, ``[heads, D]``), ERNIE-4.5 MoE's router
 ``mlp.gate.weight``, which the JAX package keeps as the hub's float32
-``[E, H]`` (the block beside it holds ``moe_statics``).
+``[E, H]`` (the block beside it holds ``moe_statics``), and DeepSeek-V2's
+router, which it keeps as the hub's float32 ``[E, H]`` too: its tree does
+not say so, so the caller names the family (``model_type="deepseek_v2"``).
+The routers of DeepSeek-V3 and the families on its MoE block (Mistral4,
+GLM-4.5, dots.llm1, Solar-Open) are JAX ``[H, E]`` kernels, transposed as
+any other; their ``e_score_correction_bias`` passes as it is.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -89,23 +96,33 @@ _RENAMES = ((".self_attn.full_q_norm.", ".self_attn.q_norm."),
             (".self_attn.full_k_norm.", ".self_attn.k_norm."))
 
 
-def _is_kernel(key: str, keys) -> bool:
+# families whose JAX model keeps every MoE router (``<block>.gate.weight``) as
+# the hub's [E, H]
+_ROUTERS_IN_HUB_LAYOUT = ("deepseek_v2",)
+
+
+def _is_kernel(key: str, keys, model_type: Optional[str]) -> bool:
     """Whether a 2-D ``weight`` is a JAX ``[in, out]`` kernel to transpose."""
     module = key[:-len(".weight")]
     if module.endswith("embed_tokens") or module.endswith("norm"):
         return False
-    # ERNIE-4.5 MoE's router, kept in the hub's layout beside moe_statics
     block, _, leaf = module.rpartition(".")
+    if leaf == "gate" and model_type in _ROUTERS_IN_HUB_LAYOUT:
+        return False
+    # ERNIE-4.5 MoE's router, kept in the hub's layout beside moe_statics
     statics = (block + "." if block else "") + "moe_statics.e_score_correction_bias"
     return not (leaf == "gate" and statics in keys)
 
 
-def params_from_jax(jax_params_numpy: dict) -> dict[str, torch.Tensor]:
+def params_from_jax(jax_params_numpy: dict, model_type: Optional[str] = None
+                    ) -> dict[str, torch.Tensor]:
+    """The port's state dict of a JAX params tree; ``model_type`` names the
+    family where its tree alone does not give a weight's layout."""
     flat = dict(_flatten(_stack_experts(jax_params_numpy)))
     state_dict = {}
     for key, value in flat.items():
         t = _to_torch(np.asarray(value))
-        if key.endswith(".weight") and t.ndim == 2 and _is_kernel(key, flat):
+        if key.endswith(".weight") and t.ndim == 2 and _is_kernel(key, flat, model_type):
             t = t.T.contiguous()
         for jax_part, port_part in _RENAMES:
             key = key.replace(jax_part, port_part)

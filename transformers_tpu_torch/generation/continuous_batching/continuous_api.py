@@ -42,13 +42,23 @@ class GenerationOutput:
 
 
 class ContinuousBatchingEngine:
-    """Synchronous core; the Manager wraps it in a thread."""
+    """Synchronous core; the Manager wraps it in a thread.
+
+    The pools hold ``num_key_value_heads`` keys and values of ``head_dim``
+    per token, as the JAX engine's do. A model whose cache holds something
+    else (multi-head latent attention's latents: ``paged_kv_cache`` False) is
+    refused here; the JAX engine takes it and fails at its first cache write."""
 
     def __init__(self, model, *, num_blocks: int = 256, block_size: int = 32,
                  max_batch: int = 16, token_budget: int = 64,
                  max_context: Optional[int] = None, scheduler: str = "fifo",
                  cache_dtype=None, swap_blocks: int = 0,
                  steps_per_sync: int = 1):
+        if not getattr(model, "paged_kv_cache", True):
+            raise NotImplementedError(
+                f"{type(model).__name__} caches latents, not per-head keys and values "
+                "(multi-head latent attention): the paged pools hold num_key_value_heads x "
+                "head_dim per token, and continuous batching does not take it; use generate()")
         self.model = model
         config = model.config
         if hasattr(config, "get_text_config"):

@@ -5,7 +5,10 @@ type (default, linear, dynamic NTK and its HunYuan alpha variant, yarn,
 longrope, llama3) are host numpy, computed once from the config; the
 positional application is PyTorch, in the Llama layout (each half of the
 rotated dims one member of a pair) or the interleaved one (ERNIE-4.5,
-Cohere: pairs of adjacent dims).
+Cohere: pairs of adjacent dims). Multi-head latent attention (DeepSeek-V2/V3,
+Mistral4) rotates its rope slice from interleaved pairs with the Llama
+tables: DeepSeek-V3 into contiguous halves, DeepSeek-V2 back into pairs;
+``yarn_mscale_factor`` is DeepSeek-V3's yarn factor on the attention scale.
 """
 
 from __future__ import annotations
@@ -267,3 +270,44 @@ def apply_rotary_pos_emb(q, k, cos, sin):
         return torch.cat([x_rot, x_pass], dim=-1)
 
     return rot(q), rot(k)
+
+
+def yarn_mscale_factor(config) -> float:
+    """mscale² multiplier on the attention scale when yarn rope with
+    ``mscale_all_dim`` is active (JAX ``models/deepseek_v3/modeling_deepseek_v3.py:49-62``;
+    reference yarn_apply_mscale); 1.0 otherwise."""
+    rope = getattr(config, "rope_scaling", None) or {}
+    if rope.get("rope_type", rope.get("type", "default")) == "default":
+        return 1.0
+    mscale_all_dim = rope.get("mscale_all_dim", 0)
+    factor = rope.get("factor", 1.0)
+    if not mscale_all_dim or factor <= 1:
+        return 1.0
+    mscale = 0.1 * mscale_all_dim * math.log(factor) + 1.0
+    return mscale * mscale
+
+
+def _pair_rotation(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+    """The pairs (x0, x1), (x2, x3), ... of x [B, S, heads, D] each rotated by
+    one frequency of the Llama-layout tables [B, S, D] (their first half), in
+    x's dtype: (evens', odds')."""
+    half = cos.shape[-1] // 2
+    c = cos[:, :, None, :half]
+    s = sin[:, :, None, :half]
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    return x1 * c - x2 * s, x2 * c + x1 * s
+
+
+def apply_rope_interleave_deepseek(x: torch.Tensor, cos: torch.Tensor,
+                                   sin: torch.Tensor) -> torch.Tensor:
+    """DeepSeek-V3's rope (JAX ``modeling_deepseek_v3.py:65-75``): interleaved
+    pairs in, the rotated evens in the first half of the output and the odds
+    in the second."""
+    return torch.cat(_pair_rotation(x, cos, sin), dim=-1)
+
+
+def apply_rope_complex_pairs(x: torch.Tensor, cos: torch.Tensor,
+                             sin: torch.Tensor) -> torch.Tensor:
+    """DeepSeek-V2's rope (JAX ``models/deepseek_v2/modeling_deepseek_v2.py:31-41``):
+    a complex product per pair, the output's pairs interleaved as the input's."""
+    return torch.stack(_pair_rotation(x, cos, sin), dim=-1).reshape(x.shape).to(x.dtype)
