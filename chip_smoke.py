@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``transformers_tpu_torch``) on one card.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--only-encoders]
+
+``--only-encoders`` runs the build (a) and then phase (n) alone, and prints
+no result line: a quick check of the encoders, not a smoke run.
 
 Phases, in order; any failure exits non-zero:
 
@@ -254,6 +257,29 @@ Phases, in order; any failure exits non-zero:
     Then dots.llm1, Solar-Open and Mistral4 at 4 layers of their configs'
     widths, as phase (i)'s families (Mistral4's MLA through K1 at the
     prefill and at every decode step);
+(n) (run after (m), when no other model is held) the encoders, the task
+    heads and the text pipelines. K1's bidirectional mode (``is_causal=False``)
+    held to its plain version and to ``flash_attention_tiled_plain``, twice
+    bitwise, and timed beside its bound and SDPA with a boolean key-padding
+    mask at BERT-large's 32 x 512 (rows right-padded to lengths of 64-512,
+    16 heads, head_dim 64) and ModernBERT's global layer (1 x 8192, 12
+    heads). Then, through the auto classes, bf16, random weights from
+    ``--seed``, at full width and depth: bert-large-uncased sequence
+    classification and masked LM at 32 x 512, roberta-large sequence
+    classification at 32 x 512, xlm-roberta-large masked LM at 8 x 512 (its
+    250002-wide decoder), distilbert-base-uncased sequence classification at
+    32 x 512 and ModernBERT-base masked LM at 16 x 512 and 1 x 8192: K1 once a
+    layer (ModernBERT's global layers only; its local layers take the eager
+    attention, as in JAX), ms a forward, sequences/s, MFU, K1's and the
+    eager attention's share of device time (profiler), the leg's peak memory
+    (above what was allocated when the leg began), and the head's logits at the live positions no further from float32 than twice
+    the plain (eager) path; ``LlamaForSequenceClassification`` on phase
+    (c)'s geometry at 32 layers, 8 x 128 with pad ids inside two rows (K1
+    causal, the pooled positions checked); then the seven text tasks once
+    each through ``pipeline(task, model=<dir>, device="cuda")`` on
+    BERT-base-width models and a small Llama saved with a made-up
+    30522-entry WordPiece vocabulary, each output's structure checked and
+    its ms a call printed;
 (e) training at the same width, depth cut to 4 layers (f32 weights, bf16
     compute, random from ``--seed``), after (c)/(d)'s model is freed: layer 0's
     q/k/v gradients and the loss of one row through the kernel path held
@@ -620,28 +646,36 @@ def _flash_wg_holds(q, k, v, qpos, valid, tol: float, **kw) -> dict:
     return dict(tiled_err=err, tiled_grad_ratio=ratio, bitwise=bitwise)
 
 
-def flash_timed(q, k, v, qpos, valid, window=None) -> dict:
+def flash_timed(q, k, v, qpos, valid, window=None, is_causal: bool = True,
+                iters: int = 20) -> dict:
     """K1, its plain version and SDPA (the mask as a boolean tensor) timed on
-    these inputs (causal, the window if given), beside the least time the
-    card could take."""
+    these inputs (causal unless told otherwise, the window if given), beside
+    the least time the card could take; ``iters`` calls a timed graph."""
     import torch.nn.functional as F
 
     from transformers_tpu_torch.ops.flash_attention import (flash_attention,
                                                             flash_attention_plain)
 
     b, sq, h, d = q.shape
-    kw = dict(scale=d ** -0.5, is_causal=True, sliding_window=window)
-    ms = device_ms(lambda: flash_attention(q, k, v, q_positions=qpos, kv_valid=valid, **kw))
-    plain_ms = device_ms(lambda: flash_attention_plain(q, k, v, qpos, valid, **kw))
+    kw = dict(scale=d ** -0.5, is_causal=is_causal, sliding_window=window)
+    ms = device_ms(lambda: flash_attention(q, k, v, q_positions=qpos, kv_valid=valid, **kw),
+                   iters=iters)
+    plain_ms = device_ms(lambda: flash_attention_plain(q, k, v, qpos, valid, **kw),
+                         iters=iters)
     slots = torch.arange(k.shape[1], device="cuda")
-    mask = (valid != 0)[:, None, :] & (slots[None, None, :] <= qpos[:, :, None])
+    mask = (valid != 0)[:, None, :].expand(b, sq, k.shape[1])
+    if is_causal:
+        mask = mask & (slots[None, None, :] <= qpos[:, :, None])
     if window:
-        mask &= slots[None, None, :] > qpos[:, :, None] - window
+        mask = mask & (slots[None, None, :] > qpos[:, :, None] - window)
     qt, kt, vt, m4 = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), mask[:, None]
     library_ms = device_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=m4, scale=kw["scale"], enable_gqa=True))
-    nbytes = (q.numel() * 2 + k.numel() + v.numel()) * 2 + b * h * sq * 4 \
-        + (qpos.numel() + valid.numel()) * 4  # q, k, v and out; lse; mask data
+        qt, kt, vt, attn_mask=m4, scale=kw["scale"], enable_gqa=True), iters=iters)
+    # q and out whole, k and v at the live slots only (the kernel skips tiles
+    # no row sees, and a dead slot's bytes need not move), lse, the mask data
+    live_kv = int((valid != 0).sum()) * k.shape[2] * d * 2
+    nbytes = (q.numel() * 2 + live_kv) * q.element_size() + b * h * sq * 4 \
+        + (qpos.numel() + valid.numel()) * 4
     bms, by = bound_ms(nbytes, 4.0 * d * h * int(mask.sum()))
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms)
 
@@ -5383,9 +5417,448 @@ def check_deepseek_tree(seed: int, card: str) -> dict:
     return paths
 
 
+# --------------------------------------------------------------------- (n)
+# the encoders' batch: rows of ENC_SEQ tokens, right-padded to lengths drawn
+# from the seed in ENC_MIN_LEN..ENC_SEQ (the first row full)
+ENC_ROWS, ENC_SEQ, ENC_MIN_LEN = 32, 512, 64
+BERT_LARGE = dict(vocab_size=30522, hidden_size=1024, num_hidden_layers=24,
+                  num_attention_heads=16, intermediate_size=4096, max_position_embeddings=512,
+                  type_vocab_size=2, layer_norm_eps=1e-12, pad_token_id=0)
+ROBERTA_LARGE = dict(vocab_size=50265, hidden_size=1024, num_hidden_layers=24,
+                     num_attention_heads=16, intermediate_size=4096,
+                     max_position_embeddings=514, type_vocab_size=1, layer_norm_eps=1e-5,
+                     pad_token_id=1, bos_token_id=0, eos_token_id=2)
+XLMR_LARGE = dict(ROBERTA_LARGE, vocab_size=250002)
+DISTILBERT_BASE = dict(vocab_size=30522, dim=768, n_layers=6, n_heads=12, hidden_dim=3072,
+                       max_position_embeddings=512, pad_token_id=0)
+MODERNBERT_BASE = {}  # ModernBertConfig's defaults are answerdotai/ModernBERT-base's widths
+ENCODER_LEGS = (  # label, source, model_type, head, geometry, rows, seq
+    ("bert-large seq-cls", "google-bert/bert-large-uncased", "bert", "sequence", BERT_LARGE,
+     ENC_ROWS, ENC_SEQ),
+    ("bert-large mlm", "google-bert/bert-large-uncased", "bert", "masked_lm", BERT_LARGE,
+     ENC_ROWS, ENC_SEQ),
+    ("roberta-large seq-cls", "FacebookAI/roberta-large", "roberta", "sequence",
+     ROBERTA_LARGE, ENC_ROWS, ENC_SEQ),
+    ("xlm-roberta-large mlm", "FacebookAI/xlm-roberta-large", "xlm-roberta", "masked_lm",
+     XLMR_LARGE, 8, ENC_SEQ),
+    ("distilbert-base seq-cls", "distilbert-base-uncased", "distilbert", "sequence",
+     DISTILBERT_BASE, ENC_ROWS, ENC_SEQ),
+    ("modernbert-base mlm 16x512", "answerdotai/ModernBERT-base", "modernbert", "masked_lm",
+     MODERNBERT_BASE, 16, ENC_SEQ),
+    ("modernbert-base mlm 1x8192", "answerdotai/ModernBERT-base", "modernbert", "masked_lm",
+     MODERNBERT_BASE, 1, 8192),
+)
+# K1's bidirectional mode at the encoders' shapes: (label, b, s, h, d)
+ENCODER_K1_SHAPES = (("bert_large_32x512_right_padded", ENC_ROWS, ENC_SEQ, 16, 64),
+                     ("modernbert_global_1x8192", 1, 8192, 12, 64))
+PIPELINE_WIDTH = dict(vocab_size=30522, hidden_size=768, num_hidden_layers=12,
+                      num_attention_heads=12, intermediate_size=3072)  # bert-base-uncased
+PIPELINE_DECODER = dict(vocab_size=30522, hidden_size=512, intermediate_size=1536,
+                        num_hidden_layers=4, num_attention_heads=8, num_key_value_heads=4,
+                        head_dim=64, max_position_embeddings=256, tie_word_embeddings=True)
+NLI_LABELS = {0: "contradiction", 1: "neutral", 2: "entailment"}
+NER_LABELS = {0: "O", 1: "B-PER", 2: "I-PER", 3: "B-LOC", 4: "I-LOC"}
+
+
+def encoder_lengths(seed: int, rows: int, seq: int) -> list:
+    rng = np.random.default_rng(seed + rows + seq)
+    lengths = [int(n) for n in rng.integers(ENC_MIN_LEN, seq + 1, size=rows)]
+    lengths[0] = seq
+    return lengths
+
+
+def right_padded_valid(lengths: list, seq: int) -> torch.Tensor:
+    slots = torch.arange(seq, device="cuda")[None, :]
+    return (slots < torch.tensor(lengths, device="cuda")[:, None]).to(torch.int32)
+
+
+def check_encoder_kernels(seed: int) -> dict:
+    """K1's bidirectional mode (``is_causal=False``, which no path ran on the
+    card before the encoders) at ENCODER_K1_SHAPES, bf16: held to its plain
+    version (every row, pad rows included, sees each valid slot of its row;
+    absolute, lse, and relative to the output's scale) and to
+    ``flash_attention_tiled_plain`` at the kernel's kv tile, run twice
+    (bitwise), timed beside its bound and SDPA with the key-padding mask as a
+    boolean tensor. Right padding puts a row's dead slots in its last tiles,
+    ending mid-tile."""
+    from transformers_tpu_torch.ops.flash_attention import (flash_attention,
+                                                            flash_attention_tiled_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 19)
+    out = {}
+    for label, b, s, h, d in ENCODER_K1_SHAPES:
+        lengths = encoder_lengths(seed, b, s)
+        q, k, v, qpos, _ = _flash_inputs(gen, b=b, sq=s, skv=s, h=h, kvh=h, d=d)
+        valid = right_padded_valid(lengths, s)
+        kw = dict(scale=d ** -0.5, is_causal=False)
+        err, lse_err, ratio = _flash_errors(q, k, v, qpos, valid, **kw)
+        _family_hold("flash (bidirectional)", err, ratio)
+        if lse_err > LSE_ATOL:
+            raise AssertionError(f"flash bidirectional lse: {lse_err:.3e}")
+        args = dict(q_positions=qpos, kv_valid=valid, **kw)
+        first, second = flash_attention(q, k, v, **args), flash_attention(q, k, v, **args)
+        tiled, _ = flash_attention_tiled_plain(q, k, v, qpos, valid, block_kv=WG_TILE, **kw)
+        tiled_err = max_err(first, tiled)
+        bitwise = torch.equal(first, second)
+        if tiled_err > KERNEL_ATOL or not bitwise:
+            raise AssertionError(f"flash bidirectional against its tiled plain version: "
+                                 f"{tiled_err:.3e}, two runs equal bit for bit: {bitwise}")
+        del first, second, tiled
+        timed = flash_timed(q, k, v, qpos, valid, is_causal=False, iters=20 if s <= 512 else 3)
+        out[label] = dict(max_abs_err=err, grad_ratio=ratio, lse_err=lse_err,
+                          tiled_err=tiled_err, bitwise=bitwise, **timed,
+                          shape=f"B={b} S={s} H={h} D={d}, right-padded rows of "
+                                f"{min(lengths)}-{max(lengths)} slots, bidirectional")
+        print(f"[encoder shapes] flash_fwd {label} ({out[label]['shape']}): max_abs_err "
+              f"{err:.3e} (tol {KERNEL_ATOL}), grad_ratio {ratio:.4f}, lse {lse_err:.3e}, tiled "
+              f"{tiled_err:.3e}, bitwise {bitwise}; {timed['ms']:.4f} ms, plain "
+              f"{timed['plain_ms']:.4f} ms, sdpa {timed['library_ms']:.4f} ms, bound "
+              f"{timed['bound_ms']:.4f} ms ({timed['bound_by']})")
+        del q, k, v
+        torch.cuda.empty_cache()
+    return out
+
+
+def encoder_batch(model_type: str, config, rows: int, seq: int, seed: int) -> dict:
+    """Right-padded rows of random ids (never the pad id where a row is
+    live), the pad id after; BERT's second half of each row as segment 1."""
+    lengths = encoder_lengths(seed, rows, seq)
+    g = torch.Generator(device="cuda").manual_seed(seed + 7)
+    pad = config.pad_token_id
+    ids = torch.randint(3, config.vocab_size, (rows, seq), generator=g, device="cuda")
+    ids = torch.where(ids == pad, 3, ids)
+    mask = right_padded_valid(lengths, seq)
+    batch = {"input_ids": torch.where(mask.bool(), ids, pad), "attention_mask": mask}
+    if model_type == "bert":
+        batch["token_type_ids"] = (torch.arange(seq, device="cuda")[None, :]
+                                   >= torch.tensor(lengths, device="cuda")[:, None] // 2
+                                   ).long() * mask
+    return batch
+
+
+def head_logits(out) -> torch.Tensor:
+    """A head's output as one tensor: logits, or QA's start and end stacked."""
+    if getattr(out, "logits", None) is not None:
+        return out.logits
+    return torch.stack([out.start_logits, out.end_logits], dim=-1)
+
+
+def encoder_flops(model, head: str, rows: int, seq: int) -> float:
+    """The forward's operations: 2 x every Linear weight that runs on each
+    token (the pooler and the classifiers over one token a row left out) x
+    the B x S tokens (padding included: the encoder computes every slot),
+    the tied MLM decoder (vocab x hidden a token), and 4 x hidden per
+    (query, slot) pair each layer's attention must score: every slot of the
+    row on a global layer, the 2 x half-window + 1 nearest on a local one."""
+    from transformers_tpu_torch.core.module import Linear
+
+    cfg = model.config
+    base = getattr(model, model.base_model_prefix)
+    per_token = sum(m.weight.numel() for name, m in base.named_modules()
+                    if isinstance(m, Linear) and "pooler" not in name)
+    if head in ("masked_lm", "token", "qa"):
+        per_token += sum(m.weight.numel() for name, m in model.named_modules()
+                         if isinstance(m, Linear) and not name.startswith(
+                             model.base_model_prefix + "."))
+    if head == "masked_lm":
+        per_token += cfg.vocab_size * cfg.hidden_size
+    layers = getattr(cfg, "layer_types", None) or ["full_attention"] * cfg.num_hidden_layers
+    window = getattr(cfg, "sliding_window", None) or seq
+    attended = sum(seq if t == "full_attention" else min(seq, 2 * window + 1) for t in layers)
+    return 2.0 * per_token * rows * seq + 4.0 * cfg.hidden_size * rows * seq * attended
+
+
+def encoder_shares(label: str, run, model_cls, card: str) -> dict:
+    """K1's and the eager attention's (ModernBERT's local layers: the window
+    K1 does not take) shares of the device time of one ``run`` of
+    ``model_cls.forward``, from ``moe_breakdown``'s profile."""
+    split = moe_breakdown(label, run, [("forward", model_cls, "forward")], card)
+    busy = sum(split["forward"].get(n, 0.0) for n in SPAN_NAMES)
+    if busy == 0:
+        print(f"[{label} profile] the profiler recorded no device time: shares not measured")
+        return {}
+    k1 = sum(t for n, t in split["attention kernels"].items() if n.startswith("flash_fwd"))
+    eager = split["forward"].get("eager attention", 0.0)
+    print(f"[{label} profile] device busy {busy:.3f} ms a forward: K1 {k1:.3f} ms "
+          f"({k1 / busy:.1%}), eager attention {eager:.3f} ms ({eager / busy:.1%}) ({card})")
+    return dict(busy_ms=busy, k1_ms=k1, k1_share=k1 / busy, eager_attention_ms=eager,
+                eager_attention_share=eager / busy)
+
+
+def hold_logits(label: str, kernel, plain, ref) -> float:
+    """The kernel path's logits must be finite and no further from float32
+    than twice the plain (eager) bf16 path is; returns |kernel - f32| /
+    |plain - f32|."""
+    err_kernel_f32, err_plain_f32 = max_err(kernel, ref), max_err(plain, ref)
+    ratio = err_kernel_f32 / max(err_plain_f32, 1e-30)
+    print(f"[{label}] logits (|max| {float(ref.abs().max()):.3f}): |kernel - plain| "
+          f"{max_err(kernel, plain):.4f}, |plain - f32| {err_plain_f32:.4f}, |kernel - f32| "
+          f"{err_kernel_f32:.4f}, ratio {ratio:.3f}")
+    if not bool(torch.isfinite(kernel).all()) or err_kernel_f32 > 2 * err_plain_f32:
+        raise AssertionError(f"{label}: kernel path logits disagree with the plain path")
+    return ratio
+
+
+def encoder_leg(label: str, source: str, model_type: str, head: str, geometry: dict,
+                rows: int, seq: int, seed: int, card: str) -> dict:
+    """One encoder at its published width and depth, bf16, random weights from
+    ``seed``, through its auto class: K1's launches over one forward (one a
+    layer; ModernBERT's global layers only), ms per forward, sequences/s,
+    MFU, K1's and the eager attention's share (profiler), the leg's peak
+    memory (its weights, batch, first logits and one forward: the peak above
+    what was allocated when the leg began), and the head's logits at the live
+    positions held to the plain path and to float32 (the same weights widened
+    at each call). Returns the forward's launch counts."""
+    from transformers_tpu_torch import (AutoConfig, AutoModelForMaskedLM,
+                                        AutoModelForSequenceClassification)
+
+    auto = {"sequence": AutoModelForSequenceClassification,
+            "masked_lm": AutoModelForMaskedLM}[head]
+    t0 = time.perf_counter()
+    held = torch.cuda.memory_allocated()  # what earlier phases still hold
+    config = AutoConfig.for_model_type(model_type, **geometry, num_labels=3)
+    model = auto.from_config(config, dtype=torch.bfloat16, device="cuda").init_weights(seed)
+    batch = encoder_batch(model_type, config, rows, seq, seed)
+    fwd = functools.partial(model, **batch)
+    layers = getattr(config, "layer_types", None) or ["full_attention"] * config.num_hidden_layers
+    k1_layers = sum(t == "full_attention" for t in layers)
+    with torch.inference_mode():
+        _reset_counts()
+        kernel = head_logits(fwd())
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        if counts != _expected(flash_fwd=k1_layers):
+            raise AssertionError(f"{label}: launches {counts}, expected K1 {k1_layers}")
+        ms = event_ms(fwd, iters=3)
+        torch.cuda.reset_peak_memory_stats()
+        fwd()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+        split = encoder_shares(label, fwd, type(model), card)
+        model.config.attn_implementation = "eager"
+        _reset_counts()
+        plain = head_logits(fwd())
+        if any(_read_counts().values()):
+            raise AssertionError("the plain path launched a kernel")
+        with computing_in(model, torch.float32):
+            ref = head_logits(fwd())
+        model.config.attn_implementation = None
+    live = batch["attention_mask"].bool()
+    if kernel.dim() == 2:  # one row of logits a sequence
+        ratio = hold_logits(label, kernel, plain, ref)
+    else:
+        ratio = hold_logits(label, kernel[live], plain[live], ref[live])
+    flops = encoder_flops(model, head, rows, seq)
+    mfu = flops / (ms / 1e3 * BF16_FLOPS_PER_S)
+    params = sum(p.numel() for p in model.parameters())
+    print(f"[encoders] {label} ({source}, {config.num_hidden_layers} layers, "
+          f"{params / 1e6:.1f} M parameters, B={rows} S={seq}, live tokens "
+          f"{int(live.sum())} of {rows * seq}): {ms:.3f} ms a forward, "
+          f"{rows / (ms / 1e3):.1f} sequences/s, mfu {mfu:.4f} ({flops / 1e12:.3f} TFLOP at "
+          f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s), peak {peak:.2f} GiB above the "
+          f"{held / 2 ** 30:.2f} GiB held before, K1 {counts['flash_fwd']} "
+          f"launches, logits ratio {ratio:.3f}; {time.perf_counter() - t0:.1f} s ({card})")
+    del model, kernel, plain, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(counts=counts, ms=ms, mfu=mfu, peak_gib=peak, ratio=ratio, **split)
+
+
+def check_decoder_head(seed: int, card: str) -> dict:
+    """``LlamaForSequenceClassification`` on phase (c)'s Llama-3-8B geometry
+    at its 32 layers, 8 rows of 128 (right-padded by PADS, and pad ids inside
+    rows 1 and 5): K1 causal once a layer, the pooled rows at each row's last
+    non-pad token, the logits held to the plain path and float32. Returns
+    the forward's launch counts."""
+    from transformers_tpu_torch import (LlamaConfig, LlamaForSequenceClassification,
+                                        last_token_indices)
+
+    t0 = time.perf_counter()
+    cfg = LlamaConfig(**GEOMETRY, max_position_embeddings=PROMPT, pad_token_id=0, num_labels=3,
+                      bos_token_id=None, eos_token_id=None)
+    model = LlamaForSequenceClassification(cfg, dtype=torch.bfloat16,
+                                           device="cuda").init_weights(seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 3)
+    ids = torch.randint(1, cfg.vocab_size, (BATCH, PROMPT), generator=g, device="cuda")
+    lengths = torch.tensor([PROMPT - p for p in PADS], device="cuda")
+    mask = (torch.arange(PROMPT, device="cuda")[None, :] < lengths[:, None]).to(torch.int32)
+    ids = ids * mask
+    ids[1, 10] = ids[5, 3] = 0  # pad ids inside live rows: the mask keeps them
+    with torch.inference_mode():
+        _reset_counts()
+        kernel = model(input_ids=ids, attention_mask=mask).logits
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        if counts != _expected(flash_fwd=cfg.num_hidden_layers):
+            raise AssertionError(f"decoder head launches {counts}")
+        ms = event_ms(lambda: model(input_ids=ids, attention_mask=mask), iters=3)
+        model.config.attn_implementation = "eager"
+        plain = model(input_ids=ids, attention_mask=mask).logits
+        with computing_in(model, torch.float32):
+            ref = model(input_ids=ids, attention_mask=mask).logits
+        model.config.attn_implementation = None
+    pooled = last_token_indices(ids, mask, 0).tolist()
+    if pooled != (lengths - 1).tolist():
+        raise AssertionError(f"pooled positions {pooled}, expected {(lengths - 1).tolist()}")
+    ratio = hold_logits("llama seq-cls", kernel, plain, ref)
+    print(f"[encoders] LlamaForSequenceClassification (Llama-3-8B geometry, 32 layers, B={BATCH}"
+          f" S={PROMPT}): {ms:.3f} ms a forward, K1 {counts['flash_fwd']} launches (causal), "
+          f"pooled at {pooled}, logits ratio {ratio:.3f}; {time.perf_counter() - t0:.1f} s "
+          f"({card})")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def write_wordpiece_vocab(directory: str, size: int) -> list:
+    """A made-up WordPiece vocabulary of ``size`` entries: the specials, then
+    words and ``##`` pieces; returns its words."""
+    words = [f"w{i}" for i in range(size // 2)]
+    pieces = [f"##p{i}" for i in range(size - 5 - len(words))]
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + words + pieces
+    with open(os.path.join(directory, "vocab.txt"), "w", encoding="utf-8") as f:
+        f.write("".join(t + "\n" for t in vocab))
+    with open(os.path.join(directory, "tokenizer_config.json"), "w", encoding="utf-8") as f:
+        json.dump({"do_lower_case": True, "mask_token": "[MASK]", "pad_token": "[PAD]",
+                   "cls_token": "[CLS]", "sep_token": "[SEP]", "unk_token": "[UNK]"}, f)
+    return words
+
+
+def check_pipelines(seed: int, card: str) -> dict:
+    """The seven text tasks once each through ``port.pipeline(task,
+    model=<dir>, device="cuda")``: BERT-base-width models (12 layers, 768,
+    random bf16 weights from ``seed``, ``id2label`` set for the classifier
+    and the tagger) and a small Llama, each saved to a temporary directory
+    with a made-up 30522-entry WordPiece ``vocab.txt``. Each task's output
+    structure is checked and its ms per call (the second call) printed.
+    Returns the launches of the timed calls."""
+    import tempfile
+
+    from transformers_tpu_torch import (BertConfig, BertForMaskedLM, BertForQuestionAnswering,
+                                        BertForSequenceClassification,
+                                        BertForTokenClassification, BertModelStandalone,
+                                        LlamaConfig, LlamaForCausalLM, pipeline)
+
+    root = tempfile.mkdtemp(prefix="pipelines-")
+    models = {
+        "text-classification": (BertForSequenceClassification, dict(
+            id2label=NLI_LABELS, label2id={v: k for k, v in NLI_LABELS.items()})),
+        "token-classification": (BertForTokenClassification, dict(id2label=NER_LABELS)),
+        "fill-mask": (BertForMaskedLM, {}),
+        "feature-extraction": (BertModelStandalone, {}),
+        "question-answering": (BertForQuestionAnswering, {}),
+    }
+    dirs = {}
+    try:
+        for task, (cls, extra) in models.items():
+            d = dirs[task] = os.path.join(root, task)
+            os.makedirs(d)
+            cls(BertConfig(**PIPELINE_WIDTH, **extra), dtype=torch.bfloat16,
+                device="cuda").init_weights(seed).save_pretrained(d)
+            words = write_wordpiece_vocab(d, PIPELINE_WIDTH["vocab_size"])
+        dirs["zero-shot-classification"] = dirs["text-classification"]
+        d = dirs["text-generation"] = os.path.join(root, "text-generation")
+        os.makedirs(d)
+        LlamaForCausalLM(LlamaConfig(**PIPELINE_DECODER, pad_token_id=0, bos_token_id=2,
+                                     eos_token_id=None), dtype=torch.bfloat16,
+                         device="cuda").init_weights(seed).save_pretrained(d)
+        write_wordpiece_vocab(d, PIPELINE_DECODER["vocab_size"])
+        text = " ".join(words[7 * i + 3] for i in range(40))
+        calls = {
+            "text-classification": ((text,), {"top_k": 3}),
+            "zero-shot-classification": ((text,), {"candidate_labels": words[:4]}),
+            "token-classification": ((text,), {}),
+            "fill-mask": ((text + " [MASK] " + text,), {"top_k": 5}),
+            "feature-extraction": ((text,), {}),
+            "question-answering": ((), {"question": " ".join(words[:6]), "context": text,
+                                        "max_answer_len": 15}),
+            "text-generation": ((text,), {"max_new_tokens": 16}),
+        }
+        counts = {}
+        for task, (args, kw) in calls.items():
+            pipe = pipeline(task, model=dirs[task], device="cuda")
+            if pipe.model.device.type != "cuda":
+                raise AssertionError(f"{task}: the model is on {pipe.model.device}")
+            pipe(*args, **kw)  # warm-up (the decode graph's capture for text-generation)
+            _reset_counts()
+            outs = []
+            ms = _timed(lambda: outs.append(pipe(*args, **kw)))
+            counts[task] = _read_counts()
+            out = outs[0]
+            check_pipeline_output(task, out, args, kw)
+            print(f"[pipelines] {task}: {ms:.2f} ms a call, K1 {counts[task]['flash_fwd']}, K2 "
+                  f"{counts[task]['fused_decode']} launches; {str(out)[:100]} ({card})")
+            del pipe
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = {name: sum(c[name] for c in counts.values()) for name in _wrappers()}
+    return total
+
+
+def check_pipeline_output(task: str, out, args: tuple, kw: dict) -> None:
+    """The structure each task's pipeline gives for one input."""
+    def fail():
+        raise AssertionError(f"{task}: unexpected output {str(out)[:300]}")
+
+    def score_ok(x):
+        return isinstance(x, float) and 0.0 <= x <= 1.0
+
+    if task == "text-classification":
+        if not (len(out) == 3 and all(o["label"] in NLI_LABELS.values() and score_ok(o["score"])
+                                      for o in out)):
+            fail()
+    elif task == "zero-shot-classification":
+        if not (sorted(out["labels"]) == sorted(kw["candidate_labels"])
+                and abs(sum(out["scores"]) - 1.0) < 1e-6):
+            fail()
+    elif task == "token-classification":
+        if not all(o["entity"] in NER_LABELS.values() and o["entity"] != "O"
+                   and score_ok(o["score"]) and isinstance(o["index"], int) for o in out):
+            fail()
+    elif task == "fill-mask":
+        if not (len(out) == kw["top_k"] and all(
+                score_ok(o["score"]) and isinstance(o["token_str"], str) for o in out)):
+            fail()
+    elif task == "feature-extraction":
+        if not (len(out) == 1 and len(out[0][0]) == PIPELINE_WIDTH["hidden_size"]
+                and all(math.isfinite(x) for x in out[0][0])):
+            fail()
+    elif task == "question-answering":
+        if not (isinstance(out["answer"], str) and 0 <= out["start"] <= out["end"]
+                < out["start"] + kw["max_answer_len"] and score_ok(out["score"])):
+            fail()
+    elif task == "text-generation":
+        if not (len(out) == 1 and out[0]["generated_text"].startswith(args[0])):
+            fail()
+
+
+def check_encoders(seed: int, card: str) -> tuple:
+    """Phase (n): K1's bidirectional mode at the encoders' shapes
+    (``check_encoder_kernels``), the five encoder families at their published
+    widths and depths through their auto classes (``encoder_leg``), the
+    Llama sequence classifier (``check_decoder_head``) and the seven text
+    pipelines (``check_pipelines``). Returns (each path's launches, K1's
+    entries at the encoder shapes)."""
+    k1 = check_encoder_kernels(seed)
+    paths, legs = {}, {}
+    for label, source, model_type, head, geometry, rows, seq in ENCODER_LEGS:
+        leg = encoder_leg(label, source, model_type, head, geometry, rows, seq, seed, card)
+        paths[f"encoder {label}"] = leg.pop("counts")
+        legs[label] = leg
+    print(json.dumps({"encoders": legs}))
+    paths["llama_sequence_classification"] = check_decoder_head(seed, card)
+    paths["pipelines"] = check_pipelines(seed, card)
+    return paths, k1
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only-encoders", action="store_true",
+                    help="run the build and phase (n) alone; no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -5409,6 +5882,10 @@ def main() -> int:
 
     phase_build()
     lap("phase (a), build")
+    if args.only_encoders:
+        check_encoders(args.seed, card)
+        lap("phase (n), the encoders, the task heads and the text pipelines")
+        return 0
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     _reset_counts()
     kernels = [check_flash(gen), check_decode(gen, args.seed), *check_paged(gen, args.seed),
@@ -5462,6 +5939,9 @@ def main() -> int:
     lap("phase (l), ERNIE-4.5-21B-A3B, Command-R7B and the families on new bases")
     paths.update(check_deepseek_tree(args.seed, card))
     lap("phase (m), DeepSeek-V2-Lite, DeepSeek-V3, GLM-4.5-Air and the DeepSeek tree")
+    encoder_paths, kernels[0]["at_encoder_shapes"] = check_encoders(args.seed, card)
+    paths.update(encoder_paths)
+    lap("phase (n), the encoders, the task heads and the text pipelines")
     paths["train"] = check_train(args.seed, card)
     lap("phase (e), training at the Llama-3-8B width")
     paths["train_gemma3"] = check_train_gemma3(args.seed, card)

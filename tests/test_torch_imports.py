@@ -81,8 +81,14 @@ def test_every_kernel_module_is_checked():
                                   "ernie4_5", "ernie4_5_moe", "cohere", "cohere2",
                                   "cohere2_moe", "hunyuan_v1_dense", "hunyuan_v1_moe",
                                   "deepseek_v3", "deepseek_v2", "mistral4", "glm4_moe",
-                                  "dots1", "solar_open")
-                   for kind in ("configuration", "modeling"))):
+                                  "dots1", "solar_open", "bert", "roberta", "distilbert",
+                                  "modernbert")
+                   for kind in ("configuration", "modeling")),
+                 "transformers_tpu_torch.models.xlm_roberta.modeling_xlm_roberta",
+                 "transformers_tpu_torch.modeling_layers",
+                 "transformers_tpu_torch.pipelines",
+                 "transformers_tpu_torch.pipelines.base",
+                 "transformers_tpu_torch.pipelines.tasks"):
         assert name in MODULES
     # the flash backward (K5 dQ, K4 dK/dV) lives in ops.flash_attention,
     # with a launch count per kernel
@@ -115,18 +121,33 @@ def test_every_kernel_module_is_checked():
                                         ql.quantized_matmul, ql.widen_codes}
 
 
-@pytest.mark.parametrize("entry", ["constructor", "from_pretrained", "auto_from_config"])
+@pytest.mark.parametrize("entry", ["constructor", "from_pretrained", "auto_from_config",
+                                   "encoder_auto_classes", "pipeline"])
 def test_entry_points_default_to_cuda_and_raise_without_a_card(entry, tmp_path, monkeypatch):
     config = port.LlamaConfig(vocab_size=32, hidden_size=64, intermediate_size=64,
                               num_hidden_layers=1, num_attention_heads=1, head_dim=64)
-    if entry == "from_pretrained":
-        port.LlamaForCausalLM(config, device="cpu").init_weights(0).save_pretrained(tmp_path)
+    bert = port.BertConfig(vocab_size=32, hidden_size=64, num_hidden_layers=1,
+                           num_attention_heads=1, intermediate_size=64)
+    if entry in ("from_pretrained", "encoder_auto_classes", "pipeline"):
+        model = (port.LlamaForCausalLM(config, device="cpu") if entry == "from_pretrained"
+                 else port.BertForMaskedLM(bert, device="cpu"))
+        model.init_weights(0).save_pretrained(tmp_path)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if entry == "encoder_auto_classes":
+        for auto in (port.AutoModel, port.AutoModelForMaskedLM,
+                     port.AutoModelForSequenceClassification,
+                     port.AutoModelForTokenClassification, port.AutoModelForQuestionAnswering):
+            for load in (lambda: auto.from_pretrained(tmp_path), lambda: auto.from_config(bert)):
+                with pytest.raises(RuntimeError, match="no CUDA device"):
+                    load()
+        return
     with pytest.raises(RuntimeError, match="no CUDA device"):
         if entry == "constructor":
             port.LlamaForCausalLM(config)
         elif entry == "from_pretrained":
             port.AutoModelForCausalLM.from_pretrained(tmp_path)
+        elif entry == "pipeline":
+            port.pipeline("fill-mask", model=str(tmp_path))
         else:
             port.AutoModelForCausalLM.from_config(config)
 

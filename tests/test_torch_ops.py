@@ -2,7 +2,8 @@
 
 - The flash kernel's wrapper (here: its plain PyTorch version) against JAX
   ``flash_attention``, whose Pallas kernel runs in interpret mode on the CPU,
-  on the cases of tests/ops/test_flash_attention.py.
+  on the cases of tests/ops/test_flash_attention.py, and in the encoders'
+  bidirectional mode over right-padded rows.
 - The fused decode wrapper (plain version) against JAX
   ``fused_decode_attention(..., interpret=True)`` on the cases of
   tests/ops/test_fused_decode.py, updated caches included, plus a start
@@ -74,23 +75,33 @@ def _assert_close(port_out, jax_out, tol):
 
 # ------------------------------------------------------------- flash (K1)
 FLASH_CASES = {
-    # name: (b, sq, skv, h, kvh, d, dtype, left pads per row, window, cap)
-    "causal_128_128": (2, 128, 128, 4, 2, 64, torch.float32, None, None, None),
-    "causal_64_256": (2, 64, 256, 4, 2, 64, torch.float32, None, None, None),
-    "causal_100_300": (2, 100, 300, 4, 2, 64, torch.float32, None, None, None),
-    "padded_kv": (2, 64, 192, 4, 4, 64, torch.float32, (40, 10), None, None),
-    "sliding_window": (1, 256, 256, 2, 2, 64, torch.float32, None, 64, None),
-    "logit_cap": (1, 128, 128, 2, 2, 64, torch.float32, None, None, 30.0),
-    "bf16_gqa": (2, 128, 128, 4, 2, 128, torch.bfloat16, None, None, None),
+    # name: (b, sq, skv, h, kvh, d, dtype, pads per row, window, cap, causal, pad side)
+    "causal_128_128": (2, 128, 128, 4, 2, 64, torch.float32, None, None, None, True, "left"),
+    "causal_64_256": (2, 64, 256, 4, 2, 64, torch.float32, None, None, None, True, "left"),
+    "causal_100_300": (2, 100, 300, 4, 2, 64, torch.float32, None, None, None, True, "left"),
+    "padded_kv": (2, 64, 192, 4, 4, 64, torch.float32, (40, 10), None, None, True, "left"),
+    "sliding_window": (1, 256, 256, 2, 2, 64, torch.float32, None, 64, None, True, "left"),
+    "logit_cap": (1, 128, 128, 2, 2, 64, torch.float32, None, None, 30.0, True, "left"),
+    "bf16_gqa": (2, 128, 128, 4, 2, 128, torch.bfloat16, None, None, None, True, "left"),
     # not in the reference file: Phi-3's head_dim 96, and Gemma's 256 under a window
-    "d96_padded": (2, 64, 96, 4, 2, 96, torch.float32, (5, 0), None, None),
-    "d256_window": (2, 48, 80, 4, 2, 256, torch.float32, (0, 9), 24, None),
+    "d96_padded": (2, 64, 96, 4, 2, 96, torch.float32, (5, 0), None, None, True, "left"),
+    "d256_window": (2, 48, 80, 4, 2, 256, torch.float32, (0, 9), 24, None, True, "left"),
+    # the encoders' bidirectional mode over right-padded rows (BERT's mask):
+    # every query row, pad rows too, sees each valid slot of its row; the
+    # padding of row 0 ends mid-way through a 64-slot kv tile, and a Skv of
+    # 200 ends one
+    "bidir_right_pads": (2, 128, 128, 4, 4, 64, torch.float32, (37, 0), None, None, False,
+                         "right"),
+    "bidir_mid_tile_200": (3, 200, 200, 2, 2, 64, torch.float32, (90, 0, 13), None, None, False,
+                           "right"),
+    "bidir_bf16_d128": (2, 96, 96, 4, 2, 128, torch.bfloat16, (50, 0), None, None, False,
+                        "right"),
 }
 
 
 @pytest.mark.parametrize("case", list(FLASH_CASES))
 def test_flash_plain_matches_jax_pallas(case):
-    b, sq, skv, h, kvh, d, dtype, pads, window, cap = FLASH_CASES[case]
+    b, sq, skv, h, kvh, d, dtype, pads, window, cap, causal, side = FLASH_CASES[case]
     rng = np.random.default_rng(len(case))
     jq, q = _pair(rng.standard_normal((b, sq, h, d)), dtype)
     jk, k = _pair(rng.standard_normal((b, skv, kvh, d)), dtype)
@@ -99,12 +110,16 @@ def test_flash_plain_matches_jax_pallas(case):
     qpos = np.broadcast_to(skv - sq + np.arange(sq, dtype=np.int32)[None], (b, sq)).copy()
     valid = np.ones((b, skv), np.int32)
     for row, p in enumerate(pads or ()):
-        valid[row, :p] = 0
+        if side == "left":
+            valid[row, :p] = 0
+        elif p:
+            valid[row, skv - p:] = 0
     ref = jax_flash(jq, jk, jv, q_positions=jnp.asarray(qpos), kv_valid=jnp.asarray(valid),
-                    sliding_window=window, logit_cap=cap)
+                    sliding_window=window, logit_cap=cap, is_causal=causal)
     before = flash_attention.launches
     out = flash_attention(q, k, v, q_positions=torch.as_tensor(qpos),
-                          kv_valid=torch.as_tensor(valid), sliding_window=window, logit_cap=cap)
+                          kv_valid=torch.as_tensor(valid), sliding_window=window, logit_cap=cap,
+                          is_causal=causal)
     assert flash_attention.launches == before  # CPU tensors never reach the kernel
     assert out.dtype == dtype and out.shape == (b, sq, h, d)
     _assert_close(out, ref, F32_TOL if dtype == torch.float32 else BF16_TOL)

@@ -4,11 +4,16 @@
 already turned into numpy (``jax.tree.map(np.asarray, params)``), and returns
 the port's weights under the same dotted hub names. The JAX ``Linear`` keeps
 its kernel as ``[in, out]``; the port keeps torch's ``[out, in]``, so every
-2-D ``weight`` is transposed except an ``embed_tokens`` table, which both keep
-as ``[vocab, hidden]``. Norm scales and biases pass as they are. A model with
-tied word embeddings has no ``lm_head`` on either side. bf16 and fp8 e4m3
-arrays (the ``ml_dtypes`` types) are read by their bits, so the port needs no
-``ml_dtypes``.
+2-D ``weight`` is transposed except an embedding table (a decoder's
+``embed_tokens``, an encoder's ``word_embeddings``, ``position_embeddings``,
+``token_type_embeddings`` or ModernBERT's ``tok_embeddings``), which both
+keep as ``[rows, hidden]``. The encoders' and task heads' trees (BERT's
+``cls.predictions``, RoBERTa's ``lm_head``, DistilBERT's ``vocab_projector``
+and ModernBERT's ``decoder`` biases, the classifiers, ``score`` and
+``qa_outputs``) follow the same rule. Norm scales and biases pass as they
+are. A model with tied word embeddings has no ``lm_head`` on either side.
+bf16 and fp8 e4m3 arrays (the ``ml_dtypes`` types) are read by their bits, so
+the port needs no ``ml_dtypes``.
 
 Weight-only quantized leaves (``transformers_tpu.quantizers``) follow the same
 rule, which gives the port's layouts: int8 codes ``[in, out]`` -> ``[out, in]``;
@@ -104,7 +109,7 @@ _ROUTERS_IN_HUB_LAYOUT = ("deepseek_v2",)
 def _is_kernel(key: str, keys, model_type: Optional[str]) -> bool:
     """Whether a 2-D ``weight`` is a JAX ``[in, out]`` kernel to transpose."""
     module = key[:-len(".weight")]
-    if module.endswith("embed_tokens") or module.endswith("norm"):
+    if module.endswith(("embed_tokens", "embeddings", "norm")):
         return False
     block, _, leaf = module.rpartition(".")
     if leaf == "gate" and model_type in _ROUTERS_IN_HUB_LAYOUT:

@@ -23,6 +23,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+import re
 from dataclasses import dataclass, field
 
 import torch
@@ -43,6 +44,13 @@ class LoadReport:
     missing_keys: list[str] = field(default_factory=list)
     unexpected_keys: list[str] = field(default_factory=list)
     mismatched_keys: list[tuple[str, tuple, tuple]] = field(default_factory=list)
+
+    def drop_ignored(self, patterns) -> None:
+        """Take out of ``unexpected_keys`` the keys any of ``patterns`` (regular
+        expressions) finds: a class's ``_keys_to_ignore_on_load_unexpected``,
+        such as a tied decoder the checkpoint duplicates."""
+        self.unexpected_keys = [k for k in self.unexpected_keys
+                                if not any(re.search(p, k) for p in patterns)]
 
     def log(self, name: str):
         if self.unexpected_keys:

@@ -1,4 +1,4 @@
-"""Leaf modules of the port: Linear, Embedding, RMSNorm, LayerNorm, HeadwiseLayerNorm.
+"""Leaf modules of the port: Linear, Embedding, RMSNorm, LayerNorm, HeadwiseLayerNorm, Bias.
 
 Port of the leaf modules in ``transformers_tpu/core/module.py`` as
 ``nn.Module``s. Parameters are created on the given device, uninitialised;
@@ -191,3 +191,17 @@ class HeadwiseLayerNorm(nn.Module):
         mean = h.mean(dim=-1, keepdim=True)
         var = (h - mean).square().mean(dim=-1, keepdim=True)
         return ((h - mean) * torch.rsqrt(var + self.eps) * self.weight.float()).to(x.dtype)
+
+
+class Bias(nn.Module):
+    """A bias vector alone: the own bias of a decoder whose weight is the tied
+    word-embedding table (DistilBERT's ``vocab_projector``, ModernBERT's
+    ``decoder``), which is never stored."""
+
+    def __init__(self, dim: int, *, param_dtype=torch.float32, device=None):
+        super().__init__()
+        self.bias = nn.Parameter(torch.empty((dim,), dtype=param_dtype, device=device))
+
+    @torch.no_grad()
+    def init_parameter(self, name: str, generator: torch.Generator) -> None:
+        self.bias.zero_()

@@ -1,5 +1,6 @@
-"""Causal-LM loss (port of ``transformers_tpu/loss/__init__.py``: reference
-src/transformers/loss/loss_utils.py:49).
+"""Losses of the causal LM and the task heads (port of
+``transformers_tpu/loss/__init__.py``: reference
+src/transformers/loss/loss_utils.py:49-149).
 
 Computed in float32 whatever the logits' dtype, with the reference's ignore
 index (-100). The mean is over ``max(count, 1)`` non-ignored labels, written
@@ -12,6 +13,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 IGNORE_INDEX = -100
 
@@ -42,3 +44,50 @@ def for_causal_lm_loss(logits: torch.Tensor, labels: Optional[torch.Tensor], voc
         shift_labels = labels[:, 1:]
     return cross_entropy(logits.reshape(-1, vocab_size), shift_labels.reshape(-1),
                          ignore_index=ignore_index, label_smoothing=label_smoothing)
+
+
+def for_masked_lm_loss(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int,
+                       *, ignore_index: int = IGNORE_INDEX) -> torch.Tensor:
+    return cross_entropy(logits.reshape(-1, vocab_size), labels.reshape(-1),
+                         ignore_index=ignore_index)
+
+
+def for_sequence_classification_loss(logits: torch.Tensor, labels: torch.Tensor,
+                                     config) -> torch.Tensor:
+    """By ``config.problem_type``, or when it is unset: regression (MSE) for
+    one label, single-label cross-entropy for integer labels, else
+    multi-label sigmoid BCE."""
+    num_labels = config.num_labels
+    problem_type = getattr(config, "problem_type", None)
+    if problem_type is None:
+        if num_labels == 1:
+            problem_type = "regression"
+        elif labels.dtype in (torch.int32, torch.int64):
+            problem_type = "single_label_classification"
+        else:
+            problem_type = "multi_label_classification"
+    logits32 = logits.float()
+    if problem_type == "regression":
+        return torch.mean(torch.square(logits32.squeeze() - labels.float().squeeze()))
+    if problem_type == "single_label_classification":
+        return cross_entropy(logits32.reshape(-1, num_labels), labels.reshape(-1))
+    labels32 = labels.float()
+    return -torch.mean(labels32 * F.logsigmoid(logits32)
+                       + (1.0 - labels32) * F.logsigmoid(-logits32))
+
+
+def for_token_classification_loss(logits: torch.Tensor, labels: torch.Tensor,
+                                  config) -> torch.Tensor:
+    return cross_entropy(logits.reshape(-1, config.num_labels), labels.reshape(-1))
+
+
+def for_question_answering_loss(start_logits, end_logits, start_positions,
+                                end_positions) -> torch.Tensor:
+    """Mean of the start and end cross-entropies; positions are clamped to
+    ``seq_len``, which is also the ignore index."""
+    seq_len = start_logits.shape[1]
+    start_positions = start_positions.clamp(0, seq_len)
+    end_positions = end_positions.clamp(0, seq_len)
+    start_loss = cross_entropy(start_logits, start_positions, ignore_index=seq_len)
+    end_loss = cross_entropy(end_logits, end_positions, ignore_index=seq_len)
+    return (start_loss + end_loss) / 2.0

@@ -1,5 +1,6 @@
-"""Typed model outputs (port of the two ``transformers_tpu/modeling_outputs.py``
-classes the decoder path returns)."""
+"""Typed model outputs (port of the ``transformers_tpu/modeling_outputs.py``
+classes the decoders, the encoders and the task heads return; the JAX
+package's fields)."""
 
 from __future__ import annotations
 
@@ -22,5 +23,56 @@ class CausalLMOutputWithPast:
     loss: Optional[torch.Tensor] = None
     logits: Optional[torch.Tensor] = None
     past_key_values: Optional[Any] = None
+    hidden_states: Optional[tuple] = None
+    attentions: Optional[tuple] = None
+
+
+@dataclass
+class BaseModelOutputWithPooling:
+    last_hidden_state: Optional[torch.Tensor] = None
+    pooler_output: Optional[torch.Tensor] = None
+    hidden_states: Optional[tuple] = None
+    attentions: Optional[tuple] = None
+    past_key_values: Optional[Any] = None
+
+
+@dataclass
+class MaskedLMOutput:
+    loss: Optional[torch.Tensor] = None
+    logits: Optional[torch.Tensor] = None
+    hidden_states: Optional[tuple] = None
+    attentions: Optional[tuple] = None
+
+
+@dataclass
+class SequenceClassifierOutput:
+    loss: Optional[torch.Tensor] = None
+    logits: Optional[torch.Tensor] = None
+    hidden_states: Optional[tuple] = None
+    attentions: Optional[tuple] = None
+
+
+@dataclass
+class SequenceClassifierOutputWithPast:
+    loss: Optional[torch.Tensor] = None
+    logits: Optional[torch.Tensor] = None
+    past_key_values: Optional[Any] = None
+    hidden_states: Optional[tuple] = None
+    attentions: Optional[tuple] = None
+
+
+@dataclass
+class TokenClassifierOutput:
+    loss: Optional[torch.Tensor] = None
+    logits: Optional[torch.Tensor] = None
+    hidden_states: Optional[tuple] = None
+    attentions: Optional[tuple] = None
+
+
+@dataclass
+class QuestionAnsweringModelOutput:
+    loss: Optional[torch.Tensor] = None
+    start_logits: Optional[torch.Tensor] = None
+    end_logits: Optional[torch.Tensor] = None
     hidden_states: Optional[tuple] = None
     attentions: Optional[tuple] = None

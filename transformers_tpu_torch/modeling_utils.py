@@ -52,11 +52,16 @@ class PreTrainedModel(nn.Module):
     """Base for all models.
 
     Subclass contract: ``config_class``; ``base_model_prefix`` (the bare
-    transformer's child name); ``__init__(config, *, dtype, param_dtype,
-    device)`` builds the children with uninitialised parameters."""
+    transformer's child name: a checkpoint of the bare model loads into a
+    task model and the other way round); ``__init__(config, *, dtype,
+    param_dtype, device)`` builds the children with uninitialised
+    parameters."""
 
     config_class: type[PretrainedConfig] = PretrainedConfig
     base_model_prefix: str = ""
+    # checkpoint keys a load drops without reporting them (regular
+    # expressions; reference modeling_utils.py _keys_to_ignore_on_load_unexpected)
+    _keys_to_ignore_on_load_unexpected: tuple[str, ...] = ()
 
     def __init__(self, config: PretrainedConfig, *, dtype=torch.float32, param_dtype=None,
                  device="cuda"):
@@ -138,6 +143,7 @@ class PreTrainedModel(nn.Module):
             if detect_prequantized(config_qdict) is not None:
                 checkpoint_files = [load_prequantized_checkpoint(checkpoint_files, config_qdict)]
         report = load_checkpoint_in_model(model, checkpoint_files)
+        report.drop_ignored(cls._keys_to_ignore_on_load_unexpected)
         if report.missing_keys:
             model._init_params(report.missing_keys, seed)
         report.log(cls.__name__)

@@ -1,2 +1,3 @@
 from .configuration_cohere import CohereConfig
-from .modeling_cohere import CohereAttention, CohereDecoderLayer, CohereForCausalLM, CohereModel
+from .modeling_cohere import (CohereAttention, CohereDecoderLayer, CohereForCausalLM, CohereModel,
+                              CohereModelStandalone)

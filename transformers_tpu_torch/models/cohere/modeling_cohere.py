@@ -14,7 +14,13 @@ from __future__ import annotations
 
 from ...core.module import HeadwiseLayerNorm, LayerNorm
 from ...ops.rope import apply_rotary_pos_emb_interleaved, compute_cos_sin_interleaved
-from ..llama.modeling_llama import LlamaAttention, LlamaDecoderLayer, LlamaForCausalLM, LlamaModel
+from ..llama.modeling_llama import (
+    LlamaAttention,
+    LlamaDecoderLayer,
+    LlamaForCausalLM,
+    LlamaModel,
+    LlamaModelStandalone,
+)
 from .configuration_cohere import CohereConfig
 
 
@@ -64,3 +70,8 @@ class CohereForCausalLM(LlamaForCausalLM):
 
     def compute_logits(self, hidden):
         return super().compute_logits(hidden) * self.config.logit_scale
+
+
+class CohereModelStandalone(LlamaModelStandalone):
+    config_class = CohereConfig
+    model_cls = CohereModel

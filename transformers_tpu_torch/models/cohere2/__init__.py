@@ -4,4 +4,5 @@ from .modeling_cohere2 import (
     Cohere2DecoderLayer,
     Cohere2ForCausalLM,
     Cohere2Model,
+    Cohere2ModelStandalone,
 )

@@ -17,6 +17,7 @@ from ..cohere.modeling_cohere import (
     CohereForCausalLM,
     CohereModel,
 )
+from ..llama.modeling_llama import LlamaModelStandalone
 from .configuration_cohere2 import Cohere2Config
 
 
@@ -35,5 +36,10 @@ class Cohere2Model(CohereModel):
 
 
 class Cohere2ForCausalLM(CohereForCausalLM):
+    config_class = Cohere2Config
+    model_cls = Cohere2Model
+
+
+class Cohere2ModelStandalone(LlamaModelStandalone):
     config_class = Cohere2Config
     model_cls = Cohere2Model

@@ -4,6 +4,7 @@ from .modeling_cohere2_moe import (
     Cohere2MoeDecoderLayer,
     Cohere2MoeForCausalLM,
     Cohere2MoeModel,
+    Cohere2MoeModelStandalone,
     Cohere2MoeSparseMoeBlock,
     cohere2_moe_route,
 )

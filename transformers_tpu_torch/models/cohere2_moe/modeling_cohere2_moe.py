@@ -27,7 +27,7 @@ from ..cohere2.modeling_cohere2 import (
     Cohere2ForCausalLM,
     Cohere2Model,
 )
-from ..llama.modeling_llama import LlamaMLP
+from ..llama.modeling_llama import LlamaMLP, LlamaModelStandalone
 from .configuration_cohere2_moe import Cohere2MoeConfig
 
 
@@ -98,5 +98,10 @@ class Cohere2MoeModel(Cohere2Model):
 
 
 class Cohere2MoeForCausalLM(Cohere2ForCausalLM):
+    config_class = Cohere2MoeConfig
+    model_cls = Cohere2MoeModel
+
+
+class Cohere2MoeModelStandalone(LlamaModelStandalone):
     config_class = Cohere2MoeConfig
     model_cls = Cohere2MoeModel

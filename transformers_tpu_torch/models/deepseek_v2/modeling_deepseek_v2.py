@@ -26,7 +26,7 @@ from ..deepseek_v3.modeling_deepseek_v3 import (
     DeepseekV3ForCausalLM,
     DeepseekV3MoE,
 )
-from ..llama.modeling_llama import LlamaModel
+from ..llama.modeling_llama import LlamaModel, LlamaModelStandalone
 from .configuration_deepseek_v2 import DeepseekV2Config
 
 
@@ -76,5 +76,10 @@ class DeepseekV2Model(LlamaModel):
 
 
 class DeepseekV2ForCausalLM(DeepseekV3ForCausalLM):
+    config_class = DeepseekV2Config
+    model_cls = DeepseekV2Model
+
+
+class DeepseekV2ModelStandalone(LlamaModelStandalone):
     config_class = DeepseekV2Config
     model_cls = DeepseekV2Model

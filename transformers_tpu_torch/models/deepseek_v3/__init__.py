@@ -4,6 +4,7 @@ from .modeling_deepseek_v3 import (
     DeepseekV3DecoderLayer,
     DeepseekV3ForCausalLM,
     DeepseekV3Model,
+    DeepseekV3ModelStandalone,
     DeepseekV3MoE,
     DeepseekV3TopkRouter,
     deepseek_route,

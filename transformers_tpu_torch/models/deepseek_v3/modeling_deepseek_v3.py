@@ -42,7 +42,13 @@ from ...core.module import Linear, RMSNorm
 from ...ops.attention import get_attention_fn
 from ...ops.moe import SparseMoeBlock, _top_k
 from ...ops.rope import apply_rope_interleave_deepseek, apply_rotary_pos_emb, yarn_mscale_factor
-from ..llama.modeling_llama import LlamaDecoderLayer, LlamaForCausalLM, LlamaMLP, LlamaModel
+from ..llama.modeling_llama import (
+    LlamaDecoderLayer,
+    LlamaForCausalLM,
+    LlamaMLP,
+    LlamaModel,
+    LlamaModelStandalone,
+)
 from .configuration_deepseek_v3 import DeepseekV3Config
 
 
@@ -260,3 +266,8 @@ class DeepseekV3ForCausalLM(LlamaForCausalLM):
 
         return StaticKVCache(buffers(cfg.kv_lora_rank), buffers(cfg.qk_rope_head_dim),
                              (None,) * cfg.num_hidden_layers, max_len)
+
+
+class DeepseekV3ModelStandalone(LlamaModelStandalone):
+    config_class = DeepseekV3Config
+    model_cls = DeepseekV3Model

@@ -10,7 +10,7 @@ experts from there on.
 from __future__ import annotations
 
 from ..deepseek_v3.modeling_deepseek_v3 import DeepseekV3DecoderLayer
-from ..llama.modeling_llama import LlamaForCausalLM, LlamaModel
+from ..llama.modeling_llama import LlamaForCausalLM, LlamaModel, LlamaModelStandalone
 from ..qwen3.modeling_qwen3 import Qwen3Attention
 from .configuration_dots1 import Dots1Config
 
@@ -24,5 +24,10 @@ class Dots1Model(LlamaModel):
 
 
 class Dots1ForCausalLM(LlamaForCausalLM):
+    config_class = Dots1Config
+    model_cls = Dots1Model
+
+
+class Dots1ModelStandalone(LlamaModelStandalone):
     config_class = Dots1Config
     model_cls = Dots1Model

@@ -5,4 +5,5 @@ from .modeling_ernie4_5 import (
     Ernie4_5ForCausalLM,
     Ernie4_5MLP,
     Ernie4_5Model,
+    Ernie4_5ModelStandalone,
 )

@@ -17,6 +17,7 @@ from ..llama.modeling_llama import (
     LlamaForCausalLM,
     LlamaMLP,
     LlamaModel,
+    LlamaModelStandalone,
 )
 from .configuration_ernie4_5 import Ernie4_5Config
 
@@ -48,5 +49,10 @@ class Ernie4_5Model(LlamaModel):
 
 
 class Ernie4_5ForCausalLM(LlamaForCausalLM):
+    config_class = Ernie4_5Config
+    model_cls = Ernie4_5Model
+
+
+class Ernie4_5ModelStandalone(LlamaModelStandalone):
     config_class = Ernie4_5Config
     model_cls = Ernie4_5Model

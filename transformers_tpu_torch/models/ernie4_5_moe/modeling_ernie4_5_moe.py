@@ -22,7 +22,7 @@ from torch import nn
 from ...core.module import Linear
 from ...ops.moe import SparseMoeBlock, biased_topk_routing
 from ..ernie4_5.modeling_ernie4_5 import Ernie4_5DecoderLayer, Ernie4_5MLP, Ernie4_5Model
-from ..llama.modeling_llama import LlamaForCausalLM
+from ..llama.modeling_llama import LlamaForCausalLM, LlamaModelStandalone
 from .configuration_ernie4_5_moe import Ernie4_5_MoeConfig
 
 
@@ -88,5 +88,10 @@ class Ernie4_5_MoeModel(Ernie4_5Model):
 
 
 class Ernie4_5_MoeForCausalLM(LlamaForCausalLM):
+    config_class = Ernie4_5_MoeConfig
+    model_cls = Ernie4_5_MoeModel
+
+
+class Ernie4_5_MoeModelStandalone(LlamaModelStandalone):
     config_class = Ernie4_5_MoeConfig
     model_cls = Ernie4_5_MoeModel

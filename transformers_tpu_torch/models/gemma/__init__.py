@@ -5,4 +5,5 @@ from .modeling_gemma import (
     GemmaForCausalLM,
     GemmaMLP,
     GemmaModel,
+    GemmaModelStandalone,
 )

@@ -17,6 +17,7 @@ from ..llama.modeling_llama import (
     LlamaForCausalLM,
     LlamaMLP,
     LlamaModel,
+    LlamaModelStandalone,
 )
 from .configuration_gemma import GemmaConfig
 
@@ -37,5 +38,10 @@ class GemmaModel(LlamaModel):
 
 
 class GemmaForCausalLM(LlamaForCausalLM):
+    config_class = GemmaConfig
+    model_cls = GemmaModel
+
+
+class GemmaModelStandalone(LlamaModelStandalone):
     config_class = GemmaConfig
     model_cls = GemmaModel

@@ -5,4 +5,5 @@ from .modeling_gemma2 import (
     Gemma2ForCausalLM,
     Gemma2MLP,
     Gemma2Model,
+    Gemma2ModelStandalone,
 )

@@ -17,7 +17,7 @@ the plain path; prefill takes K1, which softcaps.
 from __future__ import annotations
 
 from ..gemma.modeling_gemma import GemmaAttention, GemmaDecoderLayer, GemmaMLP
-from ..llama.modeling_llama import LlamaForCausalLM, LlamaModel
+from ..llama.modeling_llama import LlamaForCausalLM, LlamaModel, LlamaModelStandalone
 from .configuration_gemma2 import Gemma2Config
 
 
@@ -46,5 +46,10 @@ class Gemma2Model(LlamaModel):
 
 
 class Gemma2ForCausalLM(LlamaForCausalLM):
+    config_class = Gemma2Config
+    model_cls = Gemma2Model
+
+
+class Gemma2ModelStandalone(LlamaModelStandalone):
     config_class = Gemma2Config
     model_cls = Gemma2Model

@@ -4,4 +4,5 @@ from .modeling_gemma3 import (
     Gemma3DecoderLayer,
     Gemma3ForCausalLM,
     Gemma3TextModel,
+    Gemma3TextModelStandalone,
 )

@@ -18,7 +18,12 @@ import torch
 from ...core.module import RMSNorm
 from ...ops.rope import _default_inv_freq, compute_cos_sin
 from ..gemma2.modeling_gemma2 import Gemma2DecoderLayer
-from ..llama.modeling_llama import LlamaAttention, LlamaForCausalLM, LlamaModel
+from ..llama.modeling_llama import (
+    LlamaAttention,
+    LlamaForCausalLM,
+    LlamaModel,
+    LlamaModelStandalone,
+)
 from .configuration_gemma3 import Gemma3TextConfig
 
 
@@ -61,5 +66,10 @@ class Gemma3TextModel(LlamaModel):
 
 
 class Gemma3ForCausalLM(LlamaForCausalLM):
+    config_class = Gemma3TextConfig
+    model_cls = Gemma3TextModel
+
+
+class Gemma3TextModelStandalone(LlamaModelStandalone):
     config_class = Gemma3TextConfig
     model_cls = Gemma3TextModel

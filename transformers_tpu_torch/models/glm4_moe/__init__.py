@@ -4,4 +4,5 @@ from .modeling_glm4_moe import (
     Glm4MoeDecoderLayer,
     Glm4MoeForCausalLM,
     Glm4MoeModel,
+    Glm4MoeModelStandalone,
 )

@@ -21,6 +21,7 @@ from ..llama.modeling_llama import (
     LlamaForCausalLM,
     LlamaMLP,
     LlamaModel,
+    LlamaModelStandalone,
 )
 from .configuration_glm4_moe import Glm4MoeConfig
 
@@ -51,5 +52,10 @@ class Glm4MoeModel(LlamaModel):
 
 
 class Glm4MoeForCausalLM(LlamaForCausalLM):
+    config_class = Glm4MoeConfig
+    model_cls = Glm4MoeModel
+
+
+class Glm4MoeModelStandalone(LlamaModelStandalone):
     config_class = Glm4MoeConfig
     model_cls = Glm4MoeModel

@@ -6,5 +6,6 @@ from .modeling_gpt_oss import (
     GptOssForCausalLM,
     GptOssMLP,
     GptOssModel,
+    GptOssModelStandalone,
     GptOssRouter,
 )

@@ -23,7 +23,13 @@ from torch import nn
 
 from ...core.module import Linear
 from ...ops.moe import topk_routing
-from ..llama.modeling_llama import LlamaAttention, LlamaDecoderLayer, LlamaForCausalLM, LlamaModel
+from ..llama.modeling_llama import (
+    LlamaAttention,
+    LlamaDecoderLayer,
+    LlamaForCausalLM,
+    LlamaModel,
+    LlamaModelStandalone,
+)
 from .configuration_gpt_oss import GptOssConfig
 
 
@@ -129,5 +135,10 @@ class GptOssModel(LlamaModel):
 
 
 class GptOssForCausalLM(LlamaForCausalLM):
+    config_class = GptOssConfig
+    model_cls = GptOssModel
+
+
+class GptOssModelStandalone(LlamaModelStandalone):
     config_class = GptOssConfig
     model_cls = GptOssModel

@@ -4,4 +4,5 @@ from .modeling_hunyuan_v1_dense import (
     HunYuanDenseV1DecoderLayer,
     HunYuanDenseV1ForCausalLM,
     HunYuanDenseV1Model,
+    HunYuanDenseV1ModelStandalone,
 )

@@ -11,7 +11,13 @@ rope keeps static decode off K2, as in the JAX package.
 from __future__ import annotations
 
 from ...core.module import RMSNorm
-from ..llama.modeling_llama import LlamaAttention, LlamaDecoderLayer, LlamaForCausalLM, LlamaModel
+from ..llama.modeling_llama import (
+    LlamaAttention,
+    LlamaDecoderLayer,
+    LlamaForCausalLM,
+    LlamaModel,
+    LlamaModelStandalone,
+)
 from .configuration_hunyuan_v1_dense import HunYuanDenseV1Config
 
 
@@ -35,5 +41,10 @@ class HunYuanDenseV1Model(LlamaModel):
 
 
 class HunYuanDenseV1ForCausalLM(LlamaForCausalLM):
+    config_class = HunYuanDenseV1Config
+    model_cls = HunYuanDenseV1Model
+
+
+class HunYuanDenseV1ModelStandalone(LlamaModelStandalone):
     config_class = HunYuanDenseV1Config
     model_cls = HunYuanDenseV1Model

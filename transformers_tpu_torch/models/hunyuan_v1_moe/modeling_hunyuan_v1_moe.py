@@ -22,7 +22,7 @@ from ..hunyuan_v1_dense.modeling_hunyuan_v1_dense import (
     HunYuanDenseV1DecoderLayer,
     HunYuanDenseV1Model,
 )
-from ..llama.modeling_llama import LlamaForCausalLM, LlamaMLP
+from ..llama.modeling_llama import LlamaForCausalLM, LlamaMLP, LlamaModelStandalone
 from .configuration_hunyuan_v1_moe import HunYuanMoEV1Config
 
 
@@ -72,5 +72,10 @@ class HunYuanMoEV1Model(HunYuanDenseV1Model):
 
 
 class HunYuanMoEV1ForCausalLM(LlamaForCausalLM):
+    config_class = HunYuanMoEV1Config
+    model_cls = HunYuanMoEV1Model
+
+
+class HunYuanMoEV1ModelStandalone(LlamaModelStandalone):
     config_class = HunYuanMoEV1Config
     model_cls = HunYuanMoEV1Model

@@ -4,6 +4,7 @@ from .modeling_laguna import (
     LagunaDecoderLayer,
     LagunaForCausalLM,
     LagunaModel,
+    LagunaModelStandalone,
     LagunaSparseMoeBlock,
     LagunaTopKRouter,
 )

@@ -31,6 +31,7 @@ from ..llama.modeling_llama import (
     LlamaForCausalLM,
     LlamaMLP,
     LlamaModel,
+    LlamaModelStandalone,
 )
 from ..qwen2_moe.modeling_qwen2_moe import Qwen2MoeMLP
 from .configuration_laguna import LagunaConfig
@@ -149,5 +150,10 @@ class LagunaModel(LlamaModel):
 
 
 class LagunaForCausalLM(LlamaForCausalLM):
+    config_class = LagunaConfig
+    model_cls = LagunaModel
+
+
+class LagunaModelStandalone(LlamaModelStandalone):
     config_class = LagunaConfig
     model_cls = LagunaModel

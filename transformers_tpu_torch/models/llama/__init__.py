@@ -3,7 +3,11 @@ from .modeling_llama import (
     LlamaAttention,
     LlamaDecoderLayer,
     LlamaForCausalLM,
+    LlamaForQuestionAnswering,
+    LlamaForSequenceClassification,
+    LlamaForTokenClassification,
     LlamaMLP,
     LlamaModel,
+    LlamaModelStandalone,
     LlamaPreTrainedModel,
 )

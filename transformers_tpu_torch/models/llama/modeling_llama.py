@@ -40,6 +40,8 @@ from ...cache_utils import StaticKVCache, cache_from_config, layer_sliding_windo
 from ...core.module import Embedding, Linear, RMSNorm
 from ...generation.utils import GenerationMixin
 from ...loss import for_causal_lm_loss
+from ...modeling_layers import (GenericForQuestionAnswering, GenericForSequenceClassification,
+                                GenericForTokenClassification, ModelStandalone)
 from ...modeling_outputs import BaseModelOutputWithPast, CausalLMOutputWithPast
 from ...modeling_utils import PreTrainedModel
 from ...ops.activations import get_activation
@@ -443,3 +445,28 @@ class LlamaForCausalLM(LlamaPreTrainedModel, GenerationMixin):
         "quantized"."""
         return cache_from_config(self.config, batch_size, max_len, dtype or self.dtype,
                                  device=self.device, implementation=implementation)
+
+
+class LlamaModelStandalone(ModelStandalone):
+    """The bare LlamaModel as a loadable checkpoint target (``AutoModel``)."""
+
+    config_class = LlamaConfig
+    model_cls = LlamaModel
+
+
+# task heads (reference modeling_llama.py LlamaForSequenceClassification /
+# LlamaForTokenClassification / LlamaForQuestionAnswering on the generic
+# heads, modeling_layers.py:118-254)
+class LlamaForSequenceClassification(GenericForSequenceClassification):
+    config_class = LlamaConfig
+    model_cls = LlamaModel
+
+
+class LlamaForTokenClassification(GenericForTokenClassification):
+    config_class = LlamaConfig
+    model_cls = LlamaModel
+
+
+class LlamaForQuestionAnswering(GenericForQuestionAnswering):
+    config_class = LlamaConfig
+    model_cls = LlamaModel

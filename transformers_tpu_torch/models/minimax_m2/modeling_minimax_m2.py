@@ -16,7 +16,12 @@ import torch
 from torch import nn
 
 from ...ops.moe import SparseMoeBlock, biased_topk_routing
-from ..llama.modeling_llama import LlamaDecoderLayer, LlamaForCausalLM, LlamaModel
+from ..llama.modeling_llama import (
+    LlamaDecoderLayer,
+    LlamaForCausalLM,
+    LlamaModel,
+    LlamaModelStandalone,
+)
 from ..olmo2.modeling_olmo2 import Olmo2Attention
 from .configuration_minimax_m2 import MiniMaxM2Config
 
@@ -52,5 +57,10 @@ class MiniMaxM2Model(LlamaModel):
 
 
 class MiniMaxM2ForCausalLM(LlamaForCausalLM):
+    config_class = MiniMaxM2Config
+    model_cls = MiniMaxM2Model
+
+
+class MiniMaxM2ModelStandalone(LlamaModelStandalone):
     config_class = MiniMaxM2Config
     model_cls = MiniMaxM2Model

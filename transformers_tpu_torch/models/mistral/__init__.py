@@ -3,6 +3,10 @@ from .modeling_mistral import (
     MistralAttention,
     MistralDecoderLayer,
     MistralForCausalLM,
+    MistralForQuestionAnswering,
+    MistralForSequenceClassification,
+    MistralForTokenClassification,
     MistralMLP,
     MistralModel,
+    MistralModelStandalone,
 )

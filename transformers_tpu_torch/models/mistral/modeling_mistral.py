@@ -14,8 +14,12 @@ from ..llama.modeling_llama import (
     LlamaAttention,
     LlamaDecoderLayer,
     LlamaForCausalLM,
+    LlamaForQuestionAnswering,
+    LlamaForSequenceClassification,
+    LlamaForTokenClassification,
     LlamaMLP,
     LlamaModel,
+    LlamaModelStandalone,
 )
 from .configuration_mistral import MistralConfig
 
@@ -28,5 +32,25 @@ MistralModel = LlamaModel
 
 
 class MistralForCausalLM(LlamaForCausalLM):
+    config_class = MistralConfig
+    model_cls = MistralModel
+
+
+class MistralModelStandalone(LlamaModelStandalone):
+    config_class = MistralConfig
+    model_cls = MistralModel
+
+
+class MistralForSequenceClassification(LlamaForSequenceClassification):
+    config_class = MistralConfig
+    model_cls = MistralModel
+
+
+class MistralForTokenClassification(LlamaForTokenClassification):
+    config_class = MistralConfig
+    model_cls = MistralModel
+
+
+class MistralForQuestionAnswering(LlamaForQuestionAnswering):
     config_class = MistralConfig
     model_cls = MistralModel

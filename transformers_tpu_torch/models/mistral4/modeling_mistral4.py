@@ -24,7 +24,7 @@ from ..deepseek_v3.modeling_deepseek_v3 import (
     DeepseekV3ForCausalLM,
     DeepseekV3MoE,
 )
-from ..llama.modeling_llama import LlamaModel
+from ..llama.modeling_llama import LlamaModel, LlamaModelStandalone
 from .configuration_mistral4 import Mistral4Config
 
 
@@ -79,5 +79,10 @@ class Mistral4Model(LlamaModel):
 
 
 class Mistral4ForCausalLM(DeepseekV3ForCausalLM):
+    config_class = Mistral4Config
+    model_cls = Mistral4Model
+
+
+class Mistral4ModelStandalone(LlamaModelStandalone):
     config_class = Mistral4Config
     model_cls = Mistral4Model

@@ -3,5 +3,6 @@ from .modeling_mixtral import (
     MixtralDecoderLayer,
     MixtralForCausalLM,
     MixtralModel,
+    MixtralModelStandalone,
     MixtralSparseMoeBlock,
 )

@@ -9,7 +9,12 @@ routed experts of ``ops/moe.py`` with the checkpoint's expert names ``w1``
 from __future__ import annotations
 
 from ...ops.moe import SparseMoeBlock
-from ..llama.modeling_llama import LlamaDecoderLayer, LlamaForCausalLM, LlamaModel
+from ..llama.modeling_llama import (
+    LlamaDecoderLayer,
+    LlamaForCausalLM,
+    LlamaModel,
+    LlamaModelStandalone,
+)
 from ..mistral.modeling_mistral import MistralAttention
 from .configuration_mixtral import MixtralConfig
 
@@ -32,5 +37,10 @@ class MixtralModel(LlamaModel):
 
 
 class MixtralForCausalLM(LlamaForCausalLM):
+    config_class = MixtralConfig
+    model_cls = MixtralModel
+
+
+class MixtralModelStandalone(LlamaModelStandalone):
     config_class = MixtralConfig
     model_cls = MixtralModel

@@ -12,7 +12,13 @@ so K2 serves its static decode. OLMoE adds ``clip_qkv`` to this attention.
 from __future__ import annotations
 
 from ...core.module import RMSNorm
-from ..llama.modeling_llama import LlamaAttention, LlamaDecoderLayer, LlamaForCausalLM, LlamaModel
+from ..llama.modeling_llama import (
+    LlamaAttention,
+    LlamaDecoderLayer,
+    LlamaForCausalLM,
+    LlamaModel,
+    LlamaModelStandalone,
+)
 from .configuration_olmo2 import Olmo2Config
 
 
@@ -58,5 +64,10 @@ class Olmo2Model(LlamaModel):
 
 
 class Olmo2ForCausalLM(LlamaForCausalLM):
+    config_class = Olmo2Config
+    model_cls = Olmo2Model
+
+
+class Olmo2ModelStandalone(LlamaModelStandalone):
     config_class = Olmo2Config
     model_cls = Olmo2Model

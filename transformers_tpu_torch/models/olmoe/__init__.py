@@ -4,5 +4,6 @@ from .modeling_olmoe import (
     OlmoeDecoderLayer,
     OlmoeForCausalLM,
     OlmoeModel,
+    OlmoeModelStandalone,
     OlmoeSparseMoeBlock,
 )

@@ -13,7 +13,12 @@ routed experts of ``ops/moe.py``: softmax then top-k, renormalized when
 from __future__ import annotations
 
 from ...ops.moe import SparseMoeBlock
-from ..llama.modeling_llama import LlamaDecoderLayer, LlamaForCausalLM, LlamaModel
+from ..llama.modeling_llama import (
+    LlamaDecoderLayer,
+    LlamaForCausalLM,
+    LlamaModel,
+    LlamaModelStandalone,
+)
 from ..olmo2.modeling_olmo2 import Olmo2Attention
 from .configuration_olmoe import OlmoeConfig
 
@@ -39,5 +44,10 @@ class OlmoeModel(LlamaModel):
 
 
 class OlmoeForCausalLM(LlamaForCausalLM):
+    config_class = OlmoeConfig
+    model_cls = OlmoeModel
+
+
+class OlmoeModelStandalone(LlamaModelStandalone):
     config_class = OlmoeConfig
     model_cls = OlmoeModel

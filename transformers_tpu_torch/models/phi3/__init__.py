@@ -5,4 +5,5 @@ from .modeling_phi3 import (
     Phi3ForCausalLM,
     Phi3MLP,
     Phi3Model,
+    Phi3ModelStandalone,
 )

@@ -19,6 +19,7 @@ from ..llama.modeling_llama import (
     LlamaDecoderLayer,
     LlamaForCausalLM,
     LlamaModel,
+    LlamaModelStandalone,
 )
 from .configuration_phi3 import Phi3Config
 
@@ -66,5 +67,10 @@ class Phi3Model(LlamaModel):
 
 
 class Phi3ForCausalLM(LlamaForCausalLM):
+    config_class = Phi3Config
+    model_cls = Phi3Model
+
+
+class Phi3ModelStandalone(LlamaModelStandalone):
     config_class = Phi3Config
     model_cls = Phi3Model

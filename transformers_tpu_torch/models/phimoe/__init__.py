@@ -3,6 +3,7 @@ from .modeling_phimoe import (
     PhimoeDecoderLayer,
     PhimoeForCausalLM,
     PhimoeModel,
+    PhimoeModelStandalone,
     PhimoeSparseMoeBlock,
     sparsemixer_route,
 )

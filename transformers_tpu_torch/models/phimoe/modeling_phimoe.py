@@ -14,7 +14,12 @@ import torch
 
 from ...core.module import LayerNorm, Linear
 from ...ops.moe import SparseMoeBlock
-from ..llama.modeling_llama import LlamaDecoderLayer, LlamaForCausalLM, LlamaModel
+from ..llama.modeling_llama import (
+    LlamaDecoderLayer,
+    LlamaForCausalLM,
+    LlamaModel,
+    LlamaModelStandalone,
+)
 from .configuration_phimoe import PhimoeConfig
 
 
@@ -75,3 +80,8 @@ class PhimoeForCausalLM(LlamaForCausalLM):
             self.lm_head = Linear(config.hidden_size, config.vocab_size, True, dtype=self.dtype,
                                   param_dtype=self.param_dtype, device=self.device,
                                   init_std=config.initializer_range)
+
+
+class PhimoeModelStandalone(LlamaModelStandalone):
+    config_class = PhimoeConfig
+    model_cls = PhimoeModel

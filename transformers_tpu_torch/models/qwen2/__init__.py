@@ -3,6 +3,10 @@ from .modeling_qwen2 import (
     Qwen2Attention,
     Qwen2DecoderLayer,
     Qwen2ForCausalLM,
+    Qwen2ForQuestionAnswering,
+    Qwen2ForSequenceClassification,
+    Qwen2ForTokenClassification,
     Qwen2MLP,
     Qwen2Model,
+    Qwen2ModelStandalone,
 )

@@ -12,8 +12,12 @@ from ..llama.modeling_llama import (
     LlamaAttention,
     LlamaDecoderLayer,
     LlamaForCausalLM,
+    LlamaForQuestionAnswering,
+    LlamaForSequenceClassification,
+    LlamaForTokenClassification,
     LlamaMLP,
     LlamaModel,
+    LlamaModelStandalone,
 )
 from .configuration_qwen2 import Qwen2Config
 
@@ -26,5 +30,25 @@ Qwen2Model = LlamaModel
 
 
 class Qwen2ForCausalLM(LlamaForCausalLM):
+    config_class = Qwen2Config
+    model_cls = Qwen2Model
+
+
+class Qwen2ModelStandalone(LlamaModelStandalone):
+    config_class = Qwen2Config
+    model_cls = Qwen2Model
+
+
+class Qwen2ForSequenceClassification(LlamaForSequenceClassification):
+    config_class = Qwen2Config
+    model_cls = Qwen2Model
+
+
+class Qwen2ForTokenClassification(LlamaForTokenClassification):
+    config_class = Qwen2Config
+    model_cls = Qwen2Model
+
+
+class Qwen2ForQuestionAnswering(LlamaForQuestionAnswering):
     config_class = Qwen2Config
     model_cls = Qwen2Model

@@ -4,5 +4,6 @@ from .modeling_qwen2_moe import (
     Qwen2MoeForCausalLM,
     Qwen2MoeMLP,
     Qwen2MoeModel,
+    Qwen2MoeModelStandalone,
     Qwen2MoeSparseMoeBlock,
 )

@@ -15,7 +15,13 @@ import torch
 
 from ...core.module import Linear
 from ...ops.moe import SparseMoeBlock
-from ..llama.modeling_llama import LlamaDecoderLayer, LlamaForCausalLM, LlamaMLP, LlamaModel
+from ..llama.modeling_llama import (
+    LlamaDecoderLayer,
+    LlamaForCausalLM,
+    LlamaMLP,
+    LlamaModel,
+    LlamaModelStandalone,
+)
 from ..qwen2.modeling_qwen2 import Qwen2Attention
 from .configuration_qwen2_moe import Qwen2MoeConfig
 
@@ -64,5 +70,10 @@ class Qwen2MoeModel(LlamaModel):
 
 
 class Qwen2MoeForCausalLM(LlamaForCausalLM):
+    config_class = Qwen2MoeConfig
+    model_cls = Qwen2MoeModel
+
+
+class Qwen2MoeModelStandalone(LlamaModelStandalone):
     config_class = Qwen2MoeConfig
     model_cls = Qwen2MoeModel

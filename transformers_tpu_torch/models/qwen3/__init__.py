@@ -5,4 +5,5 @@ from .modeling_qwen3 import (
     Qwen3ForCausalLM,
     Qwen3MLP,
     Qwen3Model,
+    Qwen3ModelStandalone,
 )

@@ -15,6 +15,7 @@ from ..llama.modeling_llama import (
     LlamaForCausalLM,
     LlamaMLP,
     LlamaModel,
+    LlamaModelStandalone,
 )
 from .configuration_qwen3 import Qwen3Config
 
@@ -40,5 +41,10 @@ class Qwen3Model(LlamaModel):
 
 
 class Qwen3ForCausalLM(LlamaForCausalLM):
+    config_class = Qwen3Config
+    model_cls = Qwen3Model
+
+
+class Qwen3ModelStandalone(LlamaModelStandalone):
     config_class = Qwen3Config
     model_cls = Qwen3Model

@@ -3,5 +3,6 @@ from .modeling_qwen3_moe import (
     Qwen3MoeDecoderLayer,
     Qwen3MoeForCausalLM,
     Qwen3MoeModel,
+    Qwen3MoeModelStandalone,
     Qwen3MoeSparseMoeBlock,
 )

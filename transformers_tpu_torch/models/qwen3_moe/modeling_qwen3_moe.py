@@ -8,7 +8,7 @@ Qwen3's attention (per-head q/k RMSNorm) and the routed experts of
 from __future__ import annotations
 
 from ...ops.moe import SparseMoeBlock
-from ..llama.modeling_llama import LlamaForCausalLM, LlamaModel
+from ..llama.modeling_llama import LlamaForCausalLM, LlamaModel, LlamaModelStandalone
 from ..qwen2_moe.modeling_qwen2_moe import Qwen2MoeDecoderLayer
 from ..qwen3.modeling_qwen3 import Qwen3Attention
 from .configuration_qwen3_moe import Qwen3MoeConfig
@@ -31,5 +31,10 @@ class Qwen3MoeModel(LlamaModel):
 
 
 class Qwen3MoeForCausalLM(LlamaForCausalLM):
+    config_class = Qwen3MoeConfig
+    model_cls = Qwen3MoeModel
+
+
+class Qwen3MoeModelStandalone(LlamaModelStandalone):
     config_class = Qwen3MoeConfig
     model_cls = Qwen3MoeModel

@@ -9,9 +9,15 @@ Checkpoints hold one tensor per expert (``mlp.experts.N.gate_proj``).
 
 from __future__ import annotations
 
-from ..glm4_moe.modeling_glm4_moe import Glm4MoeForCausalLM
+from ..glm4_moe.modeling_glm4_moe import Glm4MoeForCausalLM, Glm4MoeModel
+from ..llama.modeling_llama import LlamaModelStandalone
 from .configuration_solar_open import SolarOpenConfig
 
 
 class SolarOpenForCausalLM(Glm4MoeForCausalLM):
     config_class = SolarOpenConfig
+
+
+class SolarOpenModelStandalone(LlamaModelStandalone):
+    config_class = SolarOpenConfig
+    model_cls = Glm4MoeModel
